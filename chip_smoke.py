@@ -1,0 +1,331 @@
+#!/usr/bin/env python3
+"""Smoke run of `hyperspace_tpu_torch` on one CUDA card.
+
+    python3 chip_smoke.py
+
+Builds the package's CUDA kernels from the sources in this checkout, holds
+each kernel against its plain PyTorch version on the card, then drives the
+Quick Start loop through the public entry points at the size of
+`bench.py`'s filter rung: a 16,777,216-row Parquet source (key, k2, id,
+score; 512 MB in 4 files), `Hyperspace.create_index` at the default 200
+buckets, and two index-served filters (a bucket-pruned point lookup on the
+host lane and a full-index range on the device lane), each checked against
+numpy over the source. Every phase prints one JSON line; any mismatch or
+error ends the run with a non-zero exit. The last lines are the kernel
+table, the card's name and power limit as `nvidia-smi` reports them, and
+`{"ok": true, "device": {...}}`.
+
+Needs one CUDA card; exits non-zero without one, or without the package
+beside it. Scratch data lives under `_smoke/` in the checkout and is
+removed at the end.
+"""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+N_ROWS = 1 << 24
+N_FILES = 4
+SEED = 42
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
+INT_OPS_PER_S = 67e12           # H100 SXM non-tensor 32-bit rate
+HASH_OPS_PER_LANE = 20          # fmix32 + hash_combine, 32-bit ops
+
+
+def emit(phase, **fields):
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def fail(message):
+    print(f"chip_smoke: FAILED: {message}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(cond, message):
+    if not cond:
+        fail(message)
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+# -- a self-contained numpy copy of THE bucket hash identity ---------------
+
+def _np_fmix32(h):
+    import numpy as np
+    h = h ^ (h >> np.uint32(16))
+    h = h * np.uint32(0x85EBCA6B)
+    h = h ^ (h >> np.uint32(13))
+    h = h * np.uint32(0xC2B2AE35)
+    return h ^ (h >> np.uint32(16))
+
+
+def np_bucket_ids_int64(key, num_buckets):
+    """Bucket ids of an int64 key column: fmix32(hi) hash-combined with
+    fmix32(lo), modulo the bucket count."""
+    import numpy as np
+    with np.errstate(over="ignore"):
+        h1 = _np_fmix32((key >> 32).astype(np.uint32))
+        h2 = _np_fmix32((key & 0xFFFFFFFF).astype(np.uint32))
+        h = h1 ^ (h2 + np.uint32(0x9E3779B9) + (h1 << np.uint32(6))
+                  + (h1 >> np.uint32(2)))
+    return (h % np.uint32(num_buckets)).astype(np.int32)
+
+
+# -- timing on the card ------------------------------------------------------
+
+def cuda_ms(fn, iters=20, repeats=5):
+    """Milliseconds per call of `fn` on the card: CUDA events around
+    `iters` back-to-back calls (so the host's enqueue runs ahead of the
+    card), median over `repeats` such runs, after one warm call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def wall_ms(fn, iters=3):
+    """Median host milliseconds of `fn` (which ends in a host copy)."""
+    fn()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return times[len(times) // 2]
+
+
+# -- phases ------------------------------------------------------------------
+
+def phase_kernel_hash(hash_kernel):
+    """The hash kernel against its plain version at every size/lane/bucket
+    case, with tolerance 0 (the on-disk layout needs identical bucket ids);
+    timed at the build's shape."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cases = 0
+    worst = 0
+    for n in (1, 127, 129, 4097, 70_000, N_ROWS):
+        for n_lanes in (1, 2, 4, 6):
+            lanes = torch.randint(-2**31, 2**31, (n_lanes, n),
+                                  dtype=torch.int32, device="cuda",
+                                  generator=gen)
+            if n >= 4:
+                lanes[:, 0] = 0    # an all-zero row
+                lanes[:, 1] = -1   # an all-0xFFFFFFFF row
+            for num_buckets in (8, 64, 200, 1024):
+                got = hash_kernel.hash_lanes_to_buckets(lanes, num_buckets)
+                torch.cuda.synchronize()
+                want = hash_kernel.hash_lanes_to_buckets_reference(
+                    lanes, num_buckets)
+                err = int((got.long() - want.long()).abs().max().item()) \
+                    if n else 0
+                worst = max(worst, err)
+                check(err == 0 and got.dtype == torch.int32,
+                      f"kernel != plain at n={n} L={n_lanes} "
+                      f"B={num_buckets}")
+                cases += 1
+    # The build's shape: an int64 key -> 2 lanes, 200 buckets.
+    n, n_lanes, num_buckets = N_ROWS, 2, 200
+    lanes = torch.randint(-2**31, 2**31, (n_lanes, n), dtype=torch.int32,
+                          device="cuda", generator=gen)
+    ms = cuda_ms(lambda: hash_kernel.hash_lanes_to_buckets(lanes,
+                                                            num_buckets))
+    plain_ms = cuda_ms(lambda: hash_kernel.hash_lanes_to_buckets_reference(
+        lanes, num_buckets), iters=5, repeats=3)
+    nbytes = 4 * n * (n_lanes + 1)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = HASH_OPS_PER_LANE * n * n_lanes / INT_OPS_PER_S * 1e3
+    row = {"name": "hash_lanes_to_buckets", "route": "cuda",
+           "source": "hyperspace_tpu_torch/csrc/hash_buckets.cu",
+           "replaces": "hyperspace_tpu/ops/pallas/hash_kernel.py:56",
+           "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "library_ms": None}
+    emit("kernel_hash", cases=cases, max_abs_err=worst, tolerance=0, n=n,
+         lanes=n_lanes, num_buckets=num_buckets, bytes=nbytes, ms=ms,
+         bound_ms=row["bound_ms"], plain_ms=plain_ms)
+    return row
+
+
+def write_source(src_dir):
+    """bench.py's filter-rung schema at N_ROWS rows, in N_FILES files."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rng = np.random.default_rng(SEED)
+    cols = {
+        "key": rng.integers(0, N_ROWS // 4, N_ROWS).astype(np.int64),
+        "k2": rng.integers(0, 100, N_ROWS).astype(np.int64),
+        "id": np.arange(N_ROWS, dtype=np.int64),
+        "score": rng.random(N_ROWS).astype(np.float64),
+    }
+    os.makedirs(src_dir)
+    step = N_ROWS // N_FILES
+    for i in range(N_FILES):
+        part = pa.table({k: v[i * step:(i + 1) * step]
+                         for k, v in cols.items()})
+        pq.write_table(part, os.path.join(src_dir, f"part-{i}.parquet"))
+    return cols
+
+
+def phase_build(hs, sess, src_dir, cols):
+    import numpy as np
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import IndexConfig
+    from hyperspace_tpu_torch.io.builder import BUILD_PHASES
+
+    registry = hs.metrics_registry()
+    before = registry.counters_dict()
+    df = sess.read_parquet(src_dir)
+    t0 = time.perf_counter()
+    hs.create_index(df, IndexConfig("smokeIdx", ["key"],
+                                    ["k2", "id", "score"]))
+    build_s = time.perf_counter() - t0
+    after = registry.counters_dict()
+    phases = {p: after.get(f"build.phase.{p}_s", 0.0)
+              - before.get(f"build.phase.{p}_s", 0.0) for p in BUILD_PHASES}
+
+    catalog = hs.indexes()
+    (root,) = catalog[catalog["name"] == "smokeIdx"]["indexLocation"]
+    files = sorted(f for f in os.listdir(root) if f.endswith(".parquet"))
+    rows = 0
+    for name in files:
+        bucket = int(name[len("part-"):len("part-") + 5])
+        key = pq.read_table(os.path.join(root, name),
+                            columns=["key"]).column("key").to_numpy()
+        rows += len(key)
+        check((np_bucket_ids_int64(key, 200) == bucket).all(),
+              f"{name}: a row hashes to another bucket")
+        check((np.diff(key) >= 0).all(), f"{name}: keys not sorted")
+    check(rows == len(cols["key"]), f"index holds {rows} rows")
+    emit("build", rows=rows, files=len(files), num_buckets=200,
+         seconds=build_s, phase_seconds=phases, root=root)
+    return df, root
+
+
+def phase_query(sess, df, root, cols):
+    import numpy as np
+
+    from hyperspace_tpu_torch import col, lit
+
+    sess.enable_hyperspace()
+    key_hit = int(cols["key"][0])
+    point = (df.filter((col("key") == lit(key_hit)) & (col("k2") < lit(50)))
+             .select("id", "score"))
+    scan = (df.filter((col("key") >= lit(0)) & (col("k2") < lit(50)))
+            .select("id", "score"))
+    out = {}
+    for name, frame, mask in (
+            ("point", point, (cols["key"] == key_hit) & (cols["k2"] < 50)),
+            ("range", scan, cols["k2"] < 50)):
+        roots = [p for leaf in sess.optimize(frame.plan).collect_leaves()
+                 for p in leaf.root_paths]
+        check(roots and all(r.startswith(root) and "v__=" in r
+                            for r in roots),
+              f"{name} query not index-served: {roots}")
+        table, metrics = frame.collect(with_metrics=True)
+        (op,) = [o for o in metrics.operators if o.name == "Scan"]
+        ids = table.column("id").to_numpy()
+        order = np.argsort(ids)
+        want = np.nonzero(mask)[0]
+        check(np.array_equal(ids[order], want), f"{name}: wrong rows")
+        check(np.array_equal(table.column("score").to_numpy()[order],
+                             cols["score"][want]), f"{name}: wrong scores")
+        warm = wall_ms(frame.collect)
+        out[name] = {"rows": len(ids), "lane": op.detail.get("lane"),
+                     "buckets_scanned": op.detail.get("buckets_scanned"),
+                     "warm_ms": warm}
+    check(out["point"]["lane"] == "host" and out["range"]["lane"] == "device",
+          f"unexpected lanes: {out}")
+    emit("query", **out)
+
+
+def main():
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this smoke run needs one card")
+    sys.path.insert(0, REPO)
+    try:
+        import hyperspace_tpu_torch  # noqa: F401
+    except ImportError as exc:
+        fail(f"hyperspace_tpu_torch is not beside this script ({exc})")
+
+    import pyarrow  # the lake phases need it
+
+    from hyperspace_tpu_torch import (Hyperspace, HyperspaceConf,
+                                      HyperspaceSession)
+    from hyperspace_tpu_torch.ops.cuda import build as kbuild
+    from hyperspace_tpu_torch.ops.cuda import hash_kernel
+
+    card = card_line()
+    emit("env", card=card, torch=torch.__version__,
+         cuda=torch.version.cuda, python=sys.version.split()[0],
+         pyarrow=pyarrow.__version__,
+         device=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count())
+
+    t0 = time.perf_counter()
+    seconds = kbuild.build_all()
+    emit("build_kernels", seconds=time.perf_counter() - t0,
+         per_library=seconds)
+
+    rows = [phase_kernel_hash(hash_kernel)]
+
+    work = os.path.join(REPO, "_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        cols = write_source(os.path.join(work, "src"))
+        emit("source", rows=N_ROWS, files=N_FILES,
+             seconds=time.perf_counter() - t0)
+        sess = HyperspaceSession(HyperspaceConf(
+            {"spark.hyperspace.warehouse.dir": os.path.join(work, "wh")}))
+        hs = Hyperspace(sess)
+        # The main path: counts from zero, read right after it.
+        hash_kernel.hash_lanes_to_buckets.launches = 0
+        df, root = phase_build(hs, sess, os.path.join(work, "src"), cols)
+        phase_query(sess, df, root, cols)
+        launches = hash_kernel.hash_lanes_to_buckets.launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    check(launches > 0, "the build never launched the hash kernel")
+    rows[0]["launches"] = launches
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

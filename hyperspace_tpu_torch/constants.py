@@ -1,0 +1,105 @@
+"""Framework-wide constants: config keys, op-log layout, lifecycle states.
+
+Parity: reference `index/IndexConstants.scala:21-50` and
+`actions/Constants.scala:19-33`. Config keys keep the reference's
+`spark.hyperspace.*` spelling (so existing user configs translate 1:1) and the
+`hyperspace.*` short form is accepted as an alias (see `config.py`).
+"""
+
+INDEXES_DIR = "indexes"
+
+# Config keys (reference `index/IndexConstants.scala:24-35`).
+INDEX_SYSTEM_PATH = "spark.hyperspace.system.path"
+INDEX_CREATION_PATH = "spark.hyperspace.index.creation.path"
+INDEX_SEARCH_PATHS = "spark.hyperspace.index.search.paths"
+INDEX_NUM_BUCKETS = "spark.hyperspace.index.num.buckets"
+# The reference defaults numBuckets to spark.sql.shuffle.partitions (= 200);
+# 200 is kept for drop-in config parity.
+INDEX_NUM_BUCKETS_DEFAULT = 200
+
+INDEX_CACHE_EXPIRY_DURATION_SECONDS = (
+    "spark.hyperspace.index.cache.expiryDurationInSeconds")
+INDEX_CACHE_EXPIRY_DURATION_SECONDS_DEFAULT = 300
+
+# Object-store OCC: backends with no create precondition (neither GCS
+# generation match nor S3 conditional put nor atomic exclusive create)
+# make write_log RAISE, because check-then-create corrupts the op log
+# under concurrency — unless this conf explicitly accepts single-writer
+# semantics.
+SINGLE_WRITER = "spark.hyperspace.single.writer"
+
+# Storage-IO retry policy (`utils/retry.py`, the ONE backoff point in the
+# package — the metrics-coverage lint fails any ad-hoc sleep-in-except
+# loop elsewhere). Exponential backoff with deterministic per-operation
+# jitter; transient errors (connection resets, timeouts, HTTP 429/5xx,
+# torn reads of in-flight publishes) retry up to `attempts` total tries,
+# permanent errors (not-found, permission, 4xx) fail immediately.
+IO_RETRY_ATTEMPTS = "spark.hyperspace.io.retry.attempts"
+IO_RETRY_ATTEMPTS_DEFAULT = 5
+IO_RETRY_BASE_MS = "spark.hyperspace.io.retry.base.ms"
+IO_RETRY_BASE_MS_DEFAULT = 20
+IO_RETRY_MAX_MS = "spark.hyperspace.io.retry.max.ms"
+IO_RETRY_MAX_MS_DEFAULT = 2000
+
+# Crash recovery lease: a maintenance action that finds the op log's
+# latest entry in a TRANSIENT state (CREATING/REFRESHING/...) treats the
+# in-flight writer as crashed once the entry is older than this many
+# seconds, and runs the Cancel FSM transition back to the last stable
+# state before proceeding (`Hyperspace.recover_index` forces the same
+# recovery immediately). Size it above the longest expected build.
+MAINTENANCE_LEASE_SECONDS = "spark.hyperspace.maintenance.lease.seconds"
+MAINTENANCE_LEASE_SECONDS_DEFAULT = 600
+
+# Per-row lineage (extension; the reference's v0.2 direction): when enabled
+# at build time, every index row carries the id of the source file it came
+# from (`LINEAGE_COLUMN`, internal — never surfaced in query results) and
+# the log entry stores per-file (size, stamp, id) records. Hybrid scan can
+# then serve queries over a source with DELETED files by excluding those
+# rows, and incremental refresh handles deletions as a per-bucket lineage
+# filter instead of a full rebuild.
+LINEAGE_ENABLED = "spark.hyperspace.index.lineage.enabled"
+LINEAGE_COLUMN = "_hs_file_id"
+
+# Where the device lane runs: "cuda" (the default; a CUDA card must be
+# present) or "cpu". `HyperspaceSession(device=...)` sets it.
+DEVICE = "spark.hyperspace.device"
+
+# Adaptive host/device execution lane: reads below this row count are
+# evaluated with host numpy, larger ones run on the device. The default is
+# the JAX package's, so both packages take the same lane decisions; 0
+# forces everything onto the device.
+MIN_DEVICE_ROWS = "spark.hyperspace.execution.min.device.rows"
+MIN_DEVICE_ROWS_DEFAULT = 4_194_304
+
+WAREHOUSE_PATH = "spark.hyperspace.warehouse.dir"
+WAREHOUSE_PATH_DEFAULT = "warehouse"
+
+# Operation log layout (reference `index/IndexConstants.scala:38-39`).
+HYPERSPACE_LOG = "_hyperspace_log"
+INDEX_VERSION_DIRECTORY_PREFIX = "v__"
+LATEST_STABLE_LOG = "latestStable"
+
+# Commit marker written LAST into every `v__=N` data dir (the Delta-style
+# finalize): readers (`IndexDataManager.get_latest_version_id`, optimize/
+# incremental refresh picking the "current" version) only see versions
+# carrying it, so a crashed build's partially-written dir is invisible —
+# it is skipped for the next version number and hard-deleted by vacuum.
+# The leading underscore keeps it out of every parquet file listing.
+INDEX_DATA_COMMIT_MARKER = "_committed"
+
+
+class States:
+    """Index lifecycle states (reference `actions/Constants.scala:20-30`)."""
+
+    ACTIVE = "ACTIVE"
+    CREATING = "CREATING"
+    DELETING = "DELETING"
+    DELETED = "DELETED"
+    REFRESHING = "REFRESHING"
+    VACUUMING = "VACUUMING"
+    RESTORING = "RESTORING"
+    DOESNOTEXIST = "DOESNOTEXIST"
+    CANCELLING = "CANCELLING"
+    OPTIMIZING = "OPTIMIZING"  # extension: incremental merge-compaction
+
+STABLE_STATES = (States.ACTIVE, States.DELETED, States.DOESNOTEXIST)

@@ -1,0 +1,103 @@
+"""User-facing DataFrame: a logical plan + session.
+
+The equivalent of the Spark DataFrame surface the reference operates on,
+cut to the filter path: `filter`/`select` are lazy plan builders;
+`collect`/`to_pandas`/`count` run the optimizer (rewrite rules, when
+enabled) and execute. Joins, sorts, aggregates and the other verbs of the
+JAX package come with the engine slices that execute them (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+from hyperspace_tpu_torch.exceptions import HyperspaceException
+from hyperspace_tpu_torch.plan import expr as E
+from hyperspace_tpu_torch.plan.nodes import Filter, LogicalPlan, Project
+from hyperspace_tpu_torch.plan.schema import Schema
+
+
+class DataFrame:
+    def __init__(self, plan: LogicalPlan, session=None):
+        self.plan = plan
+        self.session = session
+
+    @property
+    def schema(self) -> Schema:
+        return self.plan.schema
+
+    @property
+    def columns(self) -> List[str]:
+        return self.schema.names
+
+    # -- transformations (lazy) ------------------------------------------
+
+    def filter(self, condition: E.Expression) -> "DataFrame":
+        if not isinstance(condition, E.Expression):
+            raise HyperspaceException("filter() takes an Expression predicate.")
+        return DataFrame(Filter(condition, self.plan), self.session)
+
+    where = filter
+
+    def select(self, *columns) -> "DataFrame":
+        """Projection. Entries are column names or named expressions:
+        `df.select("a", (col("x") * col("y")).alias("xy"))`."""
+        names = [c for col in columns
+                 for c in (col if isinstance(col, (list, tuple)) else [col])]
+        return DataFrame(Project(names, self.plan), self.session)
+
+    # -- actions (execute) ------------------------------------------------
+
+    def _optimized_plan(self) -> LogicalPlan:
+        if self.session is not None:
+            return self.session.optimize(self.plan)
+        return self.plan
+
+    def _conf(self):
+        return self.session.conf if self.session is not None else None
+
+    def collect(self, with_metrics: bool = False):
+        """Execute and return an Arrow table. `with_metrics=True` returns
+        `(table, telemetry.QueryMetrics)` instead — per-operator timings
+        and row counts, optimizer-rule decision events, and index-usage
+        records for THIS query; the last one is also kept as
+        `session.last_query_metrics()`.
+
+        A rewritten plan whose index data turns out missing or unreadable
+        (`IndexDataUnavailableError`) is answered from the source plan
+        instead, and the fallback is counted (`resilience.fallbacks`)."""
+        from hyperspace_tpu_torch import telemetry
+        from hyperspace_tpu_torch.engine.executor import execute_plan
+        from hyperspace_tpu_torch.exceptions import IndexDataUnavailableError
+        from hyperspace_tpu_torch.io.columnar import to_arrow
+
+        metrics = telemetry.QueryMetrics(
+            description=", ".join(self.schema.names[:6]))
+        conf = self._conf()
+        with telemetry.recording(metrics):
+            plan = self._optimized_plan()
+            try:
+                batch = execute_plan(plan, conf=conf)
+            except IndexDataUnavailableError as exc:
+                if plan is self.plan:
+                    raise  # no rewrite to fall back from
+                telemetry.get_registry().counter(
+                    "resilience.fallbacks").inc()
+                metrics.event("resilience", "degraded",
+                              index=exc.index_name, reason=str(exc))
+                batch = execute_plan(self.plan, conf=conf)
+            table = to_arrow(batch)
+        metrics.finish()
+        if self.session is not None:
+            self.session._last_query_metrics = metrics
+        return (table, metrics) if with_metrics else table
+
+    def to_pandas(self):
+        return self.collect().to_pandas()
+
+    def count(self) -> int:
+        return self.collect().num_rows
+
+    def __repr__(self):
+        return f"DataFrame[{', '.join(self.schema.names)}]"
+

@@ -1,0 +1,107 @@
+"""Session: the user's entry point to the engine + optimizer hook.
+
+Parity: the reference plugs its rules into Spark's
+`sessionState.experimentalMethods.extraOptimizations` via
+`enableHyperspace()` (`package.scala:46-51`); here the session owns its
+optimizer rule list directly.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List, Optional
+
+from hyperspace_tpu_torch._torch_config import (DeviceLike, device_of,
+                                               resolve_device)
+from hyperspace_tpu_torch.config import HyperspaceConf
+from hyperspace_tpu_torch.constants import DEVICE
+from hyperspace_tpu_torch.exceptions import HyperspaceException
+from hyperspace_tpu_torch.plan.nodes import LogicalPlan, Scan
+from hyperspace_tpu_torch.plan.schema import Schema
+
+
+class HyperspaceSession:
+    """`device` names where the device lane runs: None (the default) means
+    the CUDA card, "cpu" the CPU. It is recorded in the conf
+    (`spark.hyperspace.device`), which every operator and the index build
+    read; with no CUDA device and no explicit "cpu", construction raises
+    (`_torch_config.resolve_device`)."""
+
+    def __init__(self, conf: Optional[HyperspaceConf] = None,
+                 device: DeviceLike = None):
+        self.conf = conf or HyperspaceConf()
+        if device is not None or not self.conf.contains(DEVICE):
+            self.conf.set(DEVICE, str(resolve_device(device)))
+        self.device = device_of(self.conf)
+        self._rules: List = []
+        self._hyperspace_enabled = False
+        self._last_query_metrics = None
+
+    def last_query_metrics(self):
+        """`telemetry.QueryMetrics` of the most recent query collected
+        through this session, or None."""
+        return self._last_query_metrics
+
+    def metrics_registry(self):
+        """The PROCESS-WIDE metrics registry (counters, gauges,
+        histograms); sessions share it."""
+        from hyperspace_tpu_torch import telemetry
+        return telemetry.get_registry()
+
+    # -- data sources -----------------------------------------------------
+
+    def read_parquet(self, *paths: str, schema: Optional[Schema] = None):
+        from hyperspace_tpu_torch.engine.dataframe import DataFrame
+        if not paths:
+            raise HyperspaceException("read_parquet requires at least one path.")
+        if schema is None:
+            import pyarrow.parquet as pq
+            import glob as _glob
+            from hyperspace_tpu_torch.utils import storage
+            probe = paths[0]
+            if storage.is_url(probe):
+                fs, real = storage.get_fs(probe)
+                if fs.isdir(real):
+                    candidates = sorted(
+                        f for f in fs.find(real) if f.endswith(".parquet"))
+                    if not candidates:
+                        raise HyperspaceException(
+                            f"No parquet files under {probe}")
+                    real = candidates[0]
+                with fs.open(real, "rb") as f:
+                    schema = Schema.from_arrow(pq.read_schema(f))
+                return DataFrame(Scan(list(paths), schema), self)
+            # (local branch below probes with os paths)
+            if os.path.isdir(probe):
+                candidates = sorted(
+                    _glob.glob(os.path.join(probe, "**", "*.parquet"),
+                               recursive=True))
+                if not candidates:
+                    raise HyperspaceException(f"No parquet files under {probe}")
+                probe = candidates[0]
+            schema = Schema.from_arrow(pq.read_schema(probe))
+        return DataFrame(Scan(list(paths), schema), self)
+
+    # -- optimizer plumbing ----------------------------------------------
+
+    def enable_hyperspace(self) -> "HyperspaceSession":
+        """Plug the rewrite rule batch (reference `package.scala:46-51`).
+        This package serves filters from indexes; the join rule comes
+        with the join operators (ROADMAP.md)."""
+        from hyperspace_tpu_torch.plan.rules.filter_index import (
+            FilterIndexRule)
+        if not self._hyperspace_enabled:
+            self._rules = [FilterIndexRule(self)]
+            self._hyperspace_enabled = True
+        return self
+
+    def disable_hyperspace(self) -> "HyperspaceSession":
+        """Reference `package.scala:58-63`."""
+        self._rules = []
+        self._hyperspace_enabled = False
+        return self
+
+    def optimize(self, plan: LogicalPlan) -> LogicalPlan:
+        for rule in self._rules:
+            plan = rule.apply(plan)
+        return plan

@@ -1,0 +1,84 @@
+"""The Hyperspace user facade.
+
+Parity: reference `Hyperspace.scala:24-133` — lifecycle verbs delegated to
+the index collection manager and the `indexes` catalog view, plus the
+session-keyed context holding a CachingIndexCollectionManager
+(`Hyperspace.scala:107-133`). This package carries the create path; the
+other verbs (refresh, optimize, delete, restore, vacuum, explain) are
+queued in ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import threading
+import weakref
+from typing import Optional
+
+from hyperspace_tpu_torch.engine.session import HyperspaceSession
+from hyperspace_tpu_torch.index.index_config import IndexConfig
+from hyperspace_tpu_torch.index.manager import CachingIndexCollectionManager
+
+
+class HyperspaceContext:
+    """Per-session context (reference `Hyperspace.scala:131-133`).
+
+    Holds no strong reference back to the session (it is the weak key in
+    `Hyperspace._contexts`); only the conf-derived manager lives here.
+    """
+
+    def __init__(self, session: HyperspaceSession):
+        self.index_collection_manager = CachingIndexCollectionManager(session.conf)
+
+
+class Hyperspace:
+    # Weak keys: a dropped session must not be pinned by its context.
+    _contexts: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+    _lock = threading.Lock()
+
+    def __init__(self, session: Optional[HyperspaceSession] = None):
+        self.session = session or HyperspaceSession()
+        self._context = Hyperspace.get_context(self.session)
+
+    @staticmethod
+    def get_context(session: HyperspaceSession) -> HyperspaceContext:
+        """Session-keyed context cache (reference `Hyperspace.scala:107-129`
+        uses a thread-local keyed on the active session)."""
+        with Hyperspace._lock:
+            ctx = Hyperspace._contexts.get(session)
+            if ctx is None:
+                ctx = HyperspaceContext(session)
+                Hyperspace._contexts[session] = ctx
+            return ctx
+
+    @property
+    def _manager(self) -> CachingIndexCollectionManager:
+        return self._context.index_collection_manager
+
+    # -- lifecycle verbs (reference `Hyperspace.scala:33-92`) -------------
+
+    def create_index(self, df, index_config: IndexConfig) -> None:
+        """Build a covering index (bucketed, sorted derived dataset) over
+        `df`'s relation, through the transactional log FSM."""
+        self._manager.create(df, index_config)
+
+    def cancel(self, index_name: str) -> None:
+        self._manager.cancel(index_name)
+
+    def recover_index(self, index_name: str) -> bool:
+        """Force crash recovery: if a writer died mid-operation (the log's
+        latest entry is transient), run the Cancel FSM transition back to
+        the last stable state immediately — no waiting for the
+        `spark.hyperspace.maintenance.lease.seconds` lease that gates
+        AUTOMATIC recovery by the next create. Returns True iff a
+        recovery ran (False: index already stable)."""
+        return self._manager.recover(index_name)
+
+    def indexes(self):
+        """Catalog as a pandas DataFrame (reference `Hyperspace.scala:33-36`)."""
+        return self._manager.indexes_df()
+
+    def metrics_registry(self):
+        """The process-wide metrics registry (build phase seconds,
+        action reports, counters)."""
+        from hyperspace_tpu_torch import telemetry
+        return telemetry.get_registry()

@@ -1,0 +1,112 @@
+"""Plan fingerprinting: the index <-> query matching key.
+
+Parity: reference `index/LogicalPlanSignatureProvider.scala:27-63` (trait +
+factory; the provider class name is stored in index metadata and
+re-instantiated by reflection at query time) and
+`index/FileBasedSignatureProvider.scala:48-74` (default provider folds
+`md5(accumulate + len + mtime + path)` over all files of every file-scan
+leaf). Signature = data-content identity: a rewrite is legal only if the
+query's relation signature equals the one captured at index-build time.
+"""
+
+from __future__ import annotations
+
+import os
+from abc import ABC, abstractmethod
+from typing import Optional
+
+from hyperspace_tpu_torch.exceptions import HyperspaceException
+from hyperspace_tpu_torch.plan.nodes import LogicalPlan, Scan
+from hyperspace_tpu_torch.utils.hashing import md5_hex
+
+
+def file_stamp(path: str):
+    """(size, stamp) identity of one file, or None if it is missing.
+
+    The stamp folds the backend's modification time — plus etag/generation
+    where the store exposes content identity — exactly as the signature
+    fold below consumes it, so `md5(acc + str(size) + stamp + path)`
+    reproduces the historical signature byte-for-byte. The same (size,
+    stamp) pairs are persisted per file by lineage-enabled builds
+    (`index/log_entry.FileInfo`) for per-file delta classification."""
+    from hyperspace_tpu_torch.utils import storage
+
+    if storage.is_url(path):
+        fs, real = storage.get_fs(path)
+        try:
+            info = fs.info(real)
+        except (OSError, FileNotFoundError):
+            return None
+        size = info.get("size", 0) or 0
+        # Backends name their modification stamp differently (S3
+        # LastModified, GCS updated, ABFS last_modified, memory created);
+        # the etag/generation participates too so in-place rewrites that
+        # preserve size+time still change the identity where the store
+        # exposes content hashes.
+        mtime = next((info[k] for k in ("mtime", "updated", "last_modified",
+                                        "LastModified", "created")
+                      if info.get(k)), 0)
+        etag = (info.get("etag") or info.get("ETag")
+                or info.get("generation") or "")
+        return int(size), str(mtime) + str(etag)
+    try:
+        stat = os.stat(path)
+    except OSError:
+        return None
+    return int(stat.st_size), str(int(stat.st_mtime_ns))
+
+
+class LogicalPlanSignatureProvider(ABC):
+    # The provider name stored in index metadata. It is part of the
+    # on-lake format, shared with `hyperspace_tpu`, so it names the JAX
+    # package's class path: each package resolves it to its own provider.
+    STORED_NAME: str = ""
+
+    @classmethod
+    def name(cls) -> str:
+        """Provider name stored in index metadata."""
+        return cls.STORED_NAME
+
+    @abstractmethod
+    def signature(self, plan: LogicalPlan) -> Optional[str]:
+        """Signature of `plan`, or None if the plan has unsupported leaves."""
+
+
+class SignatureProviderFactory:
+    """Re-instantiate a provider from its stored name (reference
+    `LogicalPlanSignatureProvider.scala:55-62` does so by reflection; the
+    stored names are the JAX package's class paths, so this package maps
+    them to its own classes instead of importing anything)."""
+
+    @staticmethod
+    def create(name: str) -> LogicalPlanSignatureProvider:
+        for cls in (FileBasedSignatureProvider,):
+            if cls.name() == name:
+                return cls()
+        raise HyperspaceException(
+            f"Cannot instantiate signature provider: {name}")
+
+
+class FileBasedSignatureProvider(LogicalPlanSignatureProvider):
+    """Fold md5 over (len, mtime, path) of every file of every Scan leaf,
+    bottom-up (reference `FileBasedSignatureProvider.scala:48-74`). Known
+    limitation kept intentionally: ignores plan *structure*, hence the join
+    rule's linearity requirement (reference `JoinIndexRule.scala:194-205`).
+    """
+
+    STORED_NAME = "hyperspace_tpu.index.signature.FileBasedSignatureProvider"
+
+    def signature(self, plan: LogicalPlan) -> Optional[str]:
+        accumulate = ""
+        saw_scan = False
+        for leaf in plan.collect_leaves():
+            if not isinstance(leaf, Scan):
+                return None
+            saw_scan = True
+            for path in leaf.files():
+                stamp = file_stamp(path)
+                if stamp is None:
+                    return None
+                size, tag = stamp
+                accumulate = md5_hex(accumulate + str(size) + tag + path)
+        return accumulate if saw_scan else None

@@ -1,0 +1,314 @@
+"""The index build pipeline — the framework's hot data path.
+
+Reference equivalent: `CreateActionBase.write` =
+`df.select(indexed++included).repartition(numBuckets, indexedCols)
+.write.saveWithBuckets(...)` (`actions/CreateActionBase.scala:99-120`) — a
+distributed JVM shuffle + per-bucket sort + parquet encode.
+
+Pipeline on one device:
+1. decode the source parquet (host, pyarrow);
+2. stage the KEY columns on the device (one H2D copy per lane);
+3. bucket ids from the hand-written hash kernel, then ONE stable
+   (bucket, *keys) sort — this both groups rows by bucket and sorts within
+   buckets (`ops/build.py`);
+4. bucket boundaries via two searchsorted calls; the int64 permutation
+   crosses back to the host;
+5. the host applies the permutation to the Arrow table and writes one
+   parquet file per bucket.
+
+Each phase's wall seconds accumulate in the process registry as
+`build.phase.<decode|h2d|bucket_sort|d2h|write>_s` (device phases end in
+a synchronize, so the split is honest at the cost of no overlap).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from contextlib import contextmanager
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from hyperspace_tpu_torch.exceptions import HyperspaceException
+from hyperspace_tpu_torch.io import columnar, parquet
+from hyperspace_tpu_torch.plan.nodes import BucketSpec
+
+BUILD_PHASES = ("decode", "h2d", "bucket_sort", "d2h", "write")
+
+
+@contextmanager
+def _phase(name: str, device: Optional[torch.device] = None):
+    """Time one build phase into `build.phase.<name>_s`; a CUDA phase
+    ends in a synchronize so its device work lands inside it."""
+    from hyperspace_tpu_torch import telemetry
+
+    t0 = time.perf_counter()
+    yield
+    if device is not None and device.type == "cuda":
+        torch.cuda.synchronize(device)
+    telemetry.get_registry().counter(f"build.phase.{name}_s").inc(
+        time.perf_counter() - t0)
+
+
+def _write_sorted_runs(table, perm, starts, ends, path: str,
+                       file_suffix: Optional[str]) -> List[str]:
+    """Apply the (bucket, *keys) sort permutation to the host table and
+    write one file per non-empty bucket. `perm`, `starts` and `ends` are
+    numpy arrays or tensors, which cross to the host here."""
+    import pyarrow as pa
+
+    from hyperspace_tpu_torch.utils import file_utils
+
+    def host(arr):
+        return (arr.cpu().numpy() if isinstance(arr, torch.Tensor)
+                else np.asarray(arr))
+
+    with _phase("d2h"):
+        perm, starts, ends = host(perm), host(starts), host(ends)
+    written: List[str] = []
+    file_utils.create_directory(path)
+    with _phase("write"):
+        sorted_table = table.take(pa.array(perm))
+        for b in range(len(starts)):
+            s, e = int(starts[b]), int(ends[b])
+            if e <= s:
+                continue  # empty bucket -> no file (Spark parity)
+            out = os.path.join(path, parquet.bucket_file_name(b, file_suffix))
+            parquet.write_table(sorted_table.slice(s, e - s), out)
+            written.append(out)
+    return written
+
+
+# Below this row count the build permutation is computed on the host
+# (numpy): launching device work and moving the keys cannot pay off for
+# small builds. Bucket assignment uses the host mirror of THE hash
+# identity, so the on-disk layout is indistinguishable from a device build.
+BUILD_MIN_DEVICE_ROWS = 1_000_000
+
+
+def build_lane(rows: int) -> str:
+    """Which permutation engine a HOST-resident build of `rows` rows
+    takes: "host-lexsort" (small build) or "device". The JAX package also
+    has a "native-host" lane (its C++ radix library); that library is not
+    part of this package, so every build of BUILD_MIN_DEVICE_ROWS rows or
+    more takes the device — the branch the JAX package takes when its
+    native library is absent."""
+    if rows < BUILD_MIN_DEVICE_ROWS:
+        return "host-lexsort"
+    return "device"
+
+
+def _host_lane_preferred(rows: int) -> bool:
+    return build_lane(rows) != "device"
+
+
+def _host_build_permutation(table, names: Sequence[str], num_buckets: int):
+    """Host (bucket, *keys) stable sort permutation + bucket boundaries,
+    mirroring the device layout semantics with numpy's lexsort."""
+    from hyperspace_tpu_torch.ops.host_hash import (host_column_hash_lanes,
+                                                    host_flat_hash32)
+    from hyperspace_tpu_torch.ops.keys import host_column_sort_lanes
+
+    batch = columnar.from_arrow(table.select(names))
+    hash_lanes: List = []
+    for name in names:
+        hash_lanes.extend(host_column_hash_lanes(batch.column(name)))
+    bucket = (host_flat_hash32(hash_lanes)
+              % np.uint32(num_buckets)).astype(np.int32)
+    sort_lanes: List = []
+    for name in names:
+        sort_lanes.extend(host_column_sort_lanes(batch.column(name)))
+    perm = np.lexsort(tuple(reversed([bucket] + sort_lanes)))
+    sorted_bucket = bucket[perm]
+    starts = np.searchsorted(sorted_bucket, np.arange(num_buckets), "left")
+    ends = np.searchsorted(sorted_bucket, np.arange(num_buckets), "right")
+    return perm.astype(np.int64), starts, ends
+
+
+def _stage_key_tree(table, names: Sequence[str], device: torch.device):
+    """Stage the key columns of a host Arrow table on `device` as a key
+    tree for `ops.build.permutation_from_tree`, with narrow transport: a
+    null-free int64 column whose values fit uint32 (host range check)
+    ships HALF the bytes as a single `lo32` lane (its uint32 bit pattern
+    in an int32 tensor) — hash identity and sort order are unchanged
+    (`ops/build.py`)."""
+    import pyarrow as pa
+
+    tree = {}
+    wide = []
+    for name in names:
+        arr = table.column(name)
+        chunk = (arr.combine_chunks() if hasattr(arr, "combine_chunks")
+                 else arr)
+        if pa.types.is_int64(chunk.type) and chunk.null_count == 0:
+            vals = chunk.to_numpy(zero_copy_only=False)
+            if len(vals) and vals.min() >= 0 and vals.max() < 1 << 32:
+                lo = vals.astype(np.uint32).view(np.int32)
+                tree[name] = {"lo32": torch.from_numpy(lo).to(device)}
+                continue
+        wide.append(name)
+    if wide:
+        batch = columnar.from_arrow(table.select(wide), device=device)
+        staged, _aux = columnar.batch_to_tree(batch)
+        tree.update(staged)
+    return tree
+
+
+def write_bucketed_table(table, indexed_columns: Sequence[str],
+                         num_buckets: int, path: str,
+                         file_suffix: Optional[str] = None,
+                         device: Optional[torch.device] = None
+                         ) -> List[str]:
+    """Bucketed build from a HOST Arrow table: only the key columns touch
+    the device (hash + sort -> permutation); payload rows never cross.
+    Builds below BUILD_MIN_DEVICE_ROWS, or with no `device`, take the host
+    lane."""
+    from hyperspace_tpu_torch.ops.build import permutation_from_tree
+
+    if table.num_rows == 0:
+        from hyperspace_tpu_torch.utils import file_utils
+        file_utils.create_directory(path)
+        return []
+    by_lower = {n.lower(): n for n in table.column_names}
+    missing = [c for c in indexed_columns if c.lower() not in by_lower]
+    if missing:
+        raise HyperspaceException(
+            f"Column not found in table: {', '.join(missing)}")
+    names = [by_lower[c.lower()] for c in indexed_columns]
+    if device is None or _host_lane_preferred(table.num_rows):
+        perm, starts, ends = _host_build_permutation(table, names,
+                                                     num_buckets)
+    else:
+        with _phase("h2d", device):
+            tree = _stage_key_tree(table, names, device)
+        with _phase("bucket_sort", device):
+            perm, starts, ends = permutation_from_tree(tree, names,
+                                                       num_buckets)
+    return _write_sorted_runs(table, perm, starts, ends, path, file_suffix)
+
+
+def write_bucketed_from_files(files: Sequence[str],
+                              column_names: Sequence[str],
+                              key_names: Sequence[str], num_buckets: int,
+                              path: str, device: Optional[torch.device],
+                              lineage_ids=None,
+                              file_suffix: Optional[str] = None
+                              ) -> List[str]:
+    """Build straight from parquet files (the plain-scan create path):
+    decode the indexed and included columns once, then bucket, sort and
+    write as `write_bucketed_table` does."""
+    with _phase("decode"):
+        table = parquet.read_table(files, columns=list(column_names))
+        if lineage_ids is not None:
+            table = append_lineage_column(table, files, lineage_ids)
+    return write_bucketed_table(table, list(key_names), num_buckets, path,
+                                file_suffix=file_suffix, device=device)
+
+
+def write_bucketed_batch(batch: columnar.ColumnBatch,
+                         indexed_columns: Sequence[str],
+                         num_buckets: int, path: str,
+                         file_suffix: Optional[str] = None) -> List[str]:
+    """Bucketed build from a batch already produced by a plan (device or
+    host lane): the permutation is computed where the batch lives and
+    applied host-side."""
+    from hyperspace_tpu_torch.ops.build import build_permutation
+
+    if batch.num_rows == 0:
+        from hyperspace_tpu_torch.utils import file_utils
+        file_utils.create_directory(path)
+        return []
+    table = columnar.to_arrow(batch)
+    if batch.is_host:
+        return write_bucketed_table(table, indexed_columns, num_buckets,
+                                    path, file_suffix=file_suffix)
+    perm, starts, ends = build_permutation(batch, indexed_columns,
+                                           num_buckets)
+    return _write_sorted_runs(table, perm, starts, ends, path, file_suffix)
+
+
+def _plain_scan_source(plan) -> Optional[tuple]:
+    """If the plan is just Project*(Scan) — the shape CreateAction.validate
+    admits (reference `CreateAction.scala:42-62`) — return (files, scan
+    schema); else None. Lets the build read payload straight from parquet
+    on the host instead of round-tripping every column through the
+    device."""
+    from hyperspace_tpu_torch.plan.nodes import Project, Scan
+
+    node = plan
+    while isinstance(node, Project):
+        node = node.child
+    if isinstance(node, Scan) and node.bucket_spec is None:
+        files = node.files()
+        if files:
+            return files, node.schema
+    return None
+
+
+def lineage_schema(schema):
+    """`schema` extended with the non-nullable int64 lineage column.
+    Paired with `append_lineage_column` (below) so the LOGGED index schema
+    and the WRITTEN data can never disagree on the column's shape."""
+    from hyperspace_tpu_torch.constants import LINEAGE_COLUMN
+    from hyperspace_tpu_torch.plan.schema import Field, Schema
+
+    return Schema(list(schema.fields)
+                  + [Field(LINEAGE_COLUMN, "int64", False)])
+
+
+def append_lineage_column(table, files: Sequence[str], lineage_ids: dict):
+    """Append the per-row `_hs_file_id` column to an Arrow table read by
+    concatenating `files` in order: rows from file F carry lineage_ids[F]."""
+    import pyarrow as pa
+
+    from hyperspace_tpu_torch.constants import LINEAGE_COLUMN
+
+    counts = parquet.file_row_counts(files)
+    col = np.repeat(np.asarray([lineage_ids[f] for f in files],
+                               dtype=np.int64), counts)
+    return table.append_column(LINEAGE_COLUMN,
+                               pa.array(col, type=pa.int64()))
+
+
+def write_index(df, indexed_columns: Sequence[str],
+                included_columns: Sequence[str], num_buckets: int,
+                path: str, conf=None, lineage_ids=None) -> List[str]:
+    """THE index build job (reference `CreateActionBase.scala:99-120`), on
+    the device the session's conf names (`_torch_config.device_of`).
+
+    `lineage_ids` ({source file path: id}, lineage-enabled builds) appends
+    the per-row `_hs_file_id` column: rows read from file F carry
+    lineage_ids[F]. Payload-only — bucket hash and sort keys are untouched.
+    """
+    from hyperspace_tpu_torch._torch_config import device_of
+    from hyperspace_tpu_torch.engine.executor import execute_plan
+
+    device = device_of(conf)
+    columns = list(indexed_columns) + list(included_columns)
+    source = _plain_scan_source(df.plan)
+    if source is None and lineage_ids is not None:
+        # CreateAction.validate admits only plain file scans, so this is a
+        # programming error, not a user-reachable state.
+        raise HyperspaceException(
+            "Lineage requires a plain file-scan source.")
+    if source is not None:
+        files, scan_schema = source
+        names = [scan_schema.field(c).name for c in columns]
+        key_names = [scan_schema.field(c).name for c in indexed_columns]
+        schema = scan_schema.select(columns)
+        if lineage_ids is not None:
+            schema = lineage_schema(schema)
+        written = write_bucketed_from_files(
+            files, names, key_names, num_buckets, path, device,
+            lineage_ids=lineage_ids)
+    else:
+        batch = execute_plan(df.plan, projection=columns, conf=conf)
+        schema = batch.schema
+        written = write_bucketed_batch(batch, indexed_columns, num_buckets,
+                                       path)
+    spec = BucketSpec(num_buckets, tuple(indexed_columns),
+                      tuple(indexed_columns))
+    parquet.write_bucket_spec(path, spec, schema)
+    return written

@@ -1,0 +1,361 @@
+"""Columnar substrate: Arrow tables <-> column batches of tensors.
+
+A batch holds one array per column, in one of two residences:
+- the HOST lane: numpy arrays (the adaptive lane for small reads, where a
+  device round-trip would dominate the work);
+- the DEVICE lane: torch tensors on one device (the CUDA card; the CPU
+  when the caller asks for it, as the CPU tests do).
+
+Strings are dictionary-encoded on the host with a *sorted* dictionary so
+int32 codes are order-preserving (sort/compare on codes == lexicographic on
+values), and each dictionary entry carries a precomputed 64-bit value hash
+(FNV-1a over the UTF-8 bytes), so bucket assignment hashes the *value*
+(stable across files/batches with different dictionaries), never the code.
+On the device lane the hash halves are int64 tensors holding the uint32
+values (`ops/keys.py` lane convention).
+"""
+
+from __future__ import annotations
+
+import warnings
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from hyperspace_tpu_torch.exceptions import HyperspaceException
+from hyperspace_tpu_torch.plan.schema import Field as SchemaField, Schema
+
+_NUMERIC_NP = {
+    "bool": np.bool_,
+    "int8": np.int8, "int16": np.int16, "int32": np.int32, "int64": np.int64,
+    "float32": np.float32, "float64": np.float64,
+    "date32": np.int32, "timestamp": np.int64,
+}
+
+# Logical dtype -> host numpy dtype, incl. the string code representation.
+HOST_NP_DTYPES = {**_NUMERIC_NP, "string": np.int32}
+
+
+def _string_hash64(values: np.ndarray) -> np.ndarray:
+    """FNV-1a 64-bit over the UTF-8 bytes of each value (host side, once
+    per dictionary entry — O(dictionary), not O(rows)). Must equal the
+    JAX package's hashes bit for bit: the bucket layout depends on them."""
+    out = np.empty(len(values), dtype=np.uint64)
+    for i, v in enumerate(values):
+        h = 0xCBF29CE484222325
+        for b in str(v).encode("utf-8"):
+            h = ((h ^ b) * 0x100000001B3) & 0xFFFFFFFFFFFFFFFF
+        out[i] = h
+    return out
+
+
+def _split_hashes(hashes: np.ndarray,
+                  device: Optional[torch.device] = None):
+    """uint64 value hashes -> (hi, lo) uint32 pair: numpy uint32 on the
+    host lane, zero-extended int64 tensors on `device`."""
+    hi = (hashes >> np.uint64(32)).astype(np.uint32)
+    lo = (hashes & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    if device is None:
+        return hi, lo
+    return (torch.from_numpy(hi.astype(np.int64)).to(device),
+            torch.from_numpy(lo.astype(np.int64)).to(device))
+
+
+def _to_device(arr: Optional[np.ndarray], device: torch.device):
+    """A host array as a tensor on `device`, never aliasing read-only
+    (Arrow-owned) host memory: a CPU device gets a copy of such an array;
+    a CUDA device reads it once, in the host-to-device copy."""
+    if arr is None:
+        return None
+    arr = np.ascontiguousarray(arr)
+    if arr.flags.writeable:
+        return torch.from_numpy(arr).to(device)
+    if device.type == "cpu":
+        return torch.from_numpy(arr.copy())
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.from_numpy(arr).to(device)
+
+
+@dataclass
+class DeviceColumn:
+    """One column.
+
+    `data`: numpy array (host lane) or torch tensor (device lane) —
+    numeric payload, or int32 dictionary codes for strings. `validity`:
+    optional bool array of the same residence (True = present).
+    `dictionary`: host numpy array of unique values, sorted ascending, for
+    string columns. `dict_hashes`: (hi, lo) per dictionary entry — value
+    hashes for bucket assignment, in the column's residence.
+    """
+
+    data: object
+    dtype: str
+    validity: Optional[object] = None
+    dictionary: Optional[np.ndarray] = None
+    dict_hashes: Optional[object] = None
+
+    @property
+    def is_string(self) -> bool:
+        return self.dictionary is not None
+
+    @property
+    def is_host(self) -> bool:
+        """True when the payload lives in host memory (numpy)."""
+        return isinstance(self.data, np.ndarray)
+
+    def __len__(self) -> int:
+        return int(self.data.shape[0])
+
+
+@dataclass
+class ColumnBatch:
+    """A batch of columns (same length), with its logical schema."""
+
+    schema: Schema
+    columns: Dict[str, DeviceColumn]
+
+    @property
+    def num_rows(self) -> int:
+        if not self.columns:
+            return 0
+        return len(next(iter(self.columns.values())))
+
+    def column(self, name: str) -> DeviceColumn:
+        f = self.schema.field(name)  # case-insensitive resolve + validation
+        return self.columns[f.name]
+
+    def select(self, names: Sequence[str]) -> "ColumnBatch":
+        schema = self.schema.select(names)
+        return ColumnBatch(schema, {f.name: self.columns[f.name]
+                                    for f in schema.fields})
+
+    @property
+    def is_host(self) -> bool:
+        return all(c.is_host for c in self.columns.values())
+
+    @property
+    def device(self) -> Optional[torch.device]:
+        """The device of the batch's tensors; None on the host lane."""
+        for c in self.columns.values():
+            if not c.is_host:
+                return c.data.device
+        return None
+
+    def take(self, indices) -> "ColumnBatch":
+        """Row gather by index array: numpy indices gather a host batch
+        on the host; tensor indices gather a device batch on its
+        device."""
+        out = {}
+        for name, col in self.columns.items():
+            if col.is_host:
+                idx = np.asarray(indices)
+                data = np.take(col.data, idx, axis=0)
+                validity = (np.take(col.validity, idx, axis=0)
+                            if col.validity is not None else None)
+            else:
+                idx = torch.as_tensor(indices, device=col.data.device)
+                data = col.data[idx]
+                validity = (col.validity[idx]
+                            if col.validity is not None else None)
+            out[name] = DeviceColumn(data=data, dtype=col.dtype,
+                                     validity=validity,
+                                     dictionary=col.dictionary,
+                                     dict_hashes=col.dict_hashes)
+        return ColumnBatch(self.schema, out)
+
+
+def _encode_strings_arrow(arr):
+    """Arrow-native sorted-dictionary encode: dictionary_encode +
+    dictionary sort + code remap all run in Arrow C++; the value hashes
+    run once per dictionary entry. Returns
+    (codes int32, dictionary np[str], hashes uint64, validity|None)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    if hasattr(arr, "combine_chunks"):
+        arr = arr.combine_chunks()
+    if isinstance(arr, pa.ChunkedArray):
+        arr = arr.chunk(0) if arr.num_chunks == 1 else pa.concat_arrays(
+            arr.chunks)
+    if pa.types.is_dictionary(arr.type):
+        # Incoming dictionaries may hold duplicates or nulls; decode and
+        # re-encode so the sorted-unique invariants hold.
+        arr = arr.cast(pa.string())
+    validity = None
+    if arr.null_count:
+        validity = np.asarray(arr.is_valid())
+        arr = arr.fill_null("")
+    encoded = pc.dictionary_encode(arr)
+    raw_dict = encoded.dictionary
+    indices = encoded.indices.to_numpy(zero_copy_only=False).astype(np.int32)
+    sort_idx = pc.sort_indices(raw_dict).to_numpy().astype(np.int32)
+    rank = np.empty(len(raw_dict), dtype=np.int32)
+    rank[sort_idx] = np.arange(len(raw_dict), dtype=np.int32)
+    codes = rank[indices]
+    sorted_dict = raw_dict.take(pa.array(sort_idx))
+    dictionary = np.asarray(sorted_dict.to_numpy(zero_copy_only=False),
+                            dtype=str)
+    return codes, dictionary, _string_hash64(dictionary), validity
+
+
+def _decode_numeric(arr, f: SchemaField):
+    """Decode one non-string Arrow column to its host values + null mask.
+    Returns (np_vals in the logical dtype's numpy type, mask|None)."""
+    np_dtype = _NUMERIC_NP.get(f.dtype)
+    if np_dtype is None:
+        raise HyperspaceException(f"Unsupported dtype: {f.dtype}")
+    chunk = arr.combine_chunks() if hasattr(arr, "combine_chunks") else arr
+    if f.dtype == "timestamp":
+        np_vals = chunk.cast("int64").to_numpy(zero_copy_only=False)
+    elif f.dtype == "date32":
+        np_vals = chunk.cast("int32").to_numpy(zero_copy_only=False)
+    else:
+        np_vals = chunk.to_numpy(zero_copy_only=False)
+    mask = None
+    if chunk.null_count > 0:
+        mask = ~np.asarray(chunk.is_null())
+        np_vals = np.where(mask, np.nan_to_num(np_vals), 0)
+    return np.asarray(np_vals).astype(np_dtype, copy=False), mask
+
+
+def from_arrow(table, schema: Optional[Schema] = None,
+               device: Optional[torch.device] = None) -> ColumnBatch:
+    """Arrow table -> ColumnBatch. Nulls become validity masks with
+    sentinel-filled payloads (0 / empty string). `device=None` keeps the
+    columns in host memory (numpy) for the adaptive host lane; a device
+    places every column (and the string value hashes) there."""
+    if schema is None:
+        schema = Schema.from_arrow(table.schema)
+    columns: Dict[str, DeviceColumn] = {}
+    for f in schema.fields:
+        arr = table.column(f.name)
+        if f.dtype == "string":
+            codes, dictionary, hashes, validity = _encode_strings_arrow(arr)
+            data, hashes = np.asarray(codes), _split_hashes(hashes, device)
+        else:
+            data, validity = _decode_numeric(arr, f)
+            hashes = dictionary = None
+        if device is not None:
+            data, validity = (_to_device(data, device),
+                              _to_device(validity, device))
+        columns[f.name] = DeviceColumn(data=data, dtype=f.dtype,
+                                       validity=validity,
+                                       dictionary=dictionary,
+                                       dict_hashes=hashes)
+    return ColumnBatch(schema, columns)
+
+
+def _to_numpy(arr) -> Optional[np.ndarray]:
+    if arr is None or isinstance(arr, np.ndarray):
+        return arr
+    return arr.cpu().numpy()
+
+
+def to_arrow(batch: ColumnBatch):
+    """ColumnBatch -> Arrow table (decodes dictionary codes); device
+    columns cross to the host here."""
+    import pyarrow as pa
+
+    arrays = []
+    names = []
+    for f in batch.schema.fields:
+        col = batch.columns[f.name]
+        data = _to_numpy(col.data)
+        validity = _to_numpy(col.validity)
+        mask = ~validity if validity is not None else None
+        if col.is_string:
+            arr = pa.array(col.dictionary[data], type=pa.string(), mask=mask)
+        elif f.dtype in ("timestamp", "date32"):
+            pa_type = Schema([f]).to_arrow().field(0).type
+            arr = pa.array(data, mask=mask).cast(pa_type)
+        else:
+            arr = pa.array(data, mask=mask)
+        arrays.append(arr)
+        names.append(f.name)
+    return pa.table(dict(zip(names, arrays)))
+
+
+def batch_to_host(batch: ColumnBatch) -> ColumnBatch:
+    """Device ColumnBatch -> fully host-resident copy (numpy payloads,
+    numpy uint32 dict hashes); host columns pass through."""
+    out: Dict[str, DeviceColumn] = {}
+    for name, col in batch.columns.items():
+        hashes = col.dict_hashes
+        if hashes is not None and not col.is_host:
+            hashes = (_to_numpy(hashes[0]).astype(np.uint32),
+                      _to_numpy(hashes[1]).astype(np.uint32))
+        out[name] = DeviceColumn(data=_to_numpy(col.data), dtype=col.dtype,
+                                 validity=_to_numpy(col.validity),
+                                 dictionary=col.dictionary,
+                                 dict_hashes=hashes)
+    return ColumnBatch(batch.schema, out)
+
+
+def host_batch_to_device(batch: ColumnBatch,
+                         device: torch.device) -> ColumnBatch:
+    """Host ColumnBatch -> a batch on `device` (one H2D copy per array);
+    the parquet decode is not repeated."""
+    out: Dict[str, DeviceColumn] = {}
+    for name, col in batch.columns.items():
+        if not col.is_host:
+            out[name] = col
+            continue
+        hashes = None
+        if col.dict_hashes is not None:
+            hashes = tuple(_to_device(np.asarray(h).astype(np.int64), device)
+                           for h in col.dict_hashes)
+        out[name] = DeviceColumn(
+            data=_to_device(col.data, device), dtype=col.dtype,
+            validity=_to_device(col.validity, device),
+            dictionary=col.dictionary, dict_hashes=hashes)
+    return ColumnBatch(batch.schema, out)
+
+
+def _merged_dictionary(dictionaries, device: Optional[torch.device]):
+    """Merge sorted dictionaries and build remap tables + value hashes.
+    Returns (merged, [remap array per input], (hi, lo)) in the residence
+    `device` names (None = host)."""
+    merged = np.unique(np.concatenate(list(dictionaries)))
+    remaps = [np.searchsorted(merged, d).astype(np.int32)
+              for d in dictionaries]
+    if device is not None:
+        remaps = [_to_device(r, device) for r in remaps]
+    return merged, remaps, _split_hashes(_string_hash64(merged), device)
+
+
+def batch_to_tree(batch: ColumnBatch):
+    """ColumnBatch -> (dict of per-column arrays, host aux).
+
+    The tree holds per-column {"data", "validity", "hash_hi", "hash_lo"}
+    (absent entries omitted); aux carries the host-side dictionaries
+    needed to rebuild the batch."""
+    tree = {}
+    aux = {}
+    for f in batch.schema.fields:
+        col = batch.columns[f.name]
+        entry = {"data": col.data}
+        if col.validity is not None:
+            entry["validity"] = col.validity
+        if col.is_string:
+            entry["hash_hi"], entry["hash_lo"] = col.dict_hashes
+        tree[f.name] = entry
+        aux[f.name] = col.dictionary
+    return tree, aux
+
+
+def tree_to_batch(tree, schema: Schema, aux) -> ColumnBatch:
+    columns = {}
+    for f in schema.fields:
+        entry = tree[f.name]
+        dict_hashes = None
+        if "hash_hi" in entry:
+            dict_hashes = (entry["hash_hi"], entry["hash_lo"])
+        columns[f.name] = DeviceColumn(
+            data=entry["data"], dtype=f.dtype,
+            validity=entry.get("validity"),
+            dictionary=aux.get(f.name),
+            dict_hashes=dict_hashes)
+    return ColumnBatch(schema, columns)

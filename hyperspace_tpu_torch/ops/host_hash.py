@@ -1,0 +1,100 @@
+"""Host (numpy) mirror of THE bucket hash identity.
+
+`ops/hash_partition.flat_hash32` defines the on-disk bucket layout; this
+module reproduces it bit-for-bit on the host so control-plane decisions
+that need a handful of bucket ids — bucket pruning of point filters, small
+host-lane batches — never pay a device round-trip.
+`tests/test_torch_hash.py` pins host == device (and == the JAX package)
+for every key dtype; any change to either side must keep them equal.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import numpy as np
+
+from hyperspace_tpu_torch.exceptions import HyperspaceException
+
+
+def _fmix32(h: np.ndarray) -> np.ndarray:
+    h = h ^ (h >> np.uint32(16))
+    h = h * np.uint32(0x85EBCA6B)
+    h = h ^ (h >> np.uint32(13))
+    h = h * np.uint32(0xC2B2AE35)
+    return h ^ (h >> np.uint32(16))
+
+
+def _combine(h1: np.ndarray, h2: np.ndarray) -> np.ndarray:
+    return h1 ^ (h2 + np.uint32(0x9E3779B9) + (h1 << np.uint32(6))
+                 + (h1 >> np.uint32(2)))
+
+
+def _float_order_bits(data: np.ndarray, uint_dtype, sign_bit: int):
+    # Normalize first (-0.0 -> +0.0, NaNs -> one canonical NaN) so lane
+    # identity equals numeric equality on every path; see the device
+    # twin's docstring (`ops/keys.py::_float_order_bits`).
+    data = np.where(data == 0, np.zeros((), data.dtype), data)
+    data = np.where(np.isnan(data), np.full((), np.nan, data.dtype), data)
+    bits = data.view(np.int64 if sign_bit == 64 else np.int32).astype(uint_dtype)
+    sign = (bits >> uint_dtype(sign_bit - 1)) & uint_dtype(1)
+    mask = np.where(sign == 1, ~uint_dtype(0), uint_dtype(1) << uint_dtype(sign_bit - 1))
+    return bits ^ mask
+
+
+def _hash_lanes(values: np.ndarray, dtype: str) -> List[np.ndarray]:
+    """Per-value hash-input lanes, mirroring `column_hash_lanes` /
+    `key_lanes` for host arrays (null-free inputs)."""
+    if dtype == "string":
+        from hyperspace_tpu_torch.io.columnar import _string_hash64
+        h = _string_hash64(np.asarray(values, dtype=str))
+        return [(h >> np.uint64(32)).astype(np.uint32),
+                (h & np.uint64(0xFFFFFFFF)).astype(np.uint32)]
+    if dtype in ("int64", "timestamp"):
+        data = np.asarray(values, dtype=np.int64)
+        return [(data >> 32).astype(np.int32).astype(np.uint32),
+                (data & 0xFFFFFFFF).astype(np.uint32)]
+    if dtype == "float64":
+        bits = _float_order_bits(np.asarray(values, dtype=np.float64),
+                                 np.uint64, 64)
+        return [(bits >> np.uint64(32)).astype(np.uint32),
+                (bits & np.uint64(0xFFFFFFFF)).astype(np.uint32)]
+    if dtype == "float32":
+        return [_float_order_bits(np.asarray(values, dtype=np.float32),
+                                  np.uint32, 32)]
+    if dtype in ("bool", "int8", "int16", "int32", "date32"):
+        return [np.asarray(values).astype(np.int32).astype(np.uint32)]
+    raise HyperspaceException(f"Unhashable key dtype: {dtype}")
+
+
+def host_flat_hash32(lanes: Sequence[np.ndarray]) -> np.ndarray:
+    h = _fmix32(lanes[0].astype(np.uint32))
+    for lane in lanes[1:]:
+        h = _combine(h, _fmix32(lane.astype(np.uint32)))
+    return h
+
+
+def host_bucket_ids(columns: Sequence[np.ndarray], dtypes: Sequence[str],
+                    num_buckets: int) -> np.ndarray:
+    """Bucket ids for rows given as per-column value arrays (no nulls)."""
+    lanes: List[np.ndarray] = []
+    for values, dtype in zip(columns, dtypes):
+        lanes.extend(_hash_lanes(values, dtype))
+    return (host_flat_hash32(lanes) % np.uint32(num_buckets)).astype(np.int32)
+
+
+def host_column_hash_lanes(col) -> List[np.ndarray]:
+    """Hash-input lanes for a host-lane DeviceColumn, mirroring the device
+    `column_hash_lanes`: strings contribute gathered per-dictionary value
+    hashes, numerics their 32-bit key lanes; null rows contribute all-zero
+    lanes."""
+    if col.is_string:
+        hi, lo = col.dict_hashes
+        lanes = [np.asarray(hi)[col.data], np.asarray(lo)[col.data]]
+    else:
+        from hyperspace_tpu_torch.ops.keys import host_key_lanes
+        lanes = [lane.astype(np.uint32) for lane in host_key_lanes(col.data)]
+    if col.validity is not None:
+        lanes = [np.where(col.validity, lane, np.uint32(0))
+                 for lane in lanes]
+    return lanes

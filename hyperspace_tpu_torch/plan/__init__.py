@@ -1,0 +1,17 @@
+from hyperspace_tpu_torch.plan.schema import Field, Schema
+from hyperspace_tpu_torch.plan.expr import (
+    Add, And, Column, Div, EqualTo, Expression, GreaterThan, GreaterThanOrEqual,
+    In, IsNotNull, IsNull, LessThan, LessThanOrEqual, Literal, Mul, Not,
+    NotEqualTo, Or, Sub,
+)
+from hyperspace_tpu_torch.plan.nodes import (
+    BucketSpec, Filter, LogicalPlan, Project, Scan,
+)
+
+__all__ = [
+    "Field", "Schema",
+    "Add", "And", "Column", "Div", "EqualTo", "Expression", "GreaterThan",
+    "GreaterThanOrEqual", "In", "IsNotNull", "IsNull", "LessThan",
+    "LessThanOrEqual", "Literal", "Mul", "Not", "NotEqualTo", "Or", "Sub",
+    "BucketSpec", "Filter", "LogicalPlan", "Project", "Scan",
+]

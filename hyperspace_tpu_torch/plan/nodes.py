@@ -1,0 +1,285 @@
+"""Logical plan nodes for the relational IR.
+
+The reference matches/rewrites Catalyst trees
+(`Project(Filter(LogicalRelation))`); this package owns the node set the
+filter path needs: Scan (= LogicalRelation over lake files), Filter and
+Project. The JAX package's other nodes (Join, Aggregate, Sort, ...) come
+with the engine slices that execute them (ROADMAP.md). Nodes are immutable, JSON-serializable (see
+`plan/serde.py`), and carry enough metadata (root paths, bucket spec) for the
+rewrite rules to swap base-table scans for index scans exactly as the
+reference's rules do (`index/rules/FilterIndexRule.scala:109-131`).
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+from dataclasses import dataclass
+from typing import Callable, List, Optional, Sequence
+
+from hyperspace_tpu_torch.exceptions import HyperspaceException
+from hyperspace_tpu_torch.plan.expr import Expression
+from hyperspace_tpu_torch.plan.schema import Schema
+
+
+@dataclass(frozen=True)
+class BucketSpec:
+    """Bucketing metadata: the key enabler of shuffle-free joins.
+
+    Parity: Spark `BucketSpec(numBuckets, bucketedBy, sortedBy)` as used at
+    reference `index/DataFrameWriterExtensions.scala:49-66` (write side) and
+    `index/rules/JoinIndexRule.scala:124-153` (read side).
+    """
+
+    num_buckets: int
+    bucket_columns: tuple
+    sort_columns: tuple
+
+    def to_dict(self) -> dict:
+        return {"numBuckets": self.num_buckets,
+                "bucketColumns": list(self.bucket_columns),
+                "sortColumns": list(self.sort_columns)}
+
+    @staticmethod
+    def from_dict(d: Optional[dict]) -> Optional["BucketSpec"]:
+        if d is None:
+            return None
+        return BucketSpec(int(d["numBuckets"]), tuple(d["bucketColumns"]),
+                          tuple(d["sortColumns"]))
+
+
+class LogicalPlan:
+    """Base plan node."""
+
+    @property
+    def children(self) -> List["LogicalPlan"]:
+        return []
+
+    @property
+    def schema(self) -> Schema:
+        raise NotImplementedError
+
+    def with_children(self, children: List["LogicalPlan"]) -> "LogicalPlan":
+        raise NotImplementedError
+
+    def transform_up(self, fn: Callable[["LogicalPlan"], "LogicalPlan"]) -> "LogicalPlan":
+        new_children = [c.transform_up(fn) for c in self.children]
+        node = self if new_children == self.children else self.with_children(new_children)
+        return fn(node)
+
+    def transform_down(self, fn: Callable[["LogicalPlan"], "LogicalPlan"]) -> "LogicalPlan":
+        node = fn(self)
+        new_children = [c.transform_down(fn) for c in node.children]
+        return node if new_children == node.children else node.with_children(new_children)
+
+    def collect_leaves(self) -> List["LogicalPlan"]:
+        if not self.children:
+            return [self]
+        out: List[LogicalPlan] = []
+        for c in self.children:
+            out.extend(c.collect_leaves())
+        return out
+
+    def to_dict(self) -> dict:
+        raise NotImplementedError
+
+    def simple_string(self) -> str:
+        raise NotImplementedError
+
+    def tree_string(self, depth: int = 0) -> str:
+        lines = [("  " * depth) + ("+- " if depth else "") + self.simple_string()]
+        for c in self.children:
+            lines.append(c.tree_string(depth + 1))
+        return "\n".join(lines)
+
+    def __eq__(self, other) -> bool:
+        if type(self) is not type(other):
+            return NotImplemented
+        return self.to_dict() == other.to_dict()
+
+    def __hash__(self):
+        return hash(self.simple_string())
+
+
+class Scan(LogicalPlan):
+    """Leaf relation over lake files (= reference `LogicalRelation` over
+    `HadoopFsRelation`). Carries root paths, schema, format, and an optional
+    bucket spec; `files()` resolves the concrete file listing (= the
+    reference's `location.allFiles`, `actions/CreateActionBase.scala:89-97`).
+    """
+
+    def __init__(self, root_paths: Sequence[str], schema: Schema,
+                 file_format: str = "parquet",
+                 bucket_spec: Optional[BucketSpec] = None,
+                 files: Optional[Sequence[str]] = None,
+                 index_name: Optional[str] = None,
+                 pinned_version: Optional[int] = None):
+        from hyperspace_tpu_torch.utils.storage import canonical
+        self.root_paths = [canonical(p) for p in root_paths]
+        self._schema = schema
+        self.file_format = file_format
+        self.bucket_spec = bucket_spec
+        # Snapshot pin (set by `Rule.index_scan`): the committed `v__=N`
+        # this plan resolved AT PLAN TIME. A pinned scan's file listing
+        # is resolved once when the pin is taken and never re-listed at
+        # execution, so a maintenance writer racing the query between
+        # plan and scan can neither add files to nor swap the version
+        # this plan reads (the segment cache keys on the same version).
+        # In-process only, like index_name: excluded from to_dict().
+        self.pinned_version = pinned_version
+        # Set iff a rewrite rule swapped this scan in over INDEX data
+        # (`Rule.index_scan`): the execution-time marker the graceful-
+        # degradation path keys on — an index scan whose data is missing
+        # or unreadable raises IndexDataUnavailableError instead of
+        # silently serving empty, and the query falls back to the source
+        # plan. In-process only: deliberately excluded from to_dict()
+        # (identity/serde), since a serialized plan never carries rule
+        # rewrites.
+        self.index_name = index_name
+        # An EXPLICIT file list (hybrid scan / incremental deltas) restricts
+        # the scan and is part of its identity; a lazily-cached glob is not.
+        self._explicit_files = files is not None
+        self._files = list(files) if files is not None else None
+
+    @property
+    def schema(self) -> Schema:
+        return self._schema
+
+    def with_children(self, children):
+        if children:
+            raise HyperspaceException("Scan is a leaf node.")
+        return self
+
+    def files(self) -> List[str]:
+        """Enumerate data files under the root paths (cached per node)."""
+        if self._files is None:
+            from hyperspace_tpu_torch.utils import storage
+            found: List[str] = []
+            for root in self.root_paths:
+                if storage.is_url(root):
+                    fs, real = storage.get_fs(root)
+                    proto = storage.protocol_of(root)
+                    if fs.isfile(real):
+                        found.append(root)
+                    else:
+                        found.extend(
+                            proto + p for p in fs.find(real)
+                            if p.endswith("." + self.file_format))
+                    continue
+                if os.path.isfile(root):
+                    found.append(root)
+                else:
+                    pattern = os.path.join(root, "**", f"*.{self.file_format}")
+                    found.extend(glob.glob(pattern, recursive=True))
+            self._files = sorted(found)
+        return self._files
+
+    def to_dict(self) -> dict:
+        d = {"node": "scan", "rootPaths": list(self.root_paths),
+             "format": self.file_format,
+             "schema": [f.to_dict() for f in self._schema.fields],
+             "bucketSpec": self.bucket_spec.to_dict() if self.bucket_spec else None}
+        if self._explicit_files:
+            d["files"] = list(self._files)
+        return d
+
+    def simple_string(self) -> str:
+        bucket = f", buckets={self.bucket_spec.num_buckets}" if self.bucket_spec else ""
+        restrict = (f", files={len(self._files)}" if self._explicit_files else "")
+        return (f"Scan {self.file_format} [{', '.join(self._schema.names)}] "
+                f"roots={self.root_paths}{bucket}{restrict}")
+
+
+class Filter(LogicalPlan):
+    def __init__(self, condition: Expression, child: LogicalPlan):
+        self.condition = condition
+        self.child = child
+
+    @property
+    def children(self) -> List[LogicalPlan]:
+        return [self.child]
+
+    @property
+    def schema(self) -> Schema:
+        return self.child.schema
+
+    def with_children(self, children):
+        (child,) = children
+        return Filter(self.condition, child)
+
+    def to_dict(self) -> dict:
+        return {"node": "filter", "condition": self.condition.to_dict(),
+                "child": self.child.to_dict()}
+
+    def simple_string(self) -> str:
+        return f"Filter ({self.condition!r})"
+
+
+class Project(LogicalPlan):
+    """Projection. Entries are plain column names (pass-through) or
+    `Alias(expr, name)` computed columns — the reference rides Catalyst's
+    `Project(projectList: Seq[NamedExpression], ...)`; this engine
+    evaluates computed entries with the same compiler filters use
+    (`engine/compiler.py`)."""
+
+    def __init__(self, columns: Sequence, child: LogicalPlan):
+        from hyperspace_tpu_torch.plan.expr import Alias, Expression
+        entries = []
+        for c in columns:
+            if isinstance(c, str) or isinstance(c, Alias):
+                entries.append(c)
+            elif isinstance(c, Expression):
+                raise HyperspaceException(
+                    f"Projection expression needs a name: use "
+                    f".alias(...) on {c!r}.")
+            else:
+                raise HyperspaceException(f"Bad projection entry: {c!r}")
+        self.columns = entries
+        self.child = child
+
+    @property
+    def children(self) -> List[LogicalPlan]:
+        return [self.child]
+
+    def references(self) -> set:
+        """Source column names this projection reads (plain entries
+        reference themselves)."""
+        out: set = set()
+        for c in self.columns:
+            if isinstance(c, str):
+                out.add(c)
+            else:
+                out |= c.references()
+        return out
+
+    @property
+    def schema(self) -> Schema:
+        memo = self.__dict__.get("_schema_memo")
+        if memo is None:
+            from hyperspace_tpu_torch.plan.expr import infer_dtype
+            from hyperspace_tpu_torch.plan.schema import Field
+            fields = []
+            for c in self.columns:
+                if isinstance(c, str):
+                    fields.append(self.child.schema.field(c))
+                else:
+                    fields.append(Field(c.name,
+                                        infer_dtype(c.child,
+                                                    self.child.schema),
+                                        True))
+            memo = self.__dict__["_schema_memo"] = Schema(fields)
+        return memo
+
+    def with_children(self, children):
+        (child,) = children
+        return Project(self.columns, child)
+
+    def to_dict(self) -> dict:
+        return {"node": "project",
+                "columns": [c if isinstance(c, str) else c.to_dict()
+                            for c in self.columns],
+                "child": self.child.to_dict()}
+
+    def simple_string(self) -> str:
+        parts = [c if isinstance(c, str) else repr(c) for c in self.columns]
+        return f"Project [{', '.join(parts)}]"

@@ -1,0 +1,175 @@
+"""Shared rule machinery."""
+
+from __future__ import annotations
+
+import logging
+from typing import List
+
+from hyperspace_tpu_torch.constants import States
+from hyperspace_tpu_torch.index.log_entry import IndexLogEntry
+from hyperspace_tpu_torch.index.signature import SignatureProviderFactory
+from hyperspace_tpu_torch.plan.nodes import LogicalPlan, Scan
+from hyperspace_tpu_torch.plan.schema import Schema
+
+logger = logging.getLogger(__name__)
+
+
+_layout_hash_memo: dict = {}
+
+
+def _version_of_root(root: str):
+    """Committed `v__=N` parsed from an index data root, or None for a
+    root that is not a version dir (fabricated/test entries). Entries
+    only reach ACTIVE after their version committed (the `_committed`
+    marker is the build's last data write), so a parseable version here
+    is a committed one by construction."""
+    import os
+    import re
+
+    from hyperspace_tpu_torch import constants
+    m = re.search(re.escape(constants.INDEX_VERSION_DIRECTORY_PREFIX)
+                  + r"=(\d+)$", os.path.basename(root.rstrip("/\\")))
+    return int(m.group(1)) if m else None
+
+
+def _layout_hash_current(root: str) -> bool:
+    """True when the bucketed layout at `root` was written under the
+    CURRENT bucket-hash identity (`io/parquet.BUCKET_HASH_VERSION`).
+    Index data dirs (`v__=N`) are immutable, so definitive answers are
+    memoized; a TRANSIENT storage error answers False for this query only
+    (unbucketed = correct, just unaccelerated) without poisoning the memo.
+    Every real build writes the sidecar, so a sidecar carrying an older
+    (or no) hashVersion means a stale layout; a MISSING sidecar means a
+    fabricated/test entry and trusts the log entry."""
+    cached = _layout_hash_memo.get(root)
+    if cached is not None:
+        return cached
+    from hyperspace_tpu_torch.io import parquet
+    from hyperspace_tpu_torch.utils import file_utils
+    from hyperspace_tpu_torch.utils.storage import join as _join
+    try:
+        if not file_utils.exists(_join(root, parquet.BUCKET_SPEC_FILE)):
+            result = True
+        else:
+            result = parquet.read_bucket_spec(root) is not None
+    except Exception as exc:
+        logger.warning("Unreadable bucket spec at %s: %s", root, exc)
+        return False  # transient: do not memoize
+    if len(_layout_hash_memo) < 4096:
+        _layout_hash_memo[root] = result
+    return result
+
+
+_layout_hash_current.cache_clear = _layout_hash_memo.clear  # test seam
+
+
+class Rule:
+    """A logical plan rewrite rule (the reference's Catalyst
+    `Rule[LogicalPlan]` analog)."""
+
+    def __init__(self, session):
+        self.session = session
+        # (provider name, plan identity) -> signature, valid within one
+        # apply(); avoids re-stat'ing every source file once per candidate
+        # index.
+        self._sig_cache = {}
+
+    def _active_indexes(self) -> List[IndexLogEntry]:
+        """ACTIVE catalog entries via the session context's caching manager
+        (reference reads `Hyperspace.getContext(spark).indexCollectionManager
+        .getIndexes(ACTIVE)`, `JoinIndexRule.scala:90-93`)."""
+        from hyperspace_tpu_torch.facade import Hyperspace
+        manager = Hyperspace.get_context(self.session).index_collection_manager
+        return manager.get_indexes([States.ACTIVE])
+
+    def _covering_indexes(self) -> List[IndexLogEntry]:
+        """ACTIVE COVERING entries — what the scan-replacement candidate
+        loops iterate. With a second index kind in the catalog
+        (DataSkippingIndex), a kind filter here keeps covering-specific
+        surface (first-indexed-column coverage, bucket specs) off
+        entries that have neither."""
+        return [e for e in self._active_indexes()
+                if e.kind == "CoveringIndex"]
+
+    def signature_matches(self, entry: IndexLogEntry, plan: LogicalPlan) -> bool:
+        """Recompute the plan's signature with the provider recorded in the
+        index metadata and compare (reference `FilterIndexRule.scala:155-168`).
+        Cached per (provider, plan) within one rule application."""
+        stored = entry.signature()
+        cache_key = (stored.provider, id(plan))
+        if cache_key not in self._sig_cache:
+            try:
+                provider = SignatureProviderFactory.create(stored.provider)
+                sig = provider.signature(plan)
+            except Exception as exc:  # provider failure -> no match, not a crash
+                logger.warning("Signature provider %s failed: %s",
+                               stored.provider, exc)
+                sig = None
+            # Pin the plan object in the cache value: id() keys are only
+            # unique while the object is alive, and per-candidate plans
+            # built inside one apply() can be GC'd and their id reused.
+            self._sig_cache[cache_key] = (plan, sig)
+        current = self._sig_cache[cache_key][1]
+        return current is not None and current == stored.value
+
+    @staticmethod
+    def index_scan(entry: IndexLogEntry, bucketed: bool) -> Scan:
+        """Build the replacement relation over the index data. The
+        reference's filter rewrite drops the BucketSpec to keep Spark's
+        scan parallelism (`FilterIndexRule.scala:112-120`); this engine's
+        scan parallelism is unaffected by the spec, so filter rewrites
+        KEEP it (bucketed=True) — it is what lets the planner prune the
+        read to the literal's hash bucket(s). Join rewrites likewise pass
+        bucketed=True so Exchange+Sort are elided (reference
+        `JoinIndexRule.scala:124-153`)."""
+        from hyperspace_tpu_torch.plan.nodes import BucketSpec
+
+        schema = Schema.from_json(entry.schema_json)
+        bucket_spec = None
+        if bucketed and _layout_hash_current(entry.content.root):
+            # The sidecar records which bucket-hash identity wrote the
+            # layout; a dir written under an older identity (e.g. before
+            # the float -0.0/NaN normalization) must read as unbucketed —
+            # correct, just unaccelerated — or point lookups and
+            # co-partitioned joins would silently miss rows.
+            bucket_spec = BucketSpec(entry.num_buckets,
+                                     tuple(entry.indexed_columns),
+                                     tuple(entry.indexed_columns))
+        # index_name marks the scan as rule-selected index data: if that
+        # data is missing/unreadable at execution time the scan raises
+        # IndexDataUnavailableError and the query degrades to the source
+        # plan instead of failing (graceful degradation).
+        scan = Scan([entry.content.root], schema, bucket_spec=bucket_spec,
+                    index_name=entry.name,
+                    pinned_version=_version_of_root(entry.content.root))
+        if scan.pinned_version is not None:
+            # Snapshot pin: resolve the committed version's file listing
+            # ONCE, at plan time. Execution (including the bucketed read
+            # paths) consumes this listing instead of re-listing the
+            # directory, so a refresh committing v__=N+1 — or any writer
+            # touching the dir — between plan and scan cannot change
+            # what this plan reads. Version dirs are FLAT by
+            # construction (every writer emits part files at the top
+            # level), so the pin takes one listdir, not the generic
+            # recursive glob — this runs on every optimize of every
+            # index-served query.
+            from hyperspace_tpu_torch.utils import storage
+            root = entry.content.root
+            try:
+                if storage.is_url(root):
+                    names = storage.listdir_names(root)
+                    join = storage.join
+                else:
+                    import os as _os
+                    names = _os.listdir(root) if _os.path.isdir(root) \
+                        else []
+                    join = _os.path.join
+                suffix = "." + scan.file_format
+                scan._files = sorted(join(root, n) for n in names
+                                     if n.endswith(suffix))
+            except Exception:
+                scan.files()  # odd backend: pay the generic listing
+        return scan
+
+    def apply(self, plan: LogicalPlan) -> LogicalPlan:
+        raise NotImplementedError

@@ -1,0 +1,206 @@
+"""FilterIndexRule: redirect filter queries to covering indexes.
+
+Parity: reference `index/rules/FilterIndexRule.scala:41-229`.
+- Matches `Project(Filter(Scan))` and bare `Filter(Scan)`.
+- Candidate = ACTIVE index whose signature matches the plan AND that covers
+  it: the filter must reference the index's FIRST indexed column, and
+  project+filter columns must be a subset of indexed+included columns
+  (reference `:203-215`).
+- Ranking is cost-based — smallest on-disk index (fallback: fewest
+  columns), more buckets on ties — exceeding the reference's first-wins
+  placeholder (`:222-228`).
+- Replacement keeps Project+Filter but swaps the relation for a scan over
+  the index data root with NO bucket spec — a plain scan keeps full read
+  parallelism (reference `:109-131`).
+- Any exception makes the rule a no-op with a warning (reference `:76-80`).
+
+The JAX package's hybrid-scan and data-skipping branches are not part of
+this package yet (both are off by default; ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import List, Optional, Sequence
+
+from hyperspace_tpu_torch import telemetry
+from hyperspace_tpu_torch.index.log_entry import IndexLogEntry
+from hyperspace_tpu_torch.plan.nodes import Filter, LogicalPlan, Project, Scan
+from hyperspace_tpu_torch.plan.rules.base import Rule
+
+logger = logging.getLogger(__name__)
+
+
+def _entry_size_bytes(entry: IndexLogEntry) -> int:
+    """On-disk size of the index data, from the stats the build stamped
+    into the log entry (`extra.stats.dataSizeBytes`, written by
+    `actions/create.stamp_stats`) — ZERO filesystem calls on this path.
+    Entries from builds predating the stamp fall back to one directory
+    walk (compatibility only; every data-writing action now stamps)."""
+    stats = entry.extra.get("stats") if isinstance(entry.extra, dict) else None
+    if isinstance(stats, dict):
+        try:
+            return int(stats.get("dataSizeBytes", 0))
+        except (TypeError, ValueError):
+            return 0
+    from hyperspace_tpu_torch.utils.file_utils import get_directory_size
+    try:
+        return int(get_directory_size(entry.content.root))
+    except OSError:
+        return 0
+
+
+def _eq_columns(condition) -> List[str]:
+    """Columns compared for EQUALITY against a literal anywhere in the
+    conjunction (lowercased, sorted) — the predicates bucket pruning
+    accelerates. Conservative: non-conjunctive shapes report empty."""
+    from hyperspace_tpu_torch.plan import expr as E
+    out = set()
+    try:
+        for conjunct in E.split_conjunctive(condition):
+            if isinstance(conjunct, E.EqualTo):
+                for side, other in ((conjunct.left, conjunct.right),
+                                    (conjunct.right, conjunct.left)):
+                    if isinstance(side, E.Column) \
+                            and isinstance(other, E.Literal):
+                        out.add(side.name.lower())
+            elif isinstance(conjunct, E.In) \
+                    and isinstance(conjunct.child, E.Column):
+                out.add(conjunct.child.name.lower())
+    except Exception:
+        return []
+    return sorted(out)
+
+
+class FilterIndexRule(Rule):
+    def apply(self, plan: LogicalPlan) -> LogicalPlan:
+        self._sig_cache = {}
+        try:
+            # TOP-DOWN, mirroring the reference's `transform` (pre-order,
+            # `FilterIndexRule.scala:42-56`): a Project(Filter(Scan)) must
+            # match BEFORE its inner bare Filter(Scan) — coverage judged
+            # on the projected columns admits narrower (cheaper) indexes
+            # than the bare match's full-schema requirement.
+            return plan.transform_down(self._rewrite)
+        except Exception as exc:
+            logger.warning("FilterIndexRule failed; skipping: %s", exc)
+            return plan
+
+    def _rewrite(self, node: LogicalPlan) -> LogicalPlan:
+        # Project(Filter(Scan)) or Filter(Scan)
+        if isinstance(node, Project) and isinstance(node.child, Filter) \
+                and isinstance(node.child.child, Scan):
+            project, filt, scan = node, node.child, node.child.child
+        elif isinstance(node, Filter) and isinstance(node.child, Scan):
+            project, filt, scan = None, node, node.child
+        else:
+            return node
+        if scan.bucket_spec is not None:
+            return node  # already an index scan
+
+        filter_columns = sorted(filt.condition.references())
+        # Coverage is judged on the SOURCE columns a projection reads —
+        # computed entries (Alias expressions) contribute their references.
+        project_columns = (sorted(project.references())
+                           if project is not None else scan.schema.names)
+
+        index = self._find_covering_index(filt, scan, project_columns,
+                                          filter_columns)
+        if index is not None:
+            source: LogicalPlan = self.index_scan(index, bucketed=True)
+            logger.info("FilterIndexRule: applying index %s", index.name)
+            telemetry.event(
+                "rule", "FilterIndexRule", action="applied",
+                indexes=[{"name": index.name, "root": index.content.root,
+                          "num_buckets": index.num_buckets,
+                          "side": "filter"}])
+        else:
+            # The whyNot record: the relation (scan roots), the predicate
+            # columns, which of them are point (equality) comparisons —
+            # bucket pruning only helps those — and the full column set
+            # a covering index would have to carry.
+            telemetry.event(
+                "rule", "FilterIndexRule", action="skipped",
+                reason="no ACTIVE covering index matches the plan "
+                       "signature (filter must reference the first "
+                       "indexed column; all columns must be covered)",
+                filter_columns=list(filter_columns),
+                eq_columns=_eq_columns(filt.condition),
+                project_columns=sorted(
+                    {c.lower() for c in project_columns}),
+                roots=list(scan.root_paths))
+            return node
+
+        rewritten: LogicalPlan = Filter(filt.condition, source)
+        if project is not None:
+            rewritten = Project(project.columns, rewritten)
+        else:
+            # Bare Filter(Scan): restore the base relation's column order —
+            # enabling indexes must not change result shape.
+            rewritten = Project(scan.schema.names, rewritten)
+        return rewritten
+
+    def _find_covering_index(self, filt: Filter, scan: Scan,
+                             project_columns: Sequence[str],
+                             filter_columns: Sequence[str]) -> Optional[IndexLogEntry]:
+        """Reference `FilterIndexRule.scala:146-228`."""
+        candidates: List[IndexLogEntry] = []
+        for entry in self._covering_indexes():
+            if not self._covers(entry, project_columns, filter_columns):
+                continue
+            if not self.signature_matches(entry, filt):
+                continue
+            candidates.append(entry)
+        if not candidates:
+            return None
+        if len(candidates) == 1:
+            return candidates[0]
+        return self._rank(candidates)
+
+    @staticmethod
+    def _rank(candidates: List[IndexLogEntry]) -> IndexLogEntry:
+        """Cost-based selection — exceeds the reference's first-wins
+        placeholder (`FilterIndexRule.scala:222-228`): among covering
+        candidates, pick the one that reads the FEWEST BYTES (on-disk
+        size of the index data root, the exact cost of the swapped-in
+        scan); when any candidate's storage is unstatable, fall back to
+        total column count (fewer columns ~ narrower rows ~ fewer
+        bytes). Ties break toward MORE buckets (finer point-filter
+        bucket pruning: each point value reads 1/num_buckets of the
+        files), then name for determinism."""
+        sizes = []
+        for entry in candidates:
+            size = _entry_size_bytes(entry)
+            # 0 bytes means missing/unreadable as much as legitimately
+            # empty. An index whose data root vanished must never WIN the
+            # ranking by looking free: candidates with real bytes beat
+            # 0-byte ones outright; with no sized candidate at all, fall
+            # back to the column-count proxy. NOTE: stamped stats are
+            # trusted as-is (metadata-only ranking, zero FS calls) — a
+            # data root deleted out-of-band AFTER a stamped build is not
+            # re-detected here and fails loudly at scan time instead;
+            # the walk fallback preserves the 0-byte guard only for
+            # legacy stampless entries.
+            sizes.append(size if size > 0 else None)
+        sized = [(s, e) for s, e in zip(sizes, candidates) if s is not None]
+        if sized:
+            return min(sized,
+                       key=lambda p: (p[0], -p[1].num_buckets, p[1].name))[1]
+        counts = [len(e.indexed_columns) + len(e.included_columns)
+                  for e in candidates]
+        return min(zip(counts, candidates),
+                   key=lambda p: (p[0], -p[1].num_buckets, p[1].name))[1]
+
+    @staticmethod
+    def _covers(entry: IndexLogEntry, project_columns: Sequence[str],
+                filter_columns: Sequence[str]) -> bool:
+        """Filter columns must include the index's first indexed column and
+        all referenced columns must be covered (reference `:203-215`)."""
+        first_indexed = entry.indexed_columns[0].lower()
+        filter_lower = {c.lower() for c in filter_columns}
+        if first_indexed not in filter_lower:
+            return False
+        covered = {c.lower() for c in
+                   (entry.indexed_columns + entry.included_columns)}
+        referenced = filter_lower | {c.lower() for c in project_columns}
+        return referenced <= covered

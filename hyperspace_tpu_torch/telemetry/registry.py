@@ -1,0 +1,279 @@
+"""Process-wide metrics registry: named counters, gauges, log-bucketed
+histograms.
+
+`QueryMetrics` answers "what did THIS query do"; this registry answers
+"what has this PROCESS done" — aggregate counts and timings across every
+query, session, index build and maintenance action since startup. It is the scrape surface for a long-running
+service: `to_text()` emits Prometheus exposition format, `to_dict()`
+a JSON-able snapshot, and the last N structured action reports ride
+along for the maintenance audit trail.
+
+One registry per process (`get_registry()`); sessions share it —
+`HyperspaceSession.metrics_registry()` is just the surface. All metric
+mutation goes through one registry-level lock: the callers (operator
+hooks, build phases, action reports) update at far below the rate where
+that lock could contend, and a single lock keeps counter/histogram pairs
+mutually consistent for scrapers.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+import time
+from collections import deque
+from typing import Dict, List, Optional
+
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
+           "get_registry"]
+
+
+class Counter:
+    """Monotonic accumulator (float). `set()` lets a profiling script
+    zero a counter between warm runs; service scrapers should treat
+    counters as monotonic."""
+
+    __slots__ = ("name", "_value", "_lock")
+
+    def __init__(self, name: str, lock: threading.Lock):
+        self.name = name
+        self._value = 0.0
+        self._lock = lock
+
+    def inc(self, n: float = 1.0) -> None:
+        with self._lock:
+            self._value += n
+
+    def set(self, value: float) -> None:
+        with self._lock:
+            self._value = float(value)
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+
+class Gauge:
+    """Point-in-time value (device count, cache sizes, ...)."""
+
+    __slots__ = ("name", "_value", "_lock")
+
+    def __init__(self, name: str, lock: threading.Lock):
+        self.name = name
+        self._value = 0.0
+        self._lock = lock
+
+    def set(self, value: float) -> None:
+        with self._lock:
+            self._value = float(value)
+
+    def inc(self, n: float = 1.0) -> None:
+        with self._lock:
+            self._value += n
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+
+class Histogram:
+    """Log2-bucketed histogram: observation `v` lands in the bucket with
+    upper bound `2**ceil(log2(v))` (non-positive values in a "0"
+    bucket). Powers of two track the quantities measured here — bytes
+    over the link, seconds per action phase — across their full dynamic
+    range with ~2x resolution and no preconfigured bounds."""
+
+    __slots__ = ("name", "_buckets", "count", "sum", "min", "max",
+                 "_lock")
+
+    _EXP_MIN, _EXP_MAX = -40, 64  # ~1e-12 .. ~1.8e19: clamp, don't drop
+
+    def __init__(self, name: str, lock: threading.Lock):
+        self.name = name
+        self._buckets: Dict[Optional[int], int] = {}
+        self.count = 0
+        self.sum = 0.0
+        self.min: Optional[float] = None
+        self.max: Optional[float] = None
+        self._lock = lock
+
+    @classmethod
+    def _exp(cls, v: float) -> Optional[int]:
+        if v <= 0:
+            return None
+        return max(cls._EXP_MIN, min(cls._EXP_MAX,
+                                     math.ceil(math.log2(v))))
+
+    def observe(self, v: float) -> None:
+        v = float(v)
+        exp = self._exp(v)
+        with self._lock:
+            self._buckets[exp] = self._buckets.get(exp, 0) + 1
+            self.count += 1
+            self.sum += v
+            self.min = v if self.min is None else min(self.min, v)
+            self.max = v if self.max is None else max(self.max, v)
+
+
+    def to_dict(self) -> dict:
+        buckets = {("0" if exp is None else repr(float(2 ** exp))): n
+                   for exp, n in sorted(
+                       self._buckets.items(),
+                       key=lambda kv: (-1e99 if kv[0] is None
+                                       else kv[0]))}
+        return {"count": self.count, "sum": round(self.sum, 6),
+                "min": self.min, "max": self.max, "buckets": buckets}
+
+
+def _prom_name(name: str) -> str:
+    """Map a dotted metric name onto the Prometheus name grammar
+    `[a-zA-Z_:][a-zA-Z0-9_:]*` (exposition format): every illegal
+    character becomes `_`, and the `hs_` prefix both namespaces the
+    export and guarantees a legal first character."""
+    # ASCII ranges, not str.isalnum(): isalnum() accepts Unicode
+    # letters/digits (tenant ids are user strings), which the grammar
+    # does not.
+    out = "".join(c if ("a" <= c <= "z" or "A" <= c <= "Z"
+                        or "0" <= c <= "9" or c == "_") else "_"
+                  for c in name)
+    return "hs_" + out
+
+
+def _escape_help(text: str) -> str:
+    """Escape a `# HELP` line per the exposition format: backslash and
+    line feed only (double quotes are NOT escaped in HELP)."""
+    return text.replace("\\", "\\\\").replace("\n", "\\n")
+
+
+def _escape_label_value(value: str) -> str:
+    """Escape a label VALUE per the exposition format: backslash,
+    double quote, and line feed."""
+    return (value.replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
+class MetricsRegistry:
+    """Get-or-create metric namespace + the action-report ring."""
+
+    ACTION_REPORT_RING = 64
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._metrics: Dict[str, object] = {}
+        self._action_reports: deque = deque(maxlen=self.ACTION_REPORT_RING)
+        self.started_at = time.time()
+
+    def _get_or_create(self, name: str, cls):
+        metric = self._metrics.get(name)
+        if metric is None:
+            with self._lock:
+                metric = self._metrics.get(name)
+                if metric is None:
+                    metric = cls(name, self._lock)
+                    self._metrics[name] = metric
+        if not isinstance(metric, cls):
+            raise TypeError(
+                f"Metric {name!r} already registered as "
+                f"{type(metric).__name__}, requested {cls.__name__}.")
+        return metric
+
+    def counter(self, name: str) -> Counter:
+        return self._get_or_create(name, Counter)
+
+    def gauge(self, name: str) -> Gauge:
+        return self._get_or_create(name, Gauge)
+
+    def histogram(self, name: str) -> Histogram:
+        return self._get_or_create(name, Histogram)
+
+    # -- action reports ------------------------------------------------
+
+    def record_action_report(self, report: dict) -> None:
+        with self._lock:
+            self._action_reports.append(report)
+
+    # -- snapshots -----------------------------------------------------
+
+    def to_dict(self) -> dict:
+        with self._lock:
+            metrics = dict(self._metrics)
+        counters = {}
+        gauges = {}
+        histograms = {}
+        for name in sorted(metrics):
+            m = metrics[name]
+            if isinstance(m, Counter):
+                counters[name] = round(m.value, 6)
+            elif isinstance(m, Gauge):
+                gauges[name] = round(m.value, 6)
+            else:
+                histograms[name] = m.to_dict()
+        return {"counters": counters, "gauges": gauges,
+                "histograms": histograms}
+
+    def counters_dict(self) -> Dict[str, float]:
+        """Counters only — the compact form bench artifacts embed."""
+        return self.to_dict()["counters"]
+
+
+    def to_text(self) -> str:
+        """Prometheus text exposition format (the `/metrics` payload a
+        service deployment would scrape). Conformance contract (pinned
+        by `tests/test_artifact_diff.py::test_prometheus_conformance`):
+        every family gets `# HELP` then `# TYPE` before its samples,
+        names obey the Prometheus grammar (dotted names sanitized via
+        `_prom_name`; the HELP text carries the original dotted name
+        for the reverse mapping), label values are escaped per the
+        format, and histogram buckets are cumulative with a closing
+        `+Inf` bucket equal to `_count`. Dotted names that collide
+        after sanitization are disambiguated with a numeric suffix —
+        a repeated `# TYPE` for one family is a format violation."""
+        with self._lock:
+            metrics = dict(self._metrics)
+        lines: List[str] = []
+        taken: Dict[str, str] = {}  # prom name -> dotted source name
+        for name in sorted(metrics):
+            m = metrics[name]
+            pname = _prom_name(name)
+            serial = 2
+            while pname in taken and taken[pname] != name:
+                pname = f"{_prom_name(name)}_{serial}"
+                serial += 1
+            taken[pname] = name
+            kind = ("counter" if isinstance(m, Counter)
+                    else "gauge" if isinstance(m, Gauge)
+                    else "histogram")
+            lines.append(f"# HELP {pname} "
+                         + _escape_help(f"hyperspace metric '{name}'"))
+            lines.append(f"# TYPE {pname} {kind}")
+            if kind in ("counter", "gauge"):
+                lines.append(f"{pname} {m.value:g}")
+                continue
+            cum = 0
+            for exp, n in sorted(
+                    m._buckets.items(),
+                    key=lambda kv: (-1e99 if kv[0] is None
+                                    else kv[0])):
+                cum += n
+                le = "0" if exp is None else f"{float(2 ** exp):g}"
+                le = _escape_label_value(le)
+                lines.append(f'{pname}_bucket{{le="{le}"}} {cum}')
+            lines.append(f'{pname}_bucket{{le="+Inf"}} {m.count}')
+            lines.append(f"{pname}_sum {m.sum:g}")
+            lines.append(f"{pname}_count {m.count}")
+        return "\n".join(lines) + ("\n" if lines else "")
+
+    def reset(self) -> None:
+        """Drop every metric and report. A test/ops hook — a live
+        service never resets (rates are derived by the scraper)."""
+        with self._lock:
+            self._metrics.clear()
+            self._action_reports.clear()
+
+
+_REGISTRY = MetricsRegistry()
+
+
+def get_registry() -> MetricsRegistry:
+    """THE process-wide registry (sessions share it)."""
+    return _REGISTRY

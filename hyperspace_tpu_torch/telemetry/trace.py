@@ -1,0 +1,154 @@
+"""Span tracer with Chrome trace-event / Perfetto JSON export.
+
+Where the registry (`telemetry/registry.py`) aggregates, the tracer
+keeps a TIMELINE: complete-event spans for physical operators and
+index-maintenance action phases, each stamped with the REAL thread it ran
+on.
+
+Off by default: every hook starts with one module-global read + None
+check (`tracer()`), the same always-off discipline as the query
+recorder. `enable_tracing()` installs a bounded ring (old events drop,
+never the process); `export_trace(path)` writes the standard
+`{"traceEvents": [...]}` JSON object that chrome://tracing and
+https://ui.perfetto.dev load directly.
+
+Timestamps are microseconds on the tracer's own perf_counter clock —
+the Chrome format needs only internal consistency, and perf_counter is
+the engine's timing base everywhere else.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+from collections import deque
+from contextlib import contextmanager
+from typing import Dict, List, Optional
+
+__all__ = ["Tracer", "enable_tracing", "disable_tracing",
+           "tracing_enabled", "tracer", "span", "export_trace",
+           "PID_ENGINE"]
+
+# The trace "process" engine threads report under.
+PID_ENGINE = 1
+
+_tracer: Optional["Tracer"] = None
+
+
+class Tracer:
+    def __init__(self, capacity: int = 200_000):
+        self.capacity = capacity
+        self.events: deque = deque(maxlen=capacity)
+        self.emitted = 0
+        self.t0_s = time.perf_counter()
+        self.started_at = time.time()
+        self._lock = threading.Lock()
+        self._thread_names: Dict[int, str] = {}
+
+    def now_us(self) -> float:
+        return (time.perf_counter() - self.t0_s) * 1e6
+
+    def complete(self, name: str, cat: str, ts_us: float, dur_us: float,
+                 tid: Optional[int] = None, pid: int = PID_ENGINE,
+                 args: Optional[dict] = None) -> None:
+        """One Chrome "X" (complete) event. Same-thread spans nest by
+        ts/dur containment — no explicit parent links needed."""
+        if tid is None:
+            tid = threading.get_ident()
+            if tid not in self._thread_names:
+                self._thread_names[tid] = threading.current_thread().name
+        ev = {"name": name, "cat": cat, "ph": "X",
+              "ts": round(ts_us, 1), "dur": round(max(dur_us, 0.0), 1),
+              "pid": pid, "tid": tid}
+        if args:
+            ev["args"] = args
+        with self._lock:
+            self.events.append(ev)
+            self.emitted += 1
+
+    def _metadata_events(self) -> List[dict]:
+        out = [
+            {"name": "process_name", "ph": "M", "ts": 0,
+             "pid": PID_ENGINE, "tid": 0,
+             "args": {"name": "hyperspace-engine"}},
+        ]
+        for tid, tname in sorted(self._thread_names.items()):
+            out.append({"name": "thread_name", "ph": "M", "ts": 0,
+                        "pid": PID_ENGINE, "tid": tid,
+                        "args": {"name": tname}})
+        return out
+
+    def export(self, path: str) -> dict:
+        with self._lock:
+            events = list(self.events)
+            emitted = self.emitted
+        doc = {
+            "traceEvents": self._metadata_events() + events,
+            "displayTimeUnit": "ms",
+            "otherData": {
+                "producer": "hyperspace_tpu_torch.telemetry",
+                "started_at": self.started_at,
+                "events": len(events),
+                "dropped": max(emitted - len(events), 0),
+            },
+        }
+        from hyperspace_tpu_torch.utils import file_utils
+        file_utils.create_file(path, json.dumps(doc, default=str))
+        return {"path": path, "events": len(events),
+                "dropped": max(emitted - len(events), 0)}
+
+
+def enable_tracing(capacity: int = 200_000) -> Tracer:
+    """Install (or keep) the process tracer. Idempotent: an already
+    running tracer is reused so concurrent enablers don't drop each
+    other's spans."""
+    global _tracer
+    if _tracer is None:
+        _tracer = Tracer(capacity)
+    return _tracer
+
+
+def disable_tracing() -> None:
+    global _tracer
+    _tracer = None
+
+
+def tracing_enabled() -> bool:
+    return _tracer is not None
+
+
+def tracer() -> Optional[Tracer]:
+    """The active tracer, or None — THE always-off check every hook
+    makes first."""
+    return _tracer
+
+
+@contextmanager
+def span(name: str, cat: str = "engine", **args):
+    """Trace the enclosed block as a complete event on this thread.
+    No-op (one global read) without an active tracer."""
+    t = _tracer
+    if t is None:
+        yield
+        return
+    ts = t.now_us()
+    try:
+        yield
+    finally:
+        t.complete(name, cat, ts, t.now_us() - ts, args=args or None)
+
+
+def export_trace(path: str) -> dict:
+    """Write the collected spans as Chrome trace-event JSON at `path`
+    (loadable in chrome://tracing and ui.perfetto.dev). Returns
+    {path, events, dropped}. Raises if tracing was never enabled —
+    silently exporting an empty timeline would mask a missing
+    `enable_tracing()` call."""
+    t = _tracer
+    if t is None:
+        from hyperspace_tpu_torch.exceptions import HyperspaceException
+        raise HyperspaceException(
+            "Tracing is not enabled; call telemetry.enable_tracing() "
+            "before the work you want captured.")
+    return t.export(path)

@@ -1,0 +1,248 @@
+"""Storage seam: one place that says whether a path is a URL and hands out
+its fsspec filesystem.
+
+The reference rides the Hadoop `FileSystem` API so HDFS/ABFS work for free
+(`util/FileUtils.scala:37-116`); here plain paths keep the fast os/posix
+implementations and anything with a `scheme://` routes through fsspec
+(`memory://` in tests; object stores in deployment). Only THIS module
+imports fsspec.
+
+OCC without rename (SURVEY hard part #5): the op log's write-if-absent
+routes through `exclusive_create`, which dispatches per backend to a REAL
+create precondition — GCS `if_generation_match=0`, S3 conditional put
+(`If-None-Match: *`), exclusive-create mode for local/memory filesystems
+(atomic there). Backends with no enforceable precondition RAISE
+`PreconditionUnsupported` instead of silently degrading; callers may
+degrade to check-then-create only under an explicit
+`spark.hyperspace.single.writer=true` conf (`file_utils.py`).
+"""
+
+from __future__ import annotations
+
+import posixpath
+from typing import List, Tuple
+
+
+class PreconditionUnsupported(Exception):
+    """The backend cannot enforce an atomic create-if-absent."""
+
+
+def is_url(path: str) -> bool:
+    return "://" in path
+
+
+def get_fs(path: str) -> Tuple[object, str]:
+    """(fsspec filesystem, path stripped of its protocol)."""
+    import fsspec
+    return fsspec.core.url_to_fs(path)
+
+
+def protocol_of(path: str) -> str:
+    return path.split("://", 1)[0] + "://"
+
+
+def join(base: str, *parts: str) -> str:
+    """Path join that never mangles a URL's double slash."""
+    import os
+    if is_url(base):
+        proto = protocol_of(base)
+        rest = base[len(proto):]
+        return proto + posixpath.join(rest, *parts)
+    return os.path.join(base, *parts)
+
+
+def canonical(path: str) -> str:
+    """Absolute/normalized form for plain paths; URLs pass through (their
+    identity is the string — os normalization would corrupt `://`)."""
+    import os
+    if is_url(path):
+        return path
+    return os.path.abspath(path)
+
+
+# Protocols whose fsspec "x" (exclusive-create) mode is genuinely atomic:
+# local files use O_CREAT|O_EXCL; the in-process memory fs is serialized
+# by the interpreter. Object stores are NOT in this set — their "x" mode
+# is check-then-create (two racy calls), so they need a server-side
+# precondition instead.
+_ATOMIC_X_PROTOCOLS = {"file", "local", "memory"}
+
+# Serializes the memory-fs exclusive-create fallback (fsspec versions
+# without mode "x" support on MemoryFileSystem).
+import threading as _threading
+
+_memory_x_lock = _threading.Lock()
+
+
+def _protocols(fs) -> set:
+    proto = getattr(fs, "protocol", ())
+    return {proto} if isinstance(proto, str) else set(proto)
+
+
+def _is_precondition_failure(exc: Exception) -> bool:
+    """TYPED lost-the-race signatures across backends: GCS/S3 surface
+    HTTP 412 (PreconditionFailed); some wrappers raise FileExistsError
+    directly. Deliberately no message-text matching here — an unrelated
+    backend error whose text merely echoes the string must not silently
+    become "another writer won" (a dropped OCC commit); the text path is
+    `_lost_race`, which verifies the other writer's object exists."""
+    if isinstance(exc, FileExistsError):
+        return True
+    for attr in ("code", "status", "status_code"):
+        if getattr(exc, attr, None) == 412:
+            return True
+    response = getattr(exc, "response", None)  # botocore ClientError shape
+    if isinstance(response, dict):
+        meta = response.get("ResponseMetadata") or {}
+        error = response.get("Error") or {}
+        if (meta.get("HTTPStatusCode") == 412
+                or error.get("Code") in ("PreconditionFailed", "412")):
+            return True
+    return False
+
+
+def _lost_race(fs, real: str, exc: Exception) -> bool:
+    """True iff `exc` means a concurrent writer beat this one. Typed 412
+    signatures are trusted as-is; a message that merely *reads* like a
+    precondition failure (wrapper exceptions that flatten the status into
+    text) is only believed after verifying the winner's object actually
+    exists — with the listing cache dropped first, since fsspec serves
+    exists() from a dircache that predates the race."""
+    if _is_precondition_failure(exc):
+        return True
+    compact = f"{type(exc).__name__}{exc}".replace(" ", "").lower()
+    if "preconditionfailed" not in compact:
+        return False
+    try:
+        fs.invalidate_cache(posixpath.dirname(real))
+    except Exception:
+        pass
+    try:
+        return bool(fs.exists(real))
+    except Exception:
+        return False
+
+
+def _is_conflict(exc: Exception) -> bool:
+    """S3 409 ConflictError from a concurrent conditional put."""
+    for attr in ("code", "status", "status_code"):
+        if getattr(exc, attr, None) == 409:
+            return True
+    response = getattr(exc, "response", None)
+    if isinstance(response, dict):
+        meta = response.get("ResponseMetadata") or {}
+        error = response.get("Error") or {}
+        if (meta.get("HTTPStatusCode") == 409
+                or error.get("Code") in ("ConflictError", "409")):
+            return True
+    return "conflicterror" in f"{type(exc).__name__}{exc}".lower()
+
+
+def exclusive_create(path: str, data: bytes) -> bool:
+    """Create `path` with `data` only if it does not exist, using a true
+    backend precondition. Returns True iff this caller created it; False
+    when a concurrent (or earlier) writer won. Raises
+    `PreconditionUnsupported` when the backend offers no atomic create —
+    silent check-then-create here would corrupt the op log's OCC
+    (reference `IndexLogManager.scala:139-156`)."""
+    import os
+
+    fs, real = get_fs(path)
+    fs.makedirs(posixpath.dirname(real) or os.path.dirname(real),
+                exist_ok=True)
+    protos = _protocols(fs)
+    if protos & {"gs", "gcs"}:
+        # GCS: generation 0 precondition = object must not exist.
+        try:
+            fs.pipe_file(real, data, if_generation_match=0)
+            return True
+        except TypeError as exc:
+            raise PreconditionUnsupported(
+                f"gcsfs on this system does not accept "
+                f"if_generation_match: {exc}")
+        except Exception as exc:
+            if _lost_race(fs, real, exc):
+                return False
+            raise
+    if protos & {"s3", "s3a"}:
+        # S3 conditional put (If-None-Match: *), supported by AWS S3
+        # since 2024 and by MinIO. Concurrent conditional puts against
+        # the same key may return 409 ConflictError while another upload
+        # is in flight (AWS documents retry); retry through the package
+        # retry seam, then treat a persistent conflict as the other
+        # writer winning.
+        from hyperspace_tpu_torch.utils import retry
+
+        def conditional_put():
+            try:
+                fs.pipe_file(real, data, IfNoneMatch="*")
+                return True
+            except TypeError as exc:
+                raise PreconditionUnsupported(
+                    f"s3fs on this system does not accept IfNoneMatch: "
+                    f"{exc}")
+            except Exception as exc:
+                if _lost_race(fs, real, exc):
+                    return False
+                raise
+
+        try:
+            return retry.call(conditional_put,
+                              operation=f"s3.exclusive_create:{real}",
+                              retryable=_is_conflict)
+        except PreconditionUnsupported:
+            raise
+        except Exception as exc:
+            if not _is_conflict(exc):
+                raise
+            # Persistent 409: "another writer won" is only true if their
+            # object actually landed — a crashed/aborted upload also
+            # 409s, and silently reporting a loss then would corrupt the
+            # OCC log (the caller would trust a log entry that never
+            # exists). Drop any cached listing first: s3fs serves
+            # exists() from its dircache, which predates the race.
+            try:
+                fs.invalidate_cache(posixpath.dirname(real))
+            except Exception:
+                pass
+            if fs.exists(real):
+                return False
+            raise
+    if protos & _ATOMIC_X_PROTOCOLS:
+        try:
+            with fs.open(real, "xb") as f:
+                f.write(data)
+            return True
+        except FileExistsError:
+            return False
+        except ValueError:
+            # fsspec versions whose MemoryFileSystem rejects mode "x":
+            # the memory fs is in-process only, so a process-wide lock
+            # around check-then-write IS exclusive-create for it.
+            if "memory" not in protos:
+                raise
+            with _memory_x_lock:
+                if fs.exists(real):
+                    return False
+                with fs.open(real, "wb") as f:
+                    f.write(data)
+                return True
+    raise PreconditionUnsupported(
+        f"Backend {sorted(protos)} has no atomic create-if-absent; "
+        "concurrent index operations could corrupt the operation log. "
+        "Set spark.hyperspace.single.writer=true to accept "
+        "check-then-create semantics for single-writer deployments.")
+
+
+def listdir_names(path: str) -> List[str]:
+    """Base names of the direct children of a directory ([] if absent)."""
+    import os
+    if not is_url(path):
+        if not os.path.isdir(path):
+            return []
+        return os.listdir(path)
+    fs, real = get_fs(path)
+    if not fs.isdir(real):
+        return []
+    return [posixpath.basename(p.rstrip("/")) for p in fs.ls(real,
+                                                             detail=False)]

@@ -1,0 +1,111 @@
+"""`hyperspace_tpu_torch` stands alone: no JAX, no `hyperspace_tpu`.
+
+The port imports torch and never jax, and nothing of the JAX package —
+not even a module of it that has no JAX in it. Its entry points run on the
+CUDA card unless the caller asks for the CPU, and raise where there is no
+card.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PACKAGE = os.path.join(REPO, "hyperspace_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "hyperspace_tpu")
+
+
+def _package_files():
+    for root, _dirs, files in os.walk(PACKAGE):
+        for name in files:
+            if name.endswith(".py"):
+                yield os.path.join(root, name)
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _imported_modules(path):
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module \
+                and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "id", None) == "__import__"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+def test_no_module_imports_jax_or_the_jax_package():
+    files = list(_package_files())
+    assert len(files) > 20
+    offenders = [(os.path.relpath(p, REPO), m) for p in files
+                 for m in _imported_modules(p) if _forbidden(m)]
+    assert offenders == []
+
+
+def test_fresh_import_loads_neither_jax_nor_the_jax_package():
+    modules = sorted(
+        os.path.relpath(p, REPO)[:-3].replace(os.sep, ".")
+        .removesuffix(".__init__") for p in _package_files())
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', "
+        "'hyperspace_tpu'))\n"
+        "print(len(bad)); print(bad)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines()[0] == "0", out.stdout
+
+
+def test_default_device_is_cuda_and_raises_without_it():
+    from hyperspace_tpu_torch._torch_config import resolve_device
+    from hyperspace_tpu_torch.exceptions import HyperspaceException
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default is valid")
+    with pytest.raises(HyperspaceException):
+        resolve_device(None)
+    with pytest.raises(HyperspaceException):
+        resolve_device("cuda")
+
+
+def test_session_without_cuda_raises_unless_cpu_is_asked(tmp_path):
+    import hyperspace_tpu_torch as ths
+    from hyperspace_tpu_torch.exceptions import HyperspaceException
+
+    conf = {"spark.hyperspace.warehouse.dir": str(tmp_path)}
+    sess = ths.HyperspaceSession(ths.HyperspaceConf(conf), device="cpu")
+    assert sess.device == torch.device("cpu")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default is valid")
+    with pytest.raises(HyperspaceException):
+        ths.HyperspaceSession(ths.HyperspaceConf(conf))
+
+
+def test_kernel_wrapper_never_falls_back_on_a_non_cpu_tensor():
+    """A tensor on a device other than the CPU or CUDA is refused, not
+    quietly hashed by the plain version."""
+    from hyperspace_tpu_torch.exceptions import HyperspaceException
+    from hyperspace_tpu_torch.ops.cuda import hash_kernel
+
+    lanes = torch.zeros((1, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(HyperspaceException):
+        hash_kernel.hash_lanes_to_buckets(lanes, 8)
