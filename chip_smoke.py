@@ -3,17 +3,26 @@
 
     python3 chip_smoke.py
 
-Builds the package's CUDA kernels from the sources in this checkout, holds
-each kernel against its plain PyTorch version on the card, then drives the
-Quick Start loop through the public entry points at the size of
-`bench.py`'s filter rung: a 16,777,216-row Parquet source (key, k2, id,
-score; 512 MB in 4 files), `Hyperspace.create_index` at the default 200
-buckets, and two index-served filters (a bucket-pruned point lookup on the
-host lane and a full-index range on the device lane), each checked against
-numpy over the source. Every phase prints one JSON line; any mismatch or
-error ends the run with a non-zero exit. The last lines are the kernel
-table, the card's name and power limit as `nvidia-smi` reports them, and
-`{"ok": true, "device": {...}}`.
+Builds the package's CUDA kernels from the sources in this checkout (one
+`nvcc` per source, all at once), holds each kernel against its plain
+PyTorch version on the card, then drives the main path through the public
+entry points:
+
+- the Quick Start loop at the size of `bench.py`'s filter rung: a
+  16,777,216-row Parquet source (key, k2, id, score; 512 MB in 4 files),
+  `Hyperspace.create_index` at the default 200 buckets, and two
+  index-served filters (a bucket-pruned point lookup on the host lane and
+  a full-index range on the device lane);
+- the shuffle-free join on `bench.py`'s join schema: two 8,388,608-row
+  right sources (key, val), indexed at 200 and at 64 buckets, each joined
+  with the left index — query A with equal bucket counts (no Exchange,
+  bench.py's rung 3) and query B with 64 buckets (the right side
+  re-bucketed to 200 through the Exchange and its partition kernel).
+
+Every result is checked against numpy over the sources. Every phase prints
+one JSON line; any mismatch or error ends the run with a non-zero exit.
+The last lines are the kernel table, the card's name and power limit as
+`nvidia-smi` reports them, and `{"ok": true, "device": {...}}`.
 
 Needs one CUDA card; exits non-zero without one, or without the package
 beside it. Scratch data lives under `_smoke/` in the checkout and is
@@ -30,6 +39,8 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 N_ROWS = 1 << 24
 N_FILES = 4
+N_RIGHT = 1 << 23               # rows of each join right source
+EXCHANGE_BUCKETS = 200          # the left index's count: B's Exchange target
 SEED = 42
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 INT_OPS_PER_S = 67e12           # H100 SXM non-tensor 32-bit rate
@@ -172,6 +183,69 @@ def phase_kernel_hash(hash_kernel):
     return row
 
 
+def phase_kernel_partition(partition_kernel, hash_kernel):
+    """The partition kernel against its plain version at every size/lane/
+    bucket case, with tolerance 0 (integer ids and counts); timed at the
+    Exchange's shape beside the two-pass path (hash kernel + bincount)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    cases = 0
+    worst = 0
+    for n in (1, 127, 129, 4097, 70_000, N_RIGHT):
+        for n_lanes in (1, 2, 4, 6):
+            lanes = torch.randint(-2**31, 2**31, (n_lanes, n),
+                                  dtype=torch.int32, device="cuda",
+                                  generator=gen)
+            if n >= 4:
+                lanes[:, 0] = 0    # an all-zero row
+                lanes[:, 1] = -1   # an all-0xFFFFFFFF row
+            for num_buckets in (8, 64, 200, 1024):
+                ids, lengths = partition_kernel.partition_ids_and_histogram(
+                    lanes, num_buckets)
+                torch.cuda.synchronize()
+                want = hash_kernel.hash_lanes_to_buckets_reference(
+                    lanes, num_buckets)
+                want_lengths = torch.bincount(want, minlength=num_buckets)
+                err = max(int((ids.long() - want.long()).abs().max()),
+                          int((lengths - want_lengths).abs().max()))
+                worst = max(worst, err)
+                check(err == 0 and ids.dtype == torch.int32
+                      and lengths.dtype == torch.int64
+                      and int(lengths.sum()) == n,
+                      f"partition kernel != plain at n={n} L={n_lanes} "
+                      f"B={num_buckets}")
+                cases += 1
+    # The Exchange's shape: the 8,388,608-row right side, an int64 key
+    # (2 lanes), re-bucketed to the left index's 200 buckets.
+    n, n_lanes, num_buckets = N_RIGHT, 2, EXCHANGE_BUCKETS
+    lanes = torch.randint(-2**31, 2**31, (n_lanes, n), dtype=torch.int32,
+                          device="cuda", generator=gen)
+    ms = cuda_ms(lambda: partition_kernel.partition_ids_and_histogram(
+        lanes, num_buckets))
+    plain_ms = cuda_ms(
+        lambda: partition_kernel.partition_ids_and_histogram_reference(
+            lanes, num_buckets), iters=5, repeats=3)
+    two_pass_ms = cuda_ms(lambda: torch.bincount(
+        hash_kernel.hash_lanes_to_buckets(lanes, num_buckets),
+        minlength=num_buckets))
+    nbytes = 4 * n * n_lanes + 4 * n + 8 * num_buckets
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = HASH_OPS_PER_LANE * n * n_lanes / INT_OPS_PER_S * 1e3
+    row = {"name": "partition_ids_and_histogram", "route": "cuda",
+           "source": "hyperspace_tpu_torch/csrc/partition_histogram.cu",
+           "replaces": "hyperspace_tpu/ops/pallas/partition_kernel.py:84",
+           "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "library_ms": None}
+    emit("kernel_partition", cases=cases, max_abs_err=worst, tolerance=0,
+         n=n, lanes=n_lanes, num_buckets=num_buckets, bytes=nbytes, ms=ms,
+         bound_ms=row["bound_ms"], plain_ms=plain_ms,
+         two_pass_ms=two_pass_ms)
+    return row
+
+
 def write_source(src_dir):
     """bench.py's filter-rung schema at N_ROWS rows, in N_FILES files."""
     import numpy as np
@@ -267,6 +341,128 @@ def phase_query(sess, df, root, cols):
     emit("query", **out)
 
 
+def write_right_source(src_dir, seed):
+    """bench.py's join right side: `key` int64 uniform in [0, N_ROWS/4)
+    (the left key's range), `val` float64; N_RIGHT rows in N_FILES files."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rng = np.random.default_rng(seed)
+    cols = {"key": rng.integers(0, N_ROWS // 4, N_RIGHT).astype(np.int64),
+            "val": rng.random(N_RIGHT)}
+    os.makedirs(src_dir)
+    step = N_RIGHT // N_FILES
+    for i in range(N_FILES):
+        pq.write_table(pa.table({k: v[i * step:(i + 1) * step]
+                                 for k, v in cols.items()}),
+                       os.path.join(src_dir, f"part-{i}.parquet"))
+    return cols
+
+
+def np_join(left, right):
+    """numpy oracle of `left JOIN right USING (key)` -> (id, val): the
+    right rows grouped by key (a stable argsort), each key's run found by
+    direct address (keys lie in [0, N_ROWS/4)), runs expanded per left
+    row."""
+    import numpy as np
+
+    counts = np.bincount(right["key"], minlength=N_ROWS // 4)
+    starts = np.cumsum(counts) - counts
+    order = np.argsort(right["key"], kind="stable")
+    per_left = counts[left["key"]]
+    li = np.repeat(np.arange(len(per_left)), per_left)
+    first = np.cumsum(per_left) - per_left
+    pos = starts[left["key"]][li] + np.arange(len(li)) - first[li]
+    return left["id"][li], right["val"][order[pos]]
+
+
+def canonical(ids, vals):
+    """(id, val) pairs in one order — sorted by id, then val — as tensors
+    on the card (two stable sorts of ~33.5M rows)."""
+    import torch
+
+    import numpy as np
+
+    ids = torch.from_numpy(np.require(ids, requirements="W")).cuda()
+    vals = torch.from_numpy(np.require(vals, requirements="W")).cuda()
+    perm = torch.sort(vals, stable=True).indices
+    perm = perm[torch.sort(ids[perm], stable=True).indices]
+    return ids[perm], vals[perm]
+
+
+def phase_join(hs, sess, df, work, cols):
+    """Queries A (equal bucket counts) and B (64 vs 200 buckets: the right
+    side re-bucketed through the Exchange), each against the numpy oracle
+    and against the same query with Hyperspace disabled."""
+    import torch
+
+    from hyperspace_tpu_torch import IndexConfig
+    from hyperspace_tpu_torch.engine.physical import plan_physical
+    from hyperspace_tpu_torch.ops.cuda import partition_kernel
+
+    left = {"key": cols["key"], "id": cols["id"]}
+    out = {}
+    for name, buckets, seed in (("A", 200, SEED + 2), ("B", 64, SEED + 3)):
+        t0 = time.perf_counter()
+        src = os.path.join(work, f"right{buckets}")
+        right = write_right_source(src, seed)
+        source_s = time.perf_counter() - t0
+        rdf = sess.read_parquet(src)
+        sess.conf.set("spark.hyperspace.index.num.buckets", str(buckets))
+        t0 = time.perf_counter()
+        hs.create_index(rdf, IndexConfig(f"smokeRight{buckets}", ["key"],
+                                         ["val"]))
+        build_s = time.perf_counter() - t0
+        frame = (df.select("key", "id")
+                 .join(rdf.select("key", "val"), on="key")
+                 .select("id", "val"))
+
+        sess.enable_hyperspace()
+        plan = sess.optimize(frame.plan)
+        roots = [p for leaf in plan.collect_leaves() for p in leaf.root_paths]
+        check(len(roots) == 2 and all("v__=" in r for r in roots),
+              f"query {name} not index-served: {roots}")
+        tree = plan_physical(plan, conf=sess.conf).tree_string()
+        exchange = f"Exchange hashpartitioning(key, {EXCHANGE_BUCKETS})"
+        check(exchange in tree if buckets != EXCHANGE_BUCKETS
+              else "Exchange" not in tree,
+              f"query {name}: unexpected plan\n{tree}")
+        launches = partition_kernel.partition_ids_and_histogram.launches
+        warm = wall_ms(frame.collect)
+        # Operator times of a warm run (the recorder's host clock).
+        table, metrics = frame.collect(with_metrics=True)
+        launched = (partition_kernel.partition_ids_and_histogram.launches
+                    - launches)
+        check((launched > 0) == (buckets != EXCHANGE_BUCKETS),
+              f"query {name}: partition kernel launched {launched} times")
+        got = canonical(table.column("id").to_numpy(),
+                        table.column("val").to_numpy())
+        t0 = time.perf_counter()
+        want = canonical(*np_join(left, right))
+        oracle_s = time.perf_counter() - t0
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"query {name}: rows differ from numpy")
+        ops = [{"op": o.name, "ms": o.wall_s * 1e3, "rows": o.rows_out,
+                **({"lane": o.detail["lane"]} if "lane" in o.detail
+                   else {})} for o in metrics.operators]
+
+        sess.disable_hyperspace()
+        plain = frame.collect()
+        check(all(torch.equal(a, b) for a, b in zip(
+            canonical(plain.column("id").to_numpy(),
+                      plain.column("val").to_numpy()), got)),
+              f"query {name}: rows differ with Hyperspace disabled")
+        lanes = [o["lane"] for o in ops if o["op"] == "Scan"]
+        check(lanes == ["device", "device"], f"query {name}: lanes {lanes}")
+        out[name] = {"right_buckets": buckets, "rows": table.num_rows,
+                     "wall_ms": warm, "scan_lanes": lanes,
+                     "partition_launches": launched, "operators": ops,
+                     "right_source_s": source_s, "right_build_s": build_s,
+                     "oracle_s": oracle_s}
+    emit("join", **out)
+
+
 def main():
     try:
         import torch
@@ -285,7 +481,7 @@ def main():
     from hyperspace_tpu_torch import (Hyperspace, HyperspaceConf,
                                       HyperspaceSession)
     from hyperspace_tpu_torch.ops.cuda import build as kbuild
-    from hyperspace_tpu_torch.ops.cuda import hash_kernel
+    from hyperspace_tpu_torch.ops.cuda import hash_kernel, partition_kernel
 
     card = card_line()
     emit("env", card=card, torch=torch.__version__,
@@ -299,7 +495,10 @@ def main():
     emit("build_kernels", seconds=time.perf_counter() - t0,
          per_library=seconds)
 
-    rows = [phase_kernel_hash(hash_kernel)]
+    rows = [phase_kernel_hash(hash_kernel),
+            phase_kernel_partition(partition_kernel, hash_kernel)]
+    counters = (hash_kernel.hash_lanes_to_buckets,
+                partition_kernel.partition_ids_and_histogram)
 
     work = os.path.join(REPO, "_smoke")
     shutil.rmtree(work, ignore_errors=True)
@@ -312,14 +511,17 @@ def main():
             {"spark.hyperspace.warehouse.dir": os.path.join(work, "wh")}))
         hs = Hyperspace(sess)
         # The main path: counts from zero, read right after it.
-        hash_kernel.hash_lanes_to_buckets.launches = 0
+        for fn in counters:
+            fn.launches = 0
         df, root = phase_build(hs, sess, os.path.join(work, "src"), cols)
         phase_query(sess, df, root, cols)
-        launches = hash_kernel.hash_lanes_to_buckets.launches
+        phase_join(hs, sess, df, work, cols)
+        launches = [fn.launches for fn in counters]
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    check(launches > 0, "the build never launched the hash kernel")
-    rows[0]["launches"] = launches
+    for row, count in zip(rows, launches):
+        check(count > 0, f"the main path never launched {row['name']}")
+        row["launches"] = count
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,10 +5,11 @@ The PyTorch counterpart of `hyperspace_tpu`: users create covering indexes
 files, with all index data and metadata stored on the lake behind an
 optimistic-concurrency operation log (the same on-lake format as
 `hyperspace_tpu`, so each package serves the other's indexes), and a
-rewrite layer that redirects filter queries to the indexes. The control
-plane is Python; the data plane is torch tensors on a CUDA card, with the
-build's bucket hash as a hand-written CUDA kernel (`csrc/`). Nothing here
-imports JAX or `hyperspace_tpu`.
+rewrite layer that redirects filter and equi-join queries to the indexes.
+The control plane is Python; the data plane is torch tensors on a CUDA
+card, with the build's bucket hash and the Exchange's partition step as
+hand-written CUDA kernels (`csrc/`). Nothing here imports JAX or
+`hyperspace_tpu`.
 """
 
 __version__ = "0.1.0"

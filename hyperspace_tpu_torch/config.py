@@ -78,6 +78,14 @@ class HyperspaceConf:
                             constants.MIN_DEVICE_ROWS_DEFAULT)
 
     @property
+    def broadcast_threshold(self) -> int:
+        """Join sides estimated under this many bytes broadcast as a
+        direct-address table (`ops/broadcast_join.py`); <= 0 disables
+        (Spark `autoBroadcastJoinThreshold` analog)."""
+        return self.get_int(constants.BROADCAST_THRESHOLD,
+                            constants.BROADCAST_THRESHOLD_DEFAULT)
+
+    @property
     def io_retry_attempts(self) -> int:
         """Total tries (first call included) for transient storage-IO
         failures; see `utils/retry.py`."""

@@ -71,6 +71,14 @@ DEVICE = "spark.hyperspace.device"
 MIN_DEVICE_ROWS = "spark.hyperspace.execution.min.device.rows"
 MIN_DEVICE_ROWS_DEFAULT = 4_194_304
 
+# Broadcast-join size threshold in estimated decoded bytes; <= 0 disables
+# (the analog of Spark's `spark.sql.autoBroadcastJoinThreshold`, which
+# the reference leans on for dimension joins and its E2E suite pins to
+# -1 to force the SMJ path, `E2EHyperspaceRulesTests.scala:42`). Default
+# matches Spark's 10 MB.
+BROADCAST_THRESHOLD = "spark.hyperspace.broadcast.threshold"
+BROADCAST_THRESHOLD_DEFAULT = 10 * 1024 * 1024
+
 WAREHOUSE_PATH = "spark.hyperspace.warehouse.dir"
 WAREHOUSE_PATH_DEFAULT = "warehouse"
 

@@ -1,19 +1,20 @@
 """User-facing DataFrame: a logical plan + session.
 
 The equivalent of the Spark DataFrame surface the reference operates on,
-cut to the filter path: `filter`/`select` are lazy plan builders;
-`collect`/`to_pandas`/`count` run the optimizer (rewrite rules, when
-enabled) and execute. Joins, sorts, aggregates and the other verbs of the
+cut to the filter and join paths: `filter`/`select`/`join` are lazy plan
+builders; `collect`/`to_pandas`/`count` run the optimizer (rewrite rules,
+when enabled) and execute. Sorts, aggregates and the other verbs of the
 JAX package come with the engine slices that execute them (ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional, Sequence, Union
 
 from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.plan import expr as E
-from hyperspace_tpu_torch.plan.nodes import Filter, LogicalPlan, Project
+from hyperspace_tpu_torch.plan.nodes import (Filter, Join, LogicalPlan,
+                                             Project)
 from hyperspace_tpu_torch.plan.schema import Schema
 
 
@@ -45,6 +46,39 @@ class DataFrame:
         names = [c for col in columns
                  for c in (col if isinstance(col, (list, tuple)) else [col])]
         return DataFrame(Project(names, self.plan), self.session)
+
+    def join(self, other: "DataFrame",
+             on: Union[E.Expression, str, Sequence[str], None] = None,
+             how: str = "inner") -> "DataFrame":
+        """Equi-join on column names (`on="key"` or a list, each name on
+        both sides) or an AND of column equalities. `how`: inner,
+        left_outer/left, right_outer/right, full_outer/full/outer,
+        left_semi/semi, left_anti/anti; cross (no `on`) builds the plan
+        but does not execute yet."""
+        how = {"semi": "left_semi", "anti": "left_anti",
+               "left": "left_outer", "right": "right_outer",
+               "full": "full_outer", "outer": "full_outer"}.get(how, how)
+        if how == "cross" or on is None:
+            if on is not None or how != "cross":
+                raise HyperspaceException(
+                    "join needs `on` keys unless how='cross'; cross joins "
+                    "take none.")
+            return DataFrame(Join(self.plan, other.plan, None, "cross"),
+                             self.session)
+        if isinstance(on, str):
+            on = [on]
+        if isinstance(on, (list, tuple)):
+            condition: Optional[E.Expression] = None
+            for name in on:
+                term = E.EqualTo(E.Column(name), E.Column(name))
+                condition = term if condition is None else E.And(condition,
+                                                                 term)
+            if condition is None:
+                raise HyperspaceException("join requires at least one key.")
+        else:
+            condition = on
+        return DataFrame(Join(self.plan, other.plan, condition, how),
+                         self.session)
 
     # -- actions (execute) ------------------------------------------------
 

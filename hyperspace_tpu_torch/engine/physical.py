@@ -1,18 +1,23 @@
 """Physical plan: executable operator tree.
 
-This package executes the filter path of the Quick Start loop: Scan,
-Filter and Project, with bucket pruning of equality literals over an
-index's bucketed layout. Any other logical node raises a typed
-HyperspaceException; joins (with their Exchange/Sort elision), aggregates,
-sorts and the other operators are queued in ROADMAP.md (the PyTorch port's
-queue).
+The reference's observable win is Spark's physical planner *not* inserting
+ShuffleExchange/Sort under a SortMergeJoin when both sides are bucketed
+(`index/rules/JoinIndexRule.scala:41-43`). This package owns that planning
+step: Join compiles to SortMergeJoinExec, with ExchangeExec (hash
+repartition) inserted only when a side is not already bucketed on the join
+keys — so explain() shows the Exchange elision, and execution actually
+skips the work. Scan, Filter and Project run the filter path, with bucket
+pruning of equality literals over an index's bucketed layout; small join
+sides broadcast (`BroadcastHashJoinExec`). Any other logical node raises a
+typed HyperspaceException; aggregates, sorts, unions and the other
+operators are queued in ROADMAP.md (the PyTorch port's queue).
 """
 
 from __future__ import annotations
 
 import functools
 import itertools
-from typing import List, Optional, Sequence, Set
+from typing import List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
@@ -20,28 +25,40 @@ from hyperspace_tpu_torch import telemetry
 from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.io import columnar, parquet
 from hyperspace_tpu_torch.plan import expr as E
-from hyperspace_tpu_torch.plan.nodes import (Filter, LogicalPlan, Project,
-                                             Scan)
+from hyperspace_tpu_torch.plan.nodes import (BucketSpec, Filter, Join,
+                                             LogicalPlan, Project, Scan)
 from hyperspace_tpu_torch.plan.schema import Schema
 
 
-def _instrument(fn):
-    """Wrap an execute implementation with the telemetry operator hook: a
-    per-query operator record (active recorder) and a trace span on the
-    executing thread (active tracer). With neither, the cost is one
-    ContextVar read + one global read + None checks. Applied automatically
-    to every PhysicalNode subclass by `PhysicalNode.__init_subclass__`."""
+def _batch_rows(out) -> Optional[int]:
+    """Output row count of an execute/execute_bucketed result."""
+    if isinstance(out, tuple):
+        out = out[0]
+    return out.num_rows
+
+
+def _instrument(fn, bucketed: bool):
+    """Wrap an execute/execute_bucketed implementation with the telemetry
+    operator hook: a per-query operator record (active recorder) and a
+    trace span on the executing thread (active tracer). With neither, the
+    cost is one ContextVar read + one global read + None checks. Applied
+    automatically to every PhysicalNode subclass by
+    `PhysicalNode.__init_subclass__`."""
 
     @functools.wraps(fn)
-    def wrapper(self):
+    def wrapper(self, *args):
         rec = telemetry.current()
         tr = telemetry.tracer()
         if rec is None and tr is None:
-            return fn(self)
-        op = rec.start_operator(self.name, self) if rec is not None else None
+            return fn(self, *args)
+        op = None
+        if rec is not None:
+            op = rec.start_operator(self.name, self, bucketed=bucketed)
+            if bucketed:
+                op.detail["num_buckets"] = args[0]
         ts = tr.now_us() if tr is not None else 0.0
         try:
-            out = fn(self)
+            out = fn(self, *args)
         except BaseException as exc:
             if tr is not None:
                 tr.complete(self.name, "operator", ts, tr.now_us() - ts,
@@ -51,9 +68,9 @@ def _instrument(fn):
             raise
         if tr is not None:
             tr.complete(self.name, "operator", ts, tr.now_us() - ts,
-                        args={"rows": out.num_rows})
+                        args={"rows": _batch_rows(out)})
         if op is not None:
-            rec.finish_operator(op, rows_out=out.num_rows)
+            rec.finish_operator(op, rows_out=_batch_rows(out))
         return out
 
     wrapper.__telemetry_instrumented__ = True
@@ -64,12 +81,15 @@ class PhysicalNode:
     name: str = "Physical"
 
     def __init_subclass__(cls, **kwargs):
-        # EVERY subclass's execute emits an operator metrics record.
+        # EVERY subclass's execute/execute_bucketed emits an operator
+        # metrics record.
         super().__init_subclass__(**kwargs)
-        fn = cls.__dict__.get("execute")
-        if fn is not None and not getattr(fn, "__telemetry_instrumented__",
-                                          False):
-            cls.execute = _instrument(fn)
+        for attr, bucketed in (("execute", False),
+                               ("execute_bucketed", True)):
+            fn = cls.__dict__.get(attr)
+            if fn is not None and not getattr(
+                    fn, "__telemetry_instrumented__", False):
+                setattr(cls, attr, _instrument(fn, bucketed))
 
     @property
     def children(self) -> List["PhysicalNode"]:
@@ -77,6 +97,13 @@ class PhysicalNode:
 
     def execute(self) -> columnar.ColumnBatch:
         raise NotImplementedError
+
+    def execute_bucketed(self, num_buckets: int):
+        """Produce (batch concatenated in bucket order, per-bucket lengths
+        as an int64 numpy array) for the bucketed join. Only meaningful on
+        chains over a bucketed scan, or an Exchange."""
+        raise HyperspaceException(
+            f"{type(self).__name__} does not support bucketed execution.")
 
     def simple_string(self) -> str:
         return self.name
@@ -202,22 +229,53 @@ class ScanExec(PhysicalNode):
             files_total = len(files)
         if not files:
             return _empty_batch(self.out_schema)
-        # Adaptive lane: small reads (e.g. a pruned point-filter bucket)
-        # stay in host memory — a device round-trip would dwarf the work.
+        return self._read(files, sum(parquet.file_row_counts(files)),
+                          files_total)
+
+    def _read(self, files: List[str], rows: int, files_total: int):
+        """Read `files` (holding `rows` rows) on the adaptive lane: small
+        reads (e.g. a pruned point-filter bucket) stay in host memory — a
+        device round-trip would dwarf the work; larger ones decode with
+        pyarrow on the host and take one H2D copy per column onto the
+        session's device."""
         from hyperspace_tpu_torch.constants import MIN_DEVICE_ROWS_DEFAULT
         min_dev = (self.conf.min_device_rows if self.conf is not None
                    else MIN_DEVICE_ROWS_DEFAULT)
-        host = sum(parquet.file_row_counts(files)) < min_dev
+        host = rows < min_dev
         self._annotate_read(files, host, files_total)
         if host:
             return parquet.read_host_batch(files, self.columns,
                                            self.out_schema)
-        # Device lane: pyarrow decode on the host, one H2D copy per
-        # column onto the session's device.
         from hyperspace_tpu_torch._torch_config import device_of
         table = parquet.read_table(files, columns=self.columns)
         return columnar.from_arrow(table, self.out_schema,
                                    device=device_of(self.conf))
+
+    def execute_bucketed(self, num_buckets: int):
+        return self._guard_index_read(
+            lambda: self._execute_bucketed(num_buckets))
+
+    def _execute_bucketed(self, num_buckets: int):
+        """Read all bucket files in bucket order; per-bucket lengths come
+        from the Parquet footers (no data read). The bucketed join matches
+        globally, so multi-run buckets need no pre-sort here."""
+        if self.scan.bucket_spec is None:
+            raise HyperspaceException("Bucketed read on unbucketed scan.")
+        per_bucket = self._per_bucket_files()
+        files_total = sum(len(v) for v in per_bucket.values())
+        # Buckets pruned by a filter above hold no row that can survive
+        # it, so reading them as empty is equivalent.
+        ordered = [(b, f) for b in range(num_buckets)
+                   if self.allowed_buckets is None
+                   or b in self.allowed_buckets
+                   for f in per_bucket.get(b, [])]
+        lengths = np.zeros(num_buckets, dtype=np.int64)
+        if not ordered:
+            return _empty_batch(self.out_schema), lengths
+        files = [f for _, f in ordered]
+        for (b, _), c in zip(ordered, parquet.file_row_counts(files)):
+            lengths[b] += c
+        return self._read(files, int(lengths.sum()), files_total), lengths
 
 
 class FilterExec(PhysicalNode):
@@ -240,6 +298,31 @@ class FilterExec(PhysicalNode):
         if batch.num_rows == 0:
             return batch
         return apply_filter(batch, self.condition)
+
+    def execute_bucketed(self, num_buckets: int):
+        """Filter preserves bucket grouping: the compaction gather is
+        stable-ascending, so surviving rows stay in bucket order; the new
+        per-bucket lengths are counts of the mask per bucket."""
+        import torch
+
+        from hyperspace_tpu_torch.engine.compiler import compile_predicate
+
+        batch, lengths = self.child.execute_bucketed(num_buckets)
+        if batch.num_rows == 0:
+            return batch, lengths
+        mask = compile_predicate(self.condition, batch)
+        if isinstance(mask, np.ndarray):  # host lane
+            row_bucket = np.repeat(np.arange(num_buckets), lengths)
+            new_lengths = np.bincount(row_bucket[mask],
+                                      minlength=num_buckets).astype(np.int64)
+            return batch.take(np.nonzero(mask)[0]), new_lengths
+        row_bucket = torch.repeat_interleave(
+            torch.arange(num_buckets, device=mask.device),
+            torch.from_numpy(lengths).to(mask.device),
+            output_size=batch.num_rows)
+        new_lengths = torch.bincount(row_bucket[mask], minlength=num_buckets)
+        return (batch.take(torch.nonzero(mask).squeeze(1)),
+                new_lengths.cpu().numpy().astype(np.int64))
 
 
 class ProjectExec(PhysicalNode):
@@ -271,7 +354,15 @@ class ProjectExec(PhysicalNode):
         return f"Project [{', '.join(parts)}]"
 
     def execute(self) -> columnar.ColumnBatch:
-        batch = self.child.execute()
+        return self._project(self.child.execute())
+
+    def execute_bucketed(self, num_buckets: int):
+        """Projection keeps rows in place, so the bucketed contract (batch
+        + lengths) carries through."""
+        batch, lengths = self.child.execute_bucketed(num_buckets)
+        return self._project(batch), lengths
+
+    def _project(self, batch: columnar.ColumnBatch) -> columnar.ColumnBatch:
         if all(isinstance(src, str) for _, src in self.entries):
             return batch.select([src for _, src in self.entries])
         from hyperspace_tpu_torch.engine.compiler import ExpressionCompiler
@@ -290,6 +381,272 @@ class ProjectExec(PhysicalNode):
                 columns[name] = compiler.value_column(src, dtype)
                 fields.append(Field(name, dtype, True))
         return columnar.ColumnBatch(Schema(fields), columns)
+
+
+def _one_lane(left: columnar.ColumnBatch, right: columnar.ColumnBatch):
+    """Both join inputs on one lane: where one side was read on the host
+    (below `min.device.rows`) and the other on the device, the host side
+    takes one H2D copy per column onto the other's device."""
+    if left.is_host == right.is_host:
+        return left, right
+    if left.is_host:
+        return columnar.host_batch_to_device(left, right.device), right
+    return left, columnar.host_batch_to_device(right, left.device)
+
+
+class ExchangeExec(PhysicalNode):
+    """Hash repartition — a REAL operator, not a marker. Its output is the
+    child's rows grouped by hash partition of the keys, with THE bucket
+    hash identity, so the layout matches what a bucketed index read
+    produces. Its presence/absence in the plan is the explain()
+    observable, and the work it represents is actually performed or
+    actually elided. On a CUDA batch with at most
+    `partition_kernel.MAX_KERNEL_BUCKETS` partitions the ids and lengths
+    come from the fused CUDA kernel (`csrc/partition_histogram.cu`);
+    above that from the hash kernel and `torch.bincount`."""
+
+    name = "Exchange"
+
+    def __init__(self, keys: Sequence[str], num_partitions: int,
+                 child: PhysicalNode):
+        self.keys = list(keys)
+        self.num_partitions = num_partitions
+        self.child = child
+
+    @property
+    def children(self):
+        return [self.child]
+
+    def simple_string(self) -> str:
+        return (f"Exchange hashpartitioning({', '.join(self.keys)}, "
+                f"{self.num_partitions})")
+
+    def partition(self, batch: columnar.ColumnBatch):
+        """(batch grouped by partition id, per-partition int64 lengths)."""
+        if batch.num_rows == 0:
+            return batch, np.zeros(self.num_partitions, dtype=np.int64)
+        if batch.is_host:
+            from hyperspace_tpu_torch.ops.host_hash import (
+                host_column_hash_lanes, host_flat_hash32)
+            lanes = []
+            for k in self.keys:
+                lanes.extend(host_column_hash_lanes(batch.column(k)))
+            ids = (host_flat_hash32(lanes)
+                   % np.uint32(self.num_partitions)).astype(np.int32)
+            perm = np.argsort(ids, kind="stable")
+            lengths = np.bincount(ids, minlength=self.num_partitions)
+            return batch.take(perm), lengths.astype(np.int64)
+        import torch
+
+        from hyperspace_tpu_torch.ops.cuda import partition_kernel
+        from hyperspace_tpu_torch.ops.cuda.hash_kernel import (
+            hash_lanes_to_buckets)
+        lanes = partition_kernel.batch_lanes(batch, self.keys)
+        if self.num_partitions <= partition_kernel.MAX_KERNEL_BUCKETS:
+            # Fused kernel: ids + histogram in ONE pass over the lanes.
+            ids, lengths = partition_kernel.partition_ids_and_histogram(
+                lanes, self.num_partitions)
+        else:
+            ids = hash_lanes_to_buckets(lanes, self.num_partitions)
+            lengths = torch.bincount(ids, minlength=self.num_partitions)
+        perm = torch.sort(ids, stable=True).indices
+        return batch.take(perm), lengths.cpu().numpy().astype(np.int64)
+
+    def execute(self) -> columnar.ColumnBatch:
+        return self.partition(self.child.execute())[0]
+
+    def execute_bucketed(self, num_buckets: int):
+        """An Exchange output satisfies the bucketed contract (batch in
+        partition order + lengths) — it is how the planner re-buckets ONE
+        side of a mismatched-bucket-count index join."""
+        if num_buckets != self.num_partitions:
+            raise HyperspaceException(
+                f"Exchange partitions ({self.num_partitions}) != requested "
+                f"buckets ({num_buckets}).")
+        return self.partition(self.child.execute())
+
+
+class SortExec(PhysicalNode):
+    """Ascending sort on `keys`, nulls first — the wrapper the general join
+    path emits over each side's Exchange (the Spark-shaped plan). The join
+    unwraps it: the counting join matches unsorted rows."""
+
+    name = "Sort"
+
+    def __init__(self, keys: Sequence[str], child: PhysicalNode):
+        self.keys = list(keys)
+        self.child = child
+
+    @property
+    def children(self):
+        return [self.child]
+
+    def simple_string(self) -> str:
+        return f"Sort [{', '.join(self.keys)}]"
+
+    def execute(self) -> columnar.ColumnBatch:
+        from hyperspace_tpu_torch.ops import keys as keymod
+
+        batch = self.child.execute()
+        if batch.num_rows == 0:
+            return batch
+        if batch.is_host:
+            lanes = [lane for k in self.keys for lane in
+                     keymod.host_column_sort_lanes(batch.column(k))]
+            return batch.take(np.lexsort(tuple(reversed(lanes))))
+        lanes = [lane for k in self.keys
+                 for lane in keymod.column_sort_lanes(batch.column(k))]
+        return batch.take(keymod.lexsort_permutation(lanes))
+
+
+class SortMergeJoinExec(PhysicalNode):
+    name = "SortMergeJoin"
+
+    def __init__(self, left: PhysicalNode, right: PhysicalNode,
+                 left_keys: Sequence[str], right_keys: Sequence[str],
+                 bucketed: bool, num_buckets: int = 0, how: str = "inner",
+                 out_columns: Optional[Set[str]] = None):
+        self.left = left
+        self.right = right
+        self.left_keys = list(left_keys)
+        self.right_keys = list(right_keys)
+        self.bucketed = bucketed
+        self.num_buckets = num_buckets
+        self.how = how
+        # Late projection: lowered OUTPUT column names the consumer needs;
+        # assembly gathers only these.
+        self.out_columns = out_columns
+
+    @property
+    def children(self):
+        return [self.left, self.right]
+
+    def simple_string(self) -> str:
+        keys = ", ".join(f"{l}={r}"
+                         for l, r in zip(self.left_keys, self.right_keys))
+        mode = f"bucketed({self.num_buckets})" if self.bucketed else "global"
+        return f"SortMergeJoin {self.how} [{keys}] {mode}"
+
+    def execute(self) -> columnar.ColumnBatch:
+        from hyperspace_tpu_torch.ops.join import sort_merge_join
+        if self.how in ("left_semi", "left_anti"):
+            # Membership joins: no expansion, no output from the right —
+            # membership flags, then a single left-side gather.
+            from hyperspace_tpu_torch.ops.join import semi_anti_indices
+            if self.bucketed:
+                lbatch, rbatch, _, _ = self._bucketed_inputs()
+            else:
+                lbatch, rbatch = _one_lane(self.left.execute(),
+                                           self.right.execute())
+            idx = semi_anti_indices(lbatch, rbatch, self.left_keys,
+                                    self.right_keys,
+                                    anti=self.how == "left_anti")
+            return lbatch.take(idx)
+        if self.bucketed:
+            # Co-partitioned sides: zero shuffle, one global counting
+            # match (`ops/bucketed_join.py`).
+            from hyperspace_tpu_torch.ops.bucketed_join import (
+                bucketed_sort_merge_join)
+            lbatch, rbatch, l_lengths, r_lengths = self._bucketed_inputs()
+            return bucketed_sort_merge_join(lbatch, rbatch, l_lengths,
+                                            r_lengths, self.left_keys,
+                                            self.right_keys, how=self.how,
+                                            columns=self.out_columns)
+        # General path: the planner wrapped each side in
+        # Sort(Exchange(...)) — the Spark-shaped plan. Both wrappers are
+        # unwrapped and elided at execution: the counting join matches in
+        # ORIGINAL row space with one flat sort, so a hash repartition and
+        # a per-side sort would be pure extra work.
+        def unwrap(node):
+            if isinstance(node, SortExec):
+                node = node.child
+            if isinstance(node, ExchangeExec):
+                node = node.child
+            return node
+
+        lbatch, rbatch = _one_lane(unwrap(self.left).execute(),
+                                   unwrap(self.right).execute())
+        return sort_merge_join(lbatch, rbatch, self.left_keys,
+                               self.right_keys, how=self.how,
+                               columns=self.out_columns)
+
+    def _bucketed_inputs(self):
+        """Both sides in bucket order, on one lane, with their per-bucket
+        lengths. (The sides read one after the other; each side's files
+        already read concurrently on the shared IO pool.)"""
+        lbatch, l_lengths = self.left.execute_bucketed(self.num_buckets)
+        rbatch, r_lengths = self.right.execute_bucketed(self.num_buckets)
+        lbatch, rbatch = _one_lane(lbatch, rbatch)
+        telemetry.annotate(lane="host" if lbatch.is_host else "device")
+        return lbatch, rbatch, l_lengths, r_lengths
+
+
+class BroadcastHashJoinExec(PhysicalNode):
+    """Small-side join with NO Exchange/Sort on either side — the analog of
+    Spark's BroadcastHashJoin. The planner routes a join here when one
+    side's estimated size is under `spark.hyperspace.broadcast.threshold`;
+    execution replicates that side as a direct-address lookup table and
+    matches probe rows with one gather (`ops/broadcast_join.py`). When the
+    keys are ineligible at run time (strings/floats/duplicates/wide
+    ranges), the counting join runs on the bare batches instead."""
+
+    name = "BroadcastHashJoin"
+
+    def __init__(self, left: PhysicalNode, right: PhysicalNode,
+                 left_keys: Sequence[str], right_keys: Sequence[str],
+                 build_side: str, how: str = "inner",
+                 out_columns: Optional[Set[str]] = None):
+        self.left = left
+        self.right = right
+        self.left_keys = list(left_keys)
+        self.right_keys = list(right_keys)
+        self.build_side = build_side  # "left" | "right"
+        self.how = how
+        self.out_columns = out_columns
+
+    @property
+    def children(self):
+        return [self.left, self.right]
+
+    def simple_string(self) -> str:
+        keys = ", ".join(f"{l}={r}"
+                         for l, r in zip(self.left_keys, self.right_keys))
+        return (f"BroadcastHashJoin {self.how} [{keys}] "
+                f"build={self.build_side}")
+
+    def execute(self) -> columnar.ColumnBatch:
+        from hyperspace_tpu_torch.ops.broadcast_join import (
+            broadcast_join_indices, broadcast_membership)
+        from hyperspace_tpu_torch.ops.bucketed_join import (
+            assemble_join_output)
+        from hyperspace_tpu_torch.ops.join import (semi_anti_indices,
+                                                   sort_merge_join)
+
+        lbatch, rbatch = _one_lane(self.left.execute(), self.right.execute())
+        if self.how in ("left_semi", "left_anti"):
+            anti = self.how == "left_anti"
+            idx = broadcast_membership(lbatch, rbatch, self.left_keys,
+                                       self.right_keys, anti=anti)
+            if idx is None:
+                idx = semi_anti_indices(lbatch, rbatch, self.left_keys,
+                                        self.right_keys, anti=anti)
+            return lbatch.take(idx)
+        if self.build_side == "right":
+            pair = broadcast_join_indices(lbatch, rbatch, self.left_keys,
+                                          self.right_keys, self.how)
+        else:
+            pair = broadcast_join_indices(
+                rbatch, lbatch, self.right_keys, self.left_keys,
+                "left_outer" if self.how == "right_outer" else "inner")
+            if pair is not None:
+                pair = pair[::-1]
+        if pair is not None:
+            li, ri = pair
+            return assemble_join_output(lbatch, rbatch, li, ri, how=self.how,
+                                        columns=self.out_columns)
+        return sort_merge_join(lbatch, rbatch, self.left_keys,
+                               self.right_keys, how=self.how,
+                               columns=self.out_columns)
 
 
 # ---------------------------------------------------------------------------
@@ -382,6 +739,108 @@ def _apply_bucket_pruning(condition: E.Expression, child: PhysicalNode):
     return child
 
 
+def _split_join_required(required: Set[str], left_schema: Schema,
+                         right_schema: Schema, left_keys=(), right_keys=()):
+    """Split a join's required OUTPUT names into per-side input column
+    sets. A required `<name>_r` maps back to the right-side source AND
+    keeps the left-side copy alive — the output renames the right column
+    only when the left batch still carries the collision, so pruning the
+    left copy would silently un-suffix the output."""
+    left_req = ({n for n in required if left_schema.contains(n)}
+                | set(left_keys))
+    right_req = ({n for n in required if right_schema.contains(n)}
+                 | set(right_keys))
+    for n in required:
+        base = n[:-2] if n.lower().endswith("_r") else None
+        if (base and right_schema.contains(base)
+                and left_schema.contains(base)):
+            right_req.add(base)
+            left_req.add(base)
+    return left_req, right_req
+
+
+def _join_keys(condition: E.Expression, left_schema: Schema,
+               right_schema: Schema) -> Tuple[List[str], List[str]]:
+    """Extract equi-join key pairs from an AND-of-equalities condition
+    (reference applicability: `JoinIndexRule.scala:179-185,278-317`)."""
+    left_keys: List[str] = []
+    right_keys: List[str] = []
+    for conjunct in E.split_conjunctive(condition):
+        if not isinstance(conjunct, E.EqualTo):
+            raise HyperspaceException(
+                f"Only equi-join conditions are supported; got {conjunct!r}")
+        a, b = conjunct.left, conjunct.right
+        if not isinstance(a, E.Column) or not isinstance(b, E.Column):
+            raise HyperspaceException(
+                "Join condition must compare columns directly.")
+        if left_schema.contains(a.name) and right_schema.contains(b.name):
+            left_keys.append(a.name)
+            right_keys.append(b.name)
+        elif left_schema.contains(b.name) and right_schema.contains(a.name):
+            left_keys.append(b.name)
+            right_keys.append(a.name)
+        else:
+            raise HyperspaceException(
+                f"Join columns not found on both sides: {conjunct!r}")
+    return left_keys, right_keys
+
+
+def _underlying_bucket_spec(plan: LogicalPlan) -> Optional[BucketSpec]:
+    """The bucket spec of the scan feeding a linear Filter/Project chain —
+    filters and projections preserve bucketing and intra-bucket order."""
+    node = plan
+    while isinstance(node, (Filter, Project)):
+        node = node.child
+    return node.bucket_spec if isinstance(node, Scan) else None
+
+
+# Approximate in-memory bytes per value; strings budget code + a share of
+# the dictionary. Only relative accuracy vs the broadcast threshold
+# matters (Spark's estimate — raw file size — is no finer).
+_DTYPE_WIDTH = {"bool": 1, "int8": 1, "int16": 2, "int32": 4, "date32": 4,
+                "float32": 4, "int64": 8, "float64": 8, "timestamp": 8,
+                "string": 16}
+
+
+def _estimated_plan_bytes(plan: LogicalPlan,
+                          required: Set[str]) -> Optional[int]:
+    """Upper-bound decoded bytes of `plan`'s output restricted to
+    `required`, from Parquet footer row counts (no data read). None when
+    the subtree's cardinality is not bounded by its scans (a join can
+    grow), so such a side never qualifies for broadcast. Mirrors what
+    Spark's `autoBroadcastJoinThreshold` keys on (leaf statistics
+    propagated through Filter/Project)."""
+    if isinstance(plan, Scan):
+        files = plan.files()
+        if not files:
+            return 0
+        try:
+            rows = sum(parquet.file_row_counts(files))
+        except Exception:
+            return None
+        lowered = {r.lower() for r in required}
+        width = sum(_DTYPE_WIDTH.get(f.dtype, 8) for f in plan.schema.fields
+                    if f.name.lower() in lowered)
+        return rows * max(width, 1)
+    if isinstance(plan, Filter):
+        return _estimated_plan_bytes(plan.child, required)
+    if isinstance(plan, Project):
+        # Map required OUTPUT names back through the projection to child
+        # columns: a renamed/computed column contributes its SOURCE
+        # columns' width, so a side whose columns are all computed is
+        # not underestimated past the threshold.
+        lowered = {r.lower() for r in required}
+        child_req: Set[str] = set()
+        for c in plan.columns:
+            if isinstance(c, str):
+                if c.lower() in lowered:
+                    child_req.add(c)
+            elif c.name.lower() in lowered:
+                child_req |= c.child.references()
+        return _estimated_plan_bytes(plan.child, child_req)
+    return None
+
+
 def _required_for(plan: LogicalPlan, required: Set[str]) -> List[str]:
     """required column names resolved against plan schema, in schema order."""
     lowered = {r.lower() for r in required}
@@ -392,7 +851,8 @@ def plan_physical(plan: LogicalPlan,
                   required: Optional[Set[str]] = None,
                   conf=None) -> PhysicalNode:
     """Logical -> physical with projection pushdown into scans. `conf`
-    carries the session's lane thresholds and device to the scans."""
+    carries the session's lane thresholds, device and broadcast threshold
+    to the operators."""
     if required is None:
         required = set(plan.schema.names)
 
@@ -418,7 +878,141 @@ def plan_physical(plan: LogicalPlan,
                 entries.append((c.name, c.child))
         return ProjectExec(entries, child)
 
+    if isinstance(plan, Join):
+        return _plan_join(plan, required, conf)
+
     raise HyperspaceException(
         f"{type(plan).__name__} is not executable in hyperspace_tpu_torch "
-        f"yet (this package runs Scan, Filter and Project); the operator "
-        f"is queued in ROADMAP.md's PyTorch port queue.")
+        f"yet (this package runs Scan, Filter, Project and equi-joins); the "
+        f"operator is queued in ROADMAP.md's PyTorch port queue.")
+
+
+def _plan_join(plan: Join, required: Set[str], conf) -> PhysicalNode:
+    """The equi-join branch: the bucketed sort-merge join when both sides
+    ride compatible bucketed layouts (the coarser side re-bucketed through
+    an Exchange when the counts differ), a broadcast join when one side is
+    small, the general sort-merge join otherwise."""
+    if plan.join_type == "cross":
+        raise HyperspaceException(
+            "Cross joins are not executable in hyperspace_tpu_torch yet; "
+            "they are queued in ROADMAP.md's PyTorch port queue (Queue 1).")
+    left_keys, right_keys = _join_keys(plan.condition, plan.left.schema,
+                                       plan.right.schema)
+    membership = plan.join_type in ("left_semi", "left_anti")
+    if membership:
+        # Membership join: the right side contributes only its keys.
+        out_columns = None
+        left_required = ({n for n in required
+                          if plan.left.schema.contains(n)} | set(left_keys))
+        right_required = set(right_keys)
+    else:
+        out_columns = {n.lower() for n in required}
+        left_required, right_required = _split_join_required(
+            set(required), plan.left.schema, plan.right.schema,
+            left_keys, right_keys)
+    left_phys = plan_physical(plan.left, left_required, conf)
+    right_phys = plan_physical(plan.right, right_required, conf)
+    lspec = _underlying_bucket_spec(plan.left)
+    rspec = _underlying_bucket_spec(plan.right)
+
+    def _align_to_spec(spec: Optional[BucketSpec]):
+        """Reorder the (left, right) key PAIRS so the left list matches
+        `spec.bucket_columns` — each side hashes in its own indexed-column
+        order, whatever the condition's conjunct order. None when the key
+        set is not exactly the bucket column set."""
+        if spec is None or len(spec.bucket_columns) != len(left_keys):
+            return None
+        lk_lower = [k.lower() for k in left_keys]
+        order = []
+        for bc in spec.bucket_columns:
+            if bc.lower() not in lk_lower:
+                return None
+            order.append(lk_lower.index(bc.lower()))
+        if len(set(order)) != len(order):
+            return None
+        return ([left_keys[i] for i in order],
+                [right_keys[i] for i in order])
+
+    def _key_dtypes_match() -> bool:
+        # Co-partitioning assumes both layouts hashed with the SAME lane
+        # decomposition; int32 vs int64 (or float32 vs float64) keys
+        # bucket equal values differently, so a bucketed path would drop
+        # matches — the general path promotes dtypes before matching.
+        return all(plan.left.schema.field(lk).dtype
+                   == plan.right.schema.field(rk).dtype
+                   for lk, rk in zip(left_keys, right_keys))
+
+    threshold = conf.broadcast_threshold if conf is not None else 0
+    if membership and threshold > 0:
+        # For MEMBERSHIP joins a small right side beats even an aligned
+        # bucketed layout: the direct-address probe is one gather over the
+        # left, no joint counting match.
+        est = _estimated_plan_bytes(plan.right, right_required)
+        if est is not None and est <= threshold:
+            return BroadcastHashJoinExec(left_phys, right_phys, left_keys,
+                                         right_keys, build_side="right",
+                                         how=plan.join_type,
+                                         out_columns=out_columns)
+
+    aligned = _align_to_spec(lspec)
+    # The right layout must hash the MAPPED columns in the same positions.
+    if (aligned is None or rspec is None
+            or [c.lower() for c in rspec.bucket_columns]
+            != [k.lower() for k in aligned[1]]):
+        aligned = None
+
+    if aligned is not None and _key_dtypes_match():
+        left_keys, right_keys = aligned
+        # Bucketed SMJ — the indexed fast path. With mismatched bucket
+        # counts (the ranker's fallback, reference
+        # `JoinIndexRanker.scala:40-55`) ONLY the coarser side is
+        # re-bucketed through an Exchange to the finer count; the Exchange
+        # uses THE hash identity, so its output co-partitions with the
+        # other side's on-disk buckets.
+        target = max(lspec.num_buckets, rspec.num_buckets)
+        if lspec.num_buckets != target:
+            left_phys = ExchangeExec(left_keys, target, left_phys)
+        elif rspec.num_buckets != target:
+            right_phys = ExchangeExec(right_keys, target, right_phys)
+        return SortMergeJoinExec(left_phys, right_phys, left_keys,
+                                 right_keys, bucketed=True,
+                                 num_buckets=target, how=plan.join_type,
+                                 out_columns=out_columns)
+    # Broadcast path: one side estimated small (dimension tables) — no
+    # Exchange/Sort on EITHER side. Disable with
+    # `spark.hyperspace.broadcast.threshold = -1` (the analog of the
+    # reference E2E suite pinning autoBroadcastJoinThreshold to -1). The
+    # probe side must keep ALL its rows, so outer joins only broadcast
+    # their inner side.
+    if threshold > 0:
+        build = None
+        if plan.join_type in ("inner", "left_outer"):
+            est = _estimated_plan_bytes(plan.right, right_required)
+            if est is not None and est <= threshold:
+                build = "right"
+        if build is None and plan.join_type in ("inner", "right_outer"):
+            est = _estimated_plan_bytes(plan.left, left_required)
+            if est is not None and est <= threshold:
+                build = "left"
+        if build is not None:
+            return BroadcastHashJoinExec(left_phys, right_phys, left_keys,
+                                         right_keys, build_side=build,
+                                         how=plan.join_type,
+                                         out_columns=out_columns)
+    if membership:
+        # Bare membership probe: Exchange/Sort wrappers would be pure
+        # overhead.
+        return SortMergeJoinExec(left_phys, right_phys, left_keys,
+                                 right_keys, bucketed=False,
+                                 how=plan.join_type)
+    # General path: hash exchange + sort on each side (elided at
+    # execution, see SortMergeJoinExec).
+    num_partitions = max(lspec.num_buckets if lspec else 0,
+                         rspec.num_buckets if rspec else 0, 200)
+    left_sorted = SortExec(left_keys, ExchangeExec(
+        left_keys, num_partitions, left_phys))
+    right_sorted = SortExec(right_keys, ExchangeExec(
+        right_keys, num_partitions, right_phys))
+    return SortMergeJoinExec(left_sorted, right_sorted, left_keys,
+                             right_keys, bucketed=False, how=plan.join_type,
+                             out_columns=out_columns)

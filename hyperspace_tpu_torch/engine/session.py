@@ -85,13 +85,15 @@ class HyperspaceSession:
     # -- optimizer plumbing ----------------------------------------------
 
     def enable_hyperspace(self) -> "HyperspaceSession":
-        """Plug the rewrite rule batch (reference `package.scala:46-51`).
-        This package serves filters from indexes; the join rule comes
-        with the join operators (ROADMAP.md)."""
+        """Plug the rewrite rule batch (reference `package.scala:46-51`):
+        JoinIndexRule before FilterIndexRule, as the reference orders them
+        (`package.scala:23-34`) — once the filter rule swapped a join
+        side's scan, the join rule no longer sees the base relation."""
         from hyperspace_tpu_torch.plan.rules.filter_index import (
             FilterIndexRule)
+        from hyperspace_tpu_torch.plan.rules.join_index import JoinIndexRule
         if not self._hyperspace_enabled:
-            self._rules = [FilterIndexRule(self)]
+            self._rules = [JoinIndexRule(self), FilterIndexRule(self)]
             self._hyperspace_enabled = True
         return self
 

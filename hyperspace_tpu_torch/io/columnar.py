@@ -326,6 +326,23 @@ def _merged_dictionary(dictionaries, device: Optional[torch.device]):
     return merged, remaps, _split_hashes(_string_hash64(merged), device)
 
 
+def unify_string_columns(a: DeviceColumn, b: DeviceColumn):
+    """Re-map two string columns onto one merged sorted dictionary so their
+    codes are mutually comparable (used by the join path). Both columns
+    are in the same residence: numpy on the host lane, tensors on one
+    device."""
+    device = None if a.is_host else a.data.device
+    merged, (remap_a, remap_b), hashes = _merged_dictionary(
+        [a.dictionary, b.dictionary], device)
+
+    def remap(col: DeviceColumn, table) -> DeviceColumn:
+        codes = (table[col.data] if device is None
+                 else table[col.data.to(torch.int64)])
+        return DeviceColumn(codes, "string", col.validity, merged, hashes)
+
+    return remap(a, remap_a), remap(b, remap_b)
+
+
 def batch_to_tree(batch: ColumnBatch):
     """ColumnBatch -> (dict of per-column arrays, host aux).
 

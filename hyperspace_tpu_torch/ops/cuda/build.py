@@ -33,6 +33,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 # kernel library name -> source file under csrc/
 SOURCES: Dict[str, str] = {
     "hash_buckets": "hash_buckets.cu",
+    "partition_histogram": "partition_histogram.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -22,7 +22,7 @@ same lanes, so hashing and sorting share one decomposition.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -93,6 +93,31 @@ def lexsort_permutation(operands: Sequence[torch.Tensor]) -> torch.Tensor:
         order = torch.sort(key, stable=True).indices
         perm = perm[order]
     return perm
+
+
+def staged_sort(operands: Sequence[torch.Tensor]
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """(permutation, sorted operands): the stable lexicographic sort of
+    `operands` (primary key first) — the JAX package's `_staged_sort`,
+    whose chunked LSD passes become `lexsort_permutation`'s one stable
+    pass per operand."""
+    perm = lexsort_permutation(operands)
+    return perm, [op[perm] for op in operands]
+
+
+def host_dense_group_ids(keys) -> Tuple[np.ndarray, np.ndarray]:
+    """Stable dense group encoding on the host: a stable `np.lexsort`
+    over the key arrays (primary key first), then adjacent-difference ids
+    in sorted order. Returns (perm, sorted_group_ids); original-order ids
+    are `out[perm] = sorted_group_ids`."""
+    keys = [np.asarray(k) for k in keys]
+    perm = np.lexsort(tuple(reversed(keys)))
+    n = len(perm)
+    differs = np.zeros(n, dtype=np.int32)
+    for k in keys:
+        ks = k[perm]
+        differs[1:] |= (ks[1:] != ks[:-1]).astype(np.int32)
+    return perm, np.cumsum(differs, dtype=np.int32)
 
 
 def host_key_lanes(data) -> List:

@@ -5,7 +5,7 @@ from hyperspace_tpu_torch.plan.expr import (
     NotEqualTo, Or, Sub,
 )
 from hyperspace_tpu_torch.plan.nodes import (
-    BucketSpec, Filter, LogicalPlan, Project, Scan,
+    BucketSpec, Filter, Join, LogicalPlan, Project, Scan,
 )
 
 __all__ = [
@@ -13,5 +13,5 @@ __all__ = [
     "Add", "And", "Column", "Div", "EqualTo", "Expression", "GreaterThan",
     "GreaterThanOrEqual", "In", "IsNotNull", "IsNull", "LessThan",
     "LessThanOrEqual", "Literal", "Mul", "Not", "NotEqualTo", "Or", "Sub",
-    "BucketSpec", "Filter", "LogicalPlan", "Project", "Scan",
+    "BucketSpec", "Filter", "Join", "LogicalPlan", "Project", "Scan",
 ]

@@ -2,9 +2,10 @@
 
 The reference matches/rewrites Catalyst trees
 (`Project(Filter(LogicalRelation))`); this package owns the node set the
-filter path needs: Scan (= LogicalRelation over lake files), Filter and
-Project. The JAX package's other nodes (Join, Aggregate, Sort, ...) come
-with the engine slices that execute them (ROADMAP.md). Nodes are immutable, JSON-serializable (see
+filter and join paths need: Scan (= LogicalRelation over lake files),
+Filter, Project and Join. The JAX package's other nodes (Aggregate, Sort,
+Union, ...) come with the engine slices that execute them (ROADMAP.md).
+Nodes are immutable, JSON-serializable (see
 `plan/serde.py`), and carry enough metadata (root paths, bucket spec) for the
 rewrite rules to swap base-table scans for index scans exactly as the
 reference's rules do (`index/rules/FilterIndexRule.scala:109-131`).
@@ -15,6 +16,7 @@ from __future__ import annotations
 import glob
 import os
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Callable, List, Optional, Sequence
 
 from hyperspace_tpu_torch.exceptions import HyperspaceException
@@ -79,6 +81,13 @@ class LogicalPlan:
         for c in self.children:
             out.extend(c.collect_leaves())
         return out
+
+    def is_linear(self) -> bool:
+        """True iff every node has at most one child — the join rule's guard
+        against signature collisions (reference `JoinIndexRule.scala:210-211`)."""
+        if len(self.children) > 1:
+            return False
+        return all(c.is_linear() for c in self.children)
 
     def to_dict(self) -> dict:
         raise NotImplementedError
@@ -283,3 +292,66 @@ class Project(LogicalPlan):
     def simple_string(self) -> str:
         parts = [c if isinstance(c, str) else repr(c) for c in self.columns]
         return f"Project [{', '.join(parts)}]"
+
+
+_JOIN_TYPES = ("inner", "left_outer", "right_outer", "full_outer",
+               "left_semi", "left_anti", "cross")
+
+
+class Join(LogicalPlan):
+    """Equi-join (or a cross join, which the planner does not execute yet).
+    The rewrite rule (`plan/rules/join_index.py`) swaps both sides' scans
+    for bucketed index scans; the planner then elides the Exchange."""
+
+    def __init__(self, left: LogicalPlan, right: LogicalPlan,
+                 condition: Optional[Expression], join_type: str = "inner"):
+        if join_type not in _JOIN_TYPES:
+            raise HyperspaceException(f"Unsupported join type: {join_type}")
+        if (condition is None) != (join_type == "cross"):
+            raise HyperspaceException(
+                "cross joins take no condition; every other join type "
+                "requires one.")
+        self.left = left
+        self.right = right
+        self.condition = condition
+        self.join_type = join_type
+
+    @property
+    def children(self) -> List[LogicalPlan]:
+        return [self.left, self.right]
+
+    @cached_property
+    def schema(self) -> Schema:
+        """Left fields then right fields; duplicate names get a `_r` suffix
+        on the right (matching the executor's output); outer joins make the
+        nullable side's fields nullable; semi/anti joins output the left
+        side only."""
+        from hyperspace_tpu_torch.plan.schema import Field as SchemaField
+        if self.join_type in ("left_semi", "left_anti"):
+            return self.left.schema
+        fields = list(self.left.schema.fields)
+        left_names = {f.name.lower() for f in fields}
+        if self.join_type in ("right_outer", "full_outer"):
+            fields = [SchemaField(f.name, f.dtype, True) for f in fields]
+        right_nullable = self.join_type in ("left_outer", "full_outer")
+        for f in self.right.schema.fields:
+            name = (f.name if f.name.lower() not in left_names
+                    else f.name + "_r")
+            fields.append(SchemaField(name, f.dtype,
+                                      f.nullable or right_nullable))
+        return Schema(fields)
+
+    def with_children(self, children):
+        left, right = children
+        return Join(left, right, self.condition, self.join_type)
+
+    def to_dict(self) -> dict:
+        return {"node": "join", "type": self.join_type,
+                "condition": (self.condition.to_dict()
+                              if self.condition is not None else None),
+                "left": self.left.to_dict(), "right": self.right.to_dict()}
+
+    def simple_string(self) -> str:
+        if self.condition is None:
+            return f"Join {self.join_type}"
+        return f"Join {self.join_type} ({self.condition!r})"

@@ -16,8 +16,8 @@ import json
 
 from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.plan.expr import Expression
-from hyperspace_tpu_torch.plan.nodes import (BucketSpec, Filter, LogicalPlan,
-                                             Project, Scan)
+from hyperspace_tpu_torch.plan.nodes import (BucketSpec, Filter, Join,
+                                             LogicalPlan, Project, Scan)
 from hyperspace_tpu_torch.plan.schema import Field, Schema
 
 
@@ -42,6 +42,11 @@ def plan_from_dict(d: dict) -> LogicalPlan:
     if node == "project":
         return Project([c if isinstance(c, str) else Expression.from_dict(c)
                         for c in d["columns"]], plan_from_dict(d["child"]))
+    if node == "join":
+        cond = d["condition"]
+        return Join(plan_from_dict(d["left"]), plan_from_dict(d["right"]),
+                    Expression.from_dict(cond) if cond is not None else None,
+                    d.get("type", "inner"))
     raise HyperspaceException(f"Unknown plan node kind: {node}")
 
 

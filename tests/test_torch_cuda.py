@@ -1,5 +1,6 @@
-"""`hyperspace_tpu_torch` on a CUDA card: the hand-written kernel against
-its plain version, and the card's build and filter lanes against the CPU's.
+"""`hyperspace_tpu_torch` on a CUDA card: the hand-written kernels against
+their plain versions, and the card's build, filter, Exchange and join lanes
+against the CPU's.
 
 Marked `cuda`; each test skips where there is no card. On the machine
 with the card (which has no JAX, so the JAX-loading conftest is skipped):
@@ -16,7 +17,7 @@ import pytest
 import torch
 
 from hyperspace_tpu_torch.io import builder, columnar
-from hyperspace_tpu_torch.ops.cuda import hash_kernel
+from hyperspace_tpu_torch.ops.cuda import hash_kernel, partition_kernel
 
 pytestmark = pytest.mark.cuda
 
@@ -85,3 +86,90 @@ def test_card_filter_equals_cpu_filter(card):
                        cond)
     assert gpu.device.type == "cuda"
     assert columnar.to_arrow(gpu).equals(columnar.to_arrow(cpu))
+
+
+@pytest.mark.parametrize("n", [1, 129, 70_000, 1 << 20])
+@pytest.mark.parametrize("n_lanes", [1, 2, 5])
+def test_partition_kernel_equals_plain_version(card, n, n_lanes):
+    rng = np.random.default_rng([n, n_lanes, 1])
+    host = rng.integers(-2**31, 2**31, (n_lanes, n)).astype(np.int32)
+    lanes = torch.from_numpy(host).to(card)
+    before = partition_kernel.partition_ids_and_histogram.launches
+    for num_buckets in (8, 200, 1024):
+        ids, lengths = partition_kernel.partition_ids_and_histogram(
+            lanes, num_buckets)
+        torch.cuda.synchronize()
+        want_ids, want_lengths = \
+            partition_kernel.partition_ids_and_histogram_reference(
+                torch.from_numpy(host), num_buckets)
+        assert ids.device.type == "cuda" and ids.dtype == torch.int32
+        assert lengths.dtype == torch.int64
+        assert (ids.cpu() == want_ids).all()
+        assert (lengths.cpu() == want_lengths).all()
+        assert int(lengths.sum()) == n
+    assert partition_kernel.partition_ids_and_histogram.launches \
+        == before + 3
+
+
+@pytest.mark.parametrize("num_buckets", [200, 2048])
+def test_card_exchange_equals_cpu_exchange(card, num_buckets):
+    """The fused kernel (<= 1024 partitions) and the two-pass path (hash
+    kernel + bincount) group rows as the CPU does."""
+    from hyperspace_tpu_torch.engine.physical import ExchangeExec
+
+    table = _table(50_000)
+    exchange = ExchangeExec(["k", "s"], num_buckets, None)
+    fused = partition_kernel.partition_ids_and_histogram.launches
+    two_pass = hash_kernel.hash_lanes_to_buckets.launches
+    gpu, gpu_lengths = exchange.partition(
+        columnar.from_arrow(table, device=card))
+    cpu, cpu_lengths = exchange.partition(
+        columnar.from_arrow(table, device=torch.device("cpu")))
+    assert gpu.device.type == "cuda"
+    assert (gpu_lengths == cpu_lengths).all()
+    assert columnar.to_arrow(gpu).equals(columnar.to_arrow(cpu))
+    kernel_route = num_buckets <= partition_kernel.MAX_KERNEL_BUCKETS
+    assert partition_kernel.partition_ids_and_histogram.launches \
+        == fused + kernel_route
+    assert hash_kernel.hash_lanes_to_buckets.launches \
+        == two_pass + (not kernel_route)
+
+
+def test_card_mismatched_bucket_join_equals_cpu(card, tmp_path):
+    """A join of a 16-bucket index with an 8-bucket index: on the card the
+    8-bucket side is re-bucketed through the partition kernel, and the
+    rows equal the same join on the CPU."""
+    import hyperspace_tpu_torch as ths
+
+    rng = np.random.default_rng(9)
+    n = 60_000
+    for name, size in (("left", n), ("right", n // 2)):
+        os.makedirs(tmp_path / name)
+        pq.write_table(pa.table({
+            "key": rng.integers(0, n // 4, size).astype(np.int64),
+            "v": rng.random(size)}), str(tmp_path / name / "a.parquet"))
+    rows = {}
+    for device in ("cuda", "cpu"):
+        sess = ths.HyperspaceSession(ths.HyperspaceConf({
+            "spark.hyperspace.warehouse.dir": str(tmp_path / device),
+            "spark.hyperspace.execution.min.device.rows": "0",
+            "spark.hyperspace.broadcast.threshold": "-1"}), device=device)
+        hs = ths.Hyperspace(sess)
+        dfs = {}
+        for name, buckets in (("left", 16), ("right", 8)):
+            sess.conf.set("spark.hyperspace.index.num.buckets", str(buckets))
+            dfs[name] = sess.read_parquet(str(tmp_path / name))
+            hs.create_index(dfs[name], ths.IndexConfig(f"{name}Idx", ["key"],
+                                                       ["v"]))
+        sess.enable_hyperspace()
+        before = partition_kernel.partition_ids_and_histogram.launches
+        table, metrics = dfs["left"].join(dfs["right"], on="key").collect(
+            with_metrics=True)
+        assert "Exchange" in [op.name for op in metrics.operators]
+        launched = partition_kernel.partition_ids_and_histogram.launches
+        assert (launched > before) == (device == "cuda")
+        ordered = table.sort_by([(c, "ascending")
+                                 for c in table.column_names])
+        rows[device] = ordered
+    assert rows["cuda"].num_rows > n
+    assert rows["cuda"].equals(rows["cpu"])
