@@ -17,12 +17,28 @@ entry points:
   right sources (key, val), indexed at 200 and at 64 buckets, each joined
   with the left index — query A with equal bucket counts (no Exchange,
   bench.py's rung 3) and query B with 64 buckets (the right side
-  re-bucketed to 200 through the Exchange and its partition kernel).
+  re-bucketed to 200 through the Exchange and its partition kernel);
+- hybrid scan (`bench.py`'s rungs 4 and 4b): an index over hard links to
+  the filter source, then one appended 4,194,304-row file — as many rows
+  as `min.device.rows`, so the appended branch runs on the device lane —
+  and three queries served as index UNION appended file: H1 a point
+  filter, H2 an inner join with the 200-bucket right index (distributed
+  over the Union), H3 a left_outer join with the hybrid side on the right
+  (its appended branch re-bucketed through the Exchange's partition
+  kernel); then an incremental refresh (the delta built with the hash
+  kernel) after which the same queries plan without a Union;
+- index maintenance (`bench.py`'s rung 5): over a fresh 8,388,608-row
+  source, three rounds of append + incremental refresh + optimize (the
+  host merge lane), two full refreshes, the last optimize byte-equal to
+  the first full refresh; a composite-key index whose optimize sorts on
+  the device, byte-equal to its full refresh; then delete, restore,
+  delete and vacuum.
 
 Every result is checked against numpy over the sources. Every phase prints
-one JSON line; any mismatch or error ends the run with a non-zero exit.
-The last lines are the kernel table, the card's name and power limit as
-`nvidia-smi` reports them, and `{"ok": true, "device": {...}}`.
+one JSON line, with the kernel launches counted from zero over it; any
+mismatch or error ends the run with a non-zero exit. The last lines are
+the kernel table, the card's name and power limit as `nvidia-smi` reports
+them, and `{"ok": true, "device": {...}}`.
 
 Needs one CUDA card; exits non-zero without one, or without the package
 beside it. Scratch data lives under `_smoke/` in the checkout and is
@@ -40,6 +56,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 N_ROWS = 1 << 24
 N_FILES = 4
 N_RIGHT = 1 << 23               # rows of each join right source
+N_APPEND = 1 << 22              # the hybrid phase's appended file
+N_MAINT = 1 << 23               # the maintenance phase's base source
+N_MAINT_APPEND = N_MAINT // 20  # each maintenance round's appended slice
 EXCHANGE_BUCKETS = 200          # the left index's count: B's Exchange target
 SEED = 42
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
@@ -391,6 +410,20 @@ def canonical(ids, vals):
     return ids[perm], vals[perm]
 
 
+def operator_ms(metrics):
+    """Each operator of one collect, in plan pre-order: its wall ms on the
+    recorder's host clock (children included), its own ms (children's
+    walls subtracted), rows out and lane."""
+    children_s = {}
+    for o in metrics.operators:
+        children_s[o.parent_id] = children_s.get(o.parent_id, 0.0) + o.wall_s
+    return [{"op": o.name, "ms": o.wall_s * 1e3,
+             "self_ms": (o.wall_s - children_s.get(o.op_id, 0.0)) * 1e3,
+             "rows": o.rows_out,
+             **({"lane": o.detail["lane"]} if "lane" in o.detail else {})}
+            for o in metrics.operators]
+
+
 def phase_join(hs, sess, df, work, cols):
     """Queries A (equal bucket counts) and B (64 vs 200 buckets: the right
     side re-bucketed through the Exchange), each against the numpy oracle
@@ -403,12 +436,14 @@ def phase_join(hs, sess, df, work, cols):
 
     left = {"key": cols["key"], "id": cols["id"]}
     out = {}
+    rights = {}
     for name, buckets, seed in (("A", 200, SEED + 2), ("B", 64, SEED + 3)):
         t0 = time.perf_counter()
         src = os.path.join(work, f"right{buckets}")
         right = write_right_source(src, seed)
         source_s = time.perf_counter() - t0
         rdf = sess.read_parquet(src)
+        rights[buckets] = (rdf, right)
         sess.conf.set("spark.hyperspace.index.num.buckets", str(buckets))
         t0 = time.perf_counter()
         hs.create_index(rdf, IndexConfig(f"smokeRight{buckets}", ["key"],
@@ -443,9 +478,7 @@ def phase_join(hs, sess, df, work, cols):
         oracle_s = time.perf_counter() - t0
         check(all(torch.equal(a, b) for a, b in zip(got, want)),
               f"query {name}: rows differ from numpy")
-        ops = [{"op": o.name, "ms": o.wall_s * 1e3, "rows": o.rows_out,
-                **({"lane": o.detail["lane"]} if "lane" in o.detail
-                   else {})} for o in metrics.operators]
+        ops = operator_ms(metrics)
 
         sess.disable_hyperspace()
         plain = frame.collect()
@@ -460,7 +493,247 @@ def phase_join(hs, sess, df, work, cols):
                      "partition_launches": launched, "operators": ops,
                      "right_source_s": source_s, "right_build_s": build_s,
                      "oracle_s": oracle_s}
-    emit("join", **out)
+    sess.conf.set("spark.hyperspace.index.num.buckets", "200")
+    return out, rights[EXCHANGE_BUCKETS]
+
+
+def plan_unions(plan):
+    from hyperspace_tpu_torch.plan.nodes import Union
+
+    found = []
+    plan.transform_up(lambda n: (found.append(n), n)[1]
+                      if isinstance(n, Union) else n)
+    return len(found)
+
+
+def pairs(table):
+    """(id, val) of a join result, a null id (an outer join's unmatched
+    row) as -1."""
+    import pyarrow.compute as pc
+
+    return (pc.fill_null(table.column("id"), -1).to_numpy(),
+            table.column("val").to_numpy())
+
+
+def left_outer_oracle(inner, right, hyb):
+    """numpy oracle of `right LEFT OUTER JOIN hyb USING (key)` ->
+    (id, val): the `inner` join's pairs, then each right row whose key no
+    hyb row holds, with id -1."""
+    import numpy as np
+
+    ids, vals = inner
+    held = np.bincount(hyb["key"], minlength=N_ROWS // 4) > 0
+    lone = ~held[right["key"]]
+    return (np.concatenate([ids, np.full(int(lone.sum()), -1)]),
+            np.concatenate([vals, right["val"][lone]]))
+
+
+def phase_hybrid(hs, sess, work, cols, right_df, right):
+    """Hybrid scan over an index whose source grew by one 4,194,304-row
+    file, then the incremental refresh that catches it up."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    import torch
+
+    from hyperspace_tpu_torch import IndexConfig, col, lit
+    from hyperspace_tpu_torch.engine.physical import plan_physical
+    from hyperspace_tpu_torch.ops.cuda import hash_kernel, partition_kernel
+
+    src = os.path.join(work, "hyb_src")
+    os.makedirs(src)
+    for name in sorted(os.listdir(os.path.join(work, "src"))):
+        os.link(os.path.join(work, "src", name), os.path.join(src, name))
+    t0 = time.perf_counter()
+    hs.create_index(sess.read_parquet(src),
+                    IndexConfig("hyb", ["key"], ["k2", "id", "score"]))
+    build_s = time.perf_counter() - t0
+    # bench.py's rung-4 append (schema and distributions), at N_APPEND rows.
+    rng = np.random.default_rng(SEED + 4)
+    app = {"key": rng.integers(0, N_ROWS // 4, N_APPEND).astype(np.int64),
+           "k2": rng.integers(0, 100, N_APPEND).astype(np.int64),
+           "id": np.arange(N_ROWS, N_ROWS + N_APPEND, dtype=np.int64),
+           "score": rng.random(N_APPEND)}
+    pq.write_table(pa.table(app), os.path.join(src, "part-append.parquet"))
+    sess.conf.set("spark.hyperspace.index.hybridscan.enabled", "true")
+    hyb = {k: np.concatenate([cols[k], app[k]]) for k in app}
+
+    key_hit = int(cols["key"][0])
+    hdf = sess.read_parquet(src)
+    frames = {
+        "H1": hdf.filter(col("key") == lit(key_hit)).select("id", "score"),
+        "H2": (hdf.select("key", "id")
+               .join(right_df.select("key", "val"), on="key")
+               .select("id", "val")),
+        "H3": (right_df.select("key", "val")
+               .join(hdf.select("key", "id"), on="key", how="left_outer")
+               .select("id", "val")),
+    }
+    t0 = time.perf_counter()
+    mask = hyb["key"] == key_hit
+    inner = np_join(hyb, right)
+    want = {"H1": (hyb["id"][mask], hyb["score"][mask]),
+            "H2": canonical(*inner),
+            "H3": canonical(*left_outer_oracle(inner, right, hyb))}
+    oracle_s = time.perf_counter() - t0
+
+    def check_rows(name, table):
+        if name == "H1":
+            ids = table.column("id").to_numpy()
+            order = np.argsort(ids)
+            ok = (np.array_equal(ids[order], np.sort(want[name][0]))
+                  and np.array_equal(
+                      table.column("score").to_numpy()[order],
+                      want[name][1][np.argsort(want[name][0])]))
+        else:
+            ok = all(torch.equal(a, b) for a, b in zip(
+                canonical(*pairs(table)), want[name]))
+        check(ok, f"hybrid {name}: rows differ from numpy")
+
+    out = {"hyb_build_s": build_s, "appended_rows": N_APPEND,
+           "oracle_s": oracle_s}
+    for name, frame in frames.items():
+        sess.enable_hyperspace()
+        plan = sess.optimize(frame.plan)
+        check(plan_unions(plan) == 1, f"hybrid {name}: no Union in the plan")
+        tree = plan_physical(plan, conf=sess.conf).tree_string()
+        launches = partition_kernel.partition_ids_and_histogram.launches
+        warm = wall_ms(frame.collect)
+        table, metrics = frame.collect(with_metrics=True)
+        launched = (partition_kernel.partition_ids_and_histogram.launches
+                    - launches)
+        check((launched > 0) == (name == "H3"),
+              f"hybrid {name}: partition kernel launched {launched} times")
+        check_rows(name, table)
+        if name != "H1":
+            sess.disable_hyperspace()
+            check(all(torch.equal(a, b) for a, b in zip(
+                canonical(*pairs(frame.collect())), want[name])),
+                  f"hybrid {name}: rows differ with Hyperspace disabled")
+        out[name] = {"rows": table.num_rows, "wall_ms": warm,
+                     "collect_ms": metrics.wall_s * 1e3,
+                     "partition_launches": launched,
+                     "exchanges": tree.count("Exchange"),
+                     "operators": operator_ms(metrics)}
+
+    sess.enable_hyperspace()
+    hashes = hash_kernel.hash_lanes_to_buckets
+    hash_before = hashes.launches
+    t0 = time.perf_counter()
+    hs.refresh_index("hyb", mode="incremental")
+    out["incremental_refresh_s"] = time.perf_counter() - t0
+    out["refresh_hash_launches"] = hashes.launches - hash_before
+    check(out["refresh_hash_launches"] > 0,
+          "the incremental refresh's delta did not launch the hash kernel")
+    v1 = os.path.join(sess.conf.system_path, "hyb", "v__=1")
+    deltas = [f for f in os.listdir(v1) if "-delta1" in f]
+    check(deltas, "the incremental refresh wrote no -delta files")
+    out["delta_files"] = len(deltas)
+    for name, frame in frames.items():
+        plan = sess.optimize(frame.plan)
+        check(plan_unions(plan) == 0,
+              f"hybrid {name}: a Union after the refresh")
+        table, metrics = frame.collect(with_metrics=True)
+        check_rows(name, table)
+        out[name]["after_refresh_ms"] = metrics.wall_s * 1e3
+    return out
+
+
+def _same_bytes(dir_a, dir_b):
+    """Every parquet file of two version dirs, name for name and byte for
+    byte; returns the file count."""
+    names = sorted(f for f in os.listdir(dir_a) if f.endswith(".parquet"))
+    check(names and names == sorted(f for f in os.listdir(dir_b)
+                                    if f.endswith(".parquet")),
+          f"{dir_a} and {dir_b} hold different files")
+    for f in names:
+        with open(os.path.join(dir_a, f), "rb") as a, \
+                open(os.path.join(dir_b, f), "rb") as b:
+            check(a.read() == b.read(), f"{f}: {dir_a} != {dir_b}")
+    return len(names)
+
+
+def phase_maintenance(hs, sess, work):
+    """bench.py's rung 5 at its own size: incremental refresh, optimize and
+    full refresh of an 8,388,608-row index, then the lifecycle verbs."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import IndexConfig
+    from hyperspace_tpu_torch import telemetry
+
+    src = os.path.join(work, "maint_src")
+    os.makedirs(src)
+    rng = np.random.default_rng(SEED + 5)
+
+    def write(name, n):
+        pq.write_table(pa.table({
+            "key": rng.integers(0, N_MAINT // 4, n).astype(np.int64),
+            "score": rng.random(n)}), os.path.join(src, name))
+
+    write("part-0.parquet", N_MAINT)
+    root = os.path.join(sess.conf.system_path, "bench_opt")
+
+    def timed(fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        fn(*args, **kwargs)
+        return time.perf_counter() - t0
+
+    out = {"create_s": timed(hs.create_index, sess.read_parquet(src),
+                             IndexConfig("bench_opt", ["key"], ["score"]))}
+    inc, opt = [], []
+    for i in range(3):
+        write(f"part-extra{i}.parquet", N_MAINT_APPEND)
+        inc.append(timed(hs.refresh_index, "bench_opt", mode="incremental"))
+        opt.append(timed(hs.optimize_index, "bench_opt"))
+        lane = telemetry.get_registry().last_action_report()["detail"]["lane"]
+        check(lane == "merge", f"optimize {i} took the {lane} lane")
+    full = [timed(hs.refresh_index, "bench_opt", mode="full")
+            for _ in range(2)]
+    # v__=0 create; v__=1..6 three (incremental, optimize) rounds;
+    # v__=7, v__=8 the full refreshes over the same source.
+    files = _same_bytes(os.path.join(root, "v__=6"),
+                        os.path.join(root, "v__=7"))
+    out.update(incremental_s=inc, optimize_merge_s=opt, full_refresh_s=full,
+               best_incremental_s=min(inc), best_optimize_merge_s=min(opt),
+               best_full_refresh_s=min(full), byte_equal_files=files)
+
+    # The composite key takes no merge fast path: its optimize sorts every
+    # bucket on the device.
+    out["composite_create_s"] = timed(
+        hs.create_index, sess.read_parquet(src),
+        IndexConfig("bench_opt2", ["key", "score"], []))
+    write("part-extra3.parquet", N_MAINT_APPEND)
+    out["composite_incremental_s"] = timed(
+        hs.refresh_index, "bench_opt2", mode="incremental")
+    out["optimize_device_s"] = timed(hs.optimize_index, "bench_opt2")
+    lane = telemetry.get_registry().last_action_report()["detail"]["lane"]
+    check(lane == "device", f"the composite optimize took the {lane} lane")
+    out["composite_full_refresh_s"] = timed(hs.refresh_index, "bench_opt2",
+                                            mode="full")
+    root2 = os.path.join(sess.conf.system_path, "bench_opt2")
+    out["composite_byte_equal_files"] = _same_bytes(
+        os.path.join(root2, "v__=2"), os.path.join(root2, "v__=3"))
+
+    for verb in ("delete", "restore", "delete", "vacuum"):
+        getattr(hs, f"{verb}_index")("bench_opt")
+    left = ([d for d in os.listdir(root) if d.startswith("v__=")]
+            if os.path.isdir(root) else [])
+    check(not left, f"vacuum left version dirs of bench_opt: {left}")
+    catalog = hs.indexes()
+    check("bench_opt" not in list(catalog.get("name", [])),
+          "bench_opt is still listed after vacuum")
+    return out
+
+
+def counted(counters, fn, *args):
+    """Run one phase of the main path with every kernel's launch count
+    set to 0 just before it; returns (result, launches per kernel)."""
+    for c in counters:
+        c.launches = 0
+    result = fn(*args)
+    return result, [c.launches for c in counters]
 
 
 def main():
@@ -510,13 +783,37 @@ def main():
         sess = HyperspaceSession(HyperspaceConf(
             {"spark.hyperspace.warehouse.dir": os.path.join(work, "wh")}))
         hs = Hyperspace(sess)
-        # The main path: counts from zero, read right after it.
-        for fn in counters:
-            fn.launches = 0
-        df, root = phase_build(hs, sess, os.path.join(work, "src"), cols)
-        phase_query(sess, df, root, cols)
-        phase_join(hs, sess, df, work, cols)
-        launches = [fn.launches for fn in counters]
+        # The main path, one phase after another: each phase's counts
+        # from zero, read right after it.
+        launches = [0] * len(counters)
+
+        def tally(phase, counts):
+            emit("launches", of=phase, **{
+                row["name"]: n for row, n in zip(rows, counts)})
+            for i, n in enumerate(counts):
+                launches[i] += n
+            return counts
+
+        (df, root), n = counted(counters, phase_build, hs, sess,
+                                os.path.join(work, "src"), cols)
+        tally("build", n)
+        _, n = counted(counters, phase_query, sess, df, root, cols)
+        tally("query", n)
+        (out, (right_df, right)), n = counted(counters, phase_join, hs,
+                                             sess, df, work, cols)
+        emit("join", **out)
+        tally("join", n)
+        out, n = counted(counters, phase_hybrid, hs, sess, work, cols,
+                         right_df, right)
+        emit("hybrid", **out)
+        hash_n, partition_n = tally("hybrid", n)
+        check(hash_n > 0 and partition_n > 0,
+              f"the hybrid phase launched hash {hash_n}, "
+              f"partition {partition_n} times")
+        out, n = counted(counters, phase_maintenance, hs, sess, work)
+        emit("maintenance", **out)
+        check(tally("maintenance", n)[0] > 0,
+              "the maintenance phase never launched the hash kernel")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for row, count in zip(rows, launches):

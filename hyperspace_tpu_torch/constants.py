@@ -60,6 +60,11 @@ MAINTENANCE_LEASE_SECONDS_DEFAULT = 600
 LINEAGE_ENABLED = "spark.hyperspace.index.lineage.enabled"
 LINEAGE_COLUMN = "_hs_file_id"
 
+# Hybrid scan: an index over a source that changed since its build still
+# serves filters and joins — its data UNION the appended files, minus the
+# rows of deleted files (lineage-enabled indexes). Off by default.
+HYBRID_SCAN_ENABLED = "spark.hyperspace.index.hybridscan.enabled"
+
 # Where the device lane runs: "cuda" (the default; a CUDA card must be
 # present) or "cpu". `HyperspaceSession(device=...)` sets it.
 DEVICE = "spark.hyperspace.device"

@@ -8,9 +8,11 @@ repartition) inserted only when a side is not already bucketed on the join
 keys — so explain() shows the Exchange elision, and execution actually
 skips the work. Scan, Filter and Project run the filter path, with bucket
 pruning of equality literals over an index's bucketed layout; small join
-sides broadcast (`BroadcastHashJoinExec`). Any other logical node raises a
-typed HyperspaceException; aggregates, sorts, unions and the other
-operators are queued in ROADMAP.md (the PyTorch port's queue).
+sides broadcast (`BroadcastHashJoinExec`). Union runs hybrid scan (index
+data UNION appended files), and a join over a Union distributes over it
+where the join type allows. Any other logical node raises a typed
+HyperspaceException; aggregates, sorts and the other operators are queued
+in ROADMAP.md (the PyTorch port's queue).
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.io import columnar, parquet
 from hyperspace_tpu_torch.plan import expr as E
 from hyperspace_tpu_torch.plan.nodes import (BucketSpec, Filter, Join,
-                                             LogicalPlan, Project, Scan)
+                                             LogicalPlan, Project, Scan,
+                                             Union)
 from hyperspace_tpu_torch.plan.schema import Schema
 
 
@@ -179,12 +182,21 @@ class ScanExec(PhysicalNode):
         out missing or unreadable raises the typed
         IndexDataUnavailableError that `DataFrame.collect` converts into a
         fallback to the source plan. Source-data scans keep their raw
-        errors: there is nothing to degrade to."""
-        from hyperspace_tpu_torch.exceptions import IndexDataUnavailableError
-
+        errors: there is nothing to degrade to. A snapshot-pinned index
+        read holds its version directories pinned for the read's duration,
+        so a concurrent vacuum defers its delete (`index/pins.py`)."""
         name = self.scan.index_name
         if name is None:
             return fn()
+        if self.scan.pinned_version is not None:
+            from hyperspace_tpu_torch.index import pins
+            with pins.pinned(self.scan.root_paths):
+                return self._checked_index_read(name, fn)
+        return self._checked_index_read(name, fn)
+
+    def _checked_index_read(self, name: str, fn):
+        from hyperspace_tpu_torch.exceptions import IndexDataUnavailableError
+
         from hyperspace_tpu_torch.utils import file_utils
         missing = [r for r in self.scan.root_paths
                    if not file_utils.is_dir(r)
@@ -649,6 +661,65 @@ class BroadcastHashJoinExec(PhysicalNode):
                                columns=self.out_columns)
 
 
+class UnionExec(PhysicalNode):
+    name = "Union"
+
+    def __init__(self, children: Sequence[PhysicalNode]):
+        self._children = list(children)
+
+    @property
+    def children(self):
+        return list(self._children)
+
+    def simple_string(self) -> str:
+        return f"Union ({len(self._children)})"
+
+    def execute(self) -> columnar.ColumnBatch:
+        batches = [c.execute() for c in self._children]
+        non_empty = [b for b in batches if b.num_rows > 0]
+        if not non_empty:
+            return batches[0]
+        return columnar.concat_batches(non_empty)
+
+    def execute_bucketed(self, num_buckets: int):
+        """Hybrid scan as a bucketed source: each child produces the
+        (batch, lengths) contract — the index side from its on-disk
+        layout, the appended side through the ExchangeExec the planner
+        wrapped it in — and the parts are interleaved bucket-major so the
+        combined batch satisfies the layout the bucketed join expects:
+        one stable sort keyed by (bucket, part) over the concatenation,
+        which keeps each part's rows of a bucket in their order."""
+        import torch
+
+        parts = [c.execute_bucketed(num_buckets) for c in self._children]
+        if len(parts) == 1:
+            return parts[0]
+        lengths = [np.asarray(l, dtype=np.int64) for _, l in parts]
+        total_lengths = np.sum(lengths, axis=0)
+        non_empty = [i for i, (b, _) in enumerate(parts) if b.num_rows > 0]
+        if len(non_empty) <= 1:
+            return parts[non_empty[0] if non_empty else 0][0], total_lengths
+        combined = columnar.concat_batches([parts[i][0] for i in non_empty])
+        n_parts = len(non_empty)
+        if combined.is_host:
+            key = np.concatenate([
+                np.repeat(np.arange(num_buckets, dtype=np.int64) * n_parts
+                          + j, lengths[i])
+                for j, i in enumerate(non_empty)])
+            return (combined.take(np.argsort(key, kind="stable")),
+                    total_lengths)
+        device = combined.device
+        base = torch.arange(num_buckets, dtype=torch.int64,
+                            device=device) * n_parts
+        key = torch.cat([
+            torch.repeat_interleave(
+                base + j, torch.from_numpy(lengths[i]).to(device),
+                output_size=int(lengths[i].sum()))
+            for j, i in enumerate(non_empty)])
+        return (combined.take(torch.sort(key, stable=True).indices),
+                total_lengths)
+
+
 # ---------------------------------------------------------------------------
 # Planner
 # ---------------------------------------------------------------------------
@@ -726,17 +797,56 @@ def _prune_buckets(condition: E.Expression,
 
 
 def _apply_bucket_pruning(condition: E.Expression, child: PhysicalNode):
-    """Descend the Project/Filter chain to its ScanExec and attach the
-    allowed bucket set derived from the filter condition (no-op on
-    unbucketed scans). Descending through an intermediate Filter is sound:
-    pruning only drops buckets no row of which can satisfy the OUTER
-    condition, and inner filters only remove more rows."""
+    """Descend Project/Filter chains — and Union fan-outs (hybrid scan:
+    index UNION appended files) — to each ScanExec and attach the allowed
+    bucket set derived from the filter condition (no-op on unbucketed
+    scans). Descending through an intermediate Filter (e.g. the hybrid
+    lineage exclusion) is sound: pruning only drops buckets no row of
+    which can satisfy the OUTER condition, and inner filters only remove
+    more rows."""
     node = child
     while isinstance(node, (ProjectExec, FilterExec)):
         node = node.child
-    if isinstance(node, ScanExec) and node.allowed_buckets is None:
+    if isinstance(node, UnionExec):
+        for c in node.children:
+            _apply_bucket_pruning(condition, c)
+    elif isinstance(node, ScanExec) and node.allowed_buckets is None:
         node.allowed_buckets = _prune_buckets(condition, node.scan)
     return child
+
+
+def _hoist_union(plan: LogicalPlan) -> LogicalPlan:
+    """Pull a Union above Filter/Project wrappers (both distribute over
+    union row-wise) so join-over-union distribution can see it."""
+    if isinstance(plan, (Project, Filter)):
+        child = _hoist_union(plan.child)
+        if isinstance(child, Union):
+            return Union([plan.with_children([c])
+                          for c in child.children])
+    return plan
+
+
+def _chain_has_bucketed_scan(node: PhysicalNode) -> bool:
+    while isinstance(node, (ProjectExec, FilterExec)):
+        node = node.child
+    return isinstance(node, ScanExec) and node.scan.bucket_spec is not None
+
+
+def _bucketize_union_children(node: PhysicalNode, keys: List[str],
+                              num_buckets: int) -> None:
+    """Descend a join side's Project/Filter chain; if it feeds a UnionExec
+    (hybrid scan), wrap each child that does NOT ride a bucketed layout in
+    an ExchangeExec over the join keys — the appended slice then arrives
+    co-partitioned with the index buckets. Idempotent."""
+    while isinstance(node, (ProjectExec, FilterExec)):
+        node = node.child
+    if not isinstance(node, UnionExec):
+        return
+    node._children = [
+        c if _chain_has_bucketed_scan(c) or (
+            isinstance(c, ExchangeExec) and c.num_partitions == num_buckets)
+        else ExchangeExec(keys, num_buckets, c)
+        for c in node._children]
 
 
 def _split_join_required(required: Set[str], left_schema: Schema,
@@ -787,10 +897,15 @@ def _join_keys(condition: E.Expression, left_schema: Schema,
 
 def _underlying_bucket_spec(plan: LogicalPlan) -> Optional[BucketSpec]:
     """The bucket spec of the scan feeding a linear Filter/Project chain —
-    filters and projections preserve bucketing and intra-bucket order."""
+    filters and projections preserve bucketing and intra-bucket order. A
+    Union whose FIRST child rides a bucketed layout (hybrid scan: index
+    data UNION appended files) reports that spec; the planner re-buckets
+    the remaining children through ExchangeExec."""
     node = plan
     while isinstance(node, (Filter, Project)):
         node = node.child
+    if isinstance(node, Union):
+        return _underlying_bucket_spec(node.children[0])
     return node.bucket_spec if isinstance(node, Scan) else None
 
 
@@ -838,6 +953,14 @@ def _estimated_plan_bytes(plan: LogicalPlan,
             elif c.name.lower() in lowered:
                 child_req |= c.child.references()
         return _estimated_plan_bytes(plan.child, child_req)
+    if isinstance(plan, Union):
+        total = 0
+        for c in plan.children:
+            est = _estimated_plan_bytes(c, required)
+            if est is None:
+                return None
+            total += est
+        return total
     return None
 
 
@@ -878,6 +1001,16 @@ def plan_physical(plan: LogicalPlan,
                 entries.append((c.name, c.child))
         return ProjectExec(entries, child)
 
+    if isinstance(plan, Union):
+        # Children may expose different column orders for the same names
+        # (index schema vs source schema): normalize through a Project.
+        wanted = _required_for(plan, required)
+        return UnionExec([
+            ProjectExec([(c.schema.field(n).name, c.schema.field(n).name)
+                         for n in wanted],
+                        plan_physical(c, set(wanted), conf))
+            for c in plan.children])
+
     if isinstance(plan, Join):
         return _plan_join(plan, required, conf)
 
@@ -896,6 +1029,26 @@ def _plan_join(plan: Join, required: Set[str], conf) -> PhysicalNode:
         raise HyperspaceException(
             "Cross joins are not executable in hyperspace_tpu_torch yet; "
             "they are queued in ROADMAP.md's PyTorch port queue (Queue 1).")
+    # Join-over-union distribution: (A UNION B) JOIN R executes as
+    # (A JOIN R) UNION (B JOIN R) when the join type distributes over that
+    # side. The hybrid-scan Union then keeps its index part on the
+    # bucketed fast path while only the (small) appended part pays a
+    # general join. R is planned, and read, once per branch. Filter and
+    # Project distribute over Union, so the union is hoisted through them
+    # first.
+    left_h = _hoist_union(plan.left)
+    right_h = _hoist_union(plan.right)
+    if (isinstance(left_h, Union)
+            and plan.join_type in ("inner", "left_outer", "left_semi",
+                                   "left_anti")):
+        return plan_physical(
+            Union([Join(c, plan.right, plan.condition, plan.join_type)
+                   for c in left_h.children]), required, conf)
+    if (isinstance(right_h, Union)
+            and plan.join_type in ("inner", "right_outer")):
+        return plan_physical(
+            Union([Join(plan.left, c, plan.condition, plan.join_type)
+                   for c in right_h.children]), required, conf)
     left_keys, right_keys = _join_keys(plan.condition, plan.left.schema,
                                        plan.right.schema)
     membership = plan.join_type in ("left_semi", "left_anti")
@@ -974,6 +1127,11 @@ def _plan_join(plan: Join, required: Set[str], conf) -> PhysicalNode:
             left_phys = ExchangeExec(left_keys, target, left_phys)
         elif rspec.num_buckets != target:
             right_phys = ExchangeExec(right_keys, target, right_phys)
+        # Hybrid-scan sides: re-bucket the appended (unbucketed) Union
+        # children through THE hash Exchange so they co-partition with the
+        # index layout.
+        _bucketize_union_children(left_phys, left_keys, target)
+        _bucketize_union_children(right_phys, right_keys, target)
         return SortMergeJoinExec(left_phys, right_phys, left_keys,
                                  right_keys, bucketed=True,
                                  num_buckets=target, how=plan.join_type,

@@ -3,9 +3,9 @@
 Parity: reference `Hyperspace.scala:24-133` — lifecycle verbs delegated to
 the index collection manager and the `indexes` catalog view, plus the
 session-keyed context holding a CachingIndexCollectionManager
-(`Hyperspace.scala:107-133`). This package carries the create path; the
-other verbs (refresh, optimize, delete, restore, vacuum, explain) are
-queued in ROADMAP.md.
+(`Hyperspace.scala:107-133`). This package carries create, refresh
+(full and incremental), optimize, delete, restore, vacuum, cancel and
+recover; `explain` is queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -60,6 +60,29 @@ class Hyperspace:
         """Build a covering index (bucketed, sorted derived dataset) over
         `df`'s relation, through the transactional log FSM."""
         self._manager.create(df, index_config)
+
+    def delete_index(self, index_name: str) -> None:
+        """Soft delete: ACTIVE -> DELETED; the data stays for restore."""
+        self._manager.delete(index_name)
+
+    def restore_index(self, index_name: str) -> None:
+        """DELETED -> ACTIVE."""
+        self._manager.restore(index_name)
+
+    def vacuum_index(self, index_name: str) -> None:
+        """Hard delete of a DELETED index: every version dir goes (a
+        version pinned by an in-flight read is deferred, not yanked)."""
+        self._manager.vacuum(index_name)
+
+    def refresh_index(self, index_name: str, mode: str = "full") -> None:
+        """mode='full' rebuilds from the logged plan; mode='incremental'
+        indexes only the appended source files (and, with lineage, drops
+        the rows of deleted ones)."""
+        self._manager.refresh(index_name, mode)
+
+    def optimize_index(self, index_name: str) -> None:
+        """Merge-compact incremental delta runs to one file per bucket."""
+        self._manager.optimize(index_name)
 
     def cancel(self, index_name: str) -> None:
         self._manager.cancel(index_name)

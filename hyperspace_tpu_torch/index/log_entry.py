@@ -435,6 +435,32 @@ class IndexLogEntry(LogEntry):
                     files.append(f if "/" in f else (base.rstrip("/") + "/" + f if base else f))
         return files
 
+    def source_file_infos(self) -> Optional[Dict[str, FileInfo]]:
+        """{absolute path: FileInfo} when per-file lineage stamps were
+        captured at build time (lineage-enabled builds); None otherwise
+        (including partially-stamped entries, which are treated as
+        stampless rather than trusted)."""
+        out: Dict[str, FileInfo] = {}
+        for hdfs in self.source.data:
+            root = hdfs.content.root
+            for directory in hdfs.content.directories:
+                if directory.file_infos is None:
+                    return None
+                base = directory.path or root
+                for fi in directory.file_infos:
+                    path = (fi.name if "/" in fi.name else
+                            (base.rstrip("/") + "/" + fi.name
+                             if base else fi.name))
+                    out[path] = fi
+        return out if out else None
+
+    @property
+    def has_lineage(self) -> bool:
+        """True when the index data carries the per-row lineage column."""
+        from hyperspace_tpu_torch.constants import LINEAGE_COLUMN
+        from hyperspace_tpu_torch.plan.schema import Schema
+        return Schema.from_json(self.schema_json).contains(LINEAGE_COLUMN)
+
     def to_dict(self) -> dict:
         d = {
             "name": self.name,

@@ -25,6 +25,11 @@ from hyperspace_tpu_torch.index.log_entry import IndexLogEntry
 from hyperspace_tpu_torch.index.path_resolver import PathResolver
 from hyperspace_tpu_torch.actions.cancel import CancelAction
 from hyperspace_tpu_torch.actions.create import CreateAction
+from hyperspace_tpu_torch.actions.delete import DeleteAction
+from hyperspace_tpu_torch.actions.optimize import OptimizeAction
+from hyperspace_tpu_torch.actions.refresh import RefreshAction
+from hyperspace_tpu_torch.actions.restore import RestoreAction
+from hyperspace_tpu_torch.actions.vacuum import VacuumAction
 
 logger = logging.getLogger(__name__)
 
@@ -81,6 +86,21 @@ class IndexManager(ABC):
     def create(self, df, index_config: IndexConfig) -> None: ...
 
     @abstractmethod
+    def delete(self, index_name: str) -> None: ...
+
+    @abstractmethod
+    def restore(self, index_name: str) -> None: ...
+
+    @abstractmethod
+    def vacuum(self, index_name: str) -> None: ...
+
+    @abstractmethod
+    def refresh(self, index_name: str, mode: str = "full") -> None: ...
+
+    @abstractmethod
+    def optimize(self, index_name: str) -> None: ...
+
+    @abstractmethod
     def cancel(self, index_name: str) -> None: ...
 
     @abstractmethod
@@ -114,6 +134,39 @@ class IndexCollectionManager(IndexManager):
                 f"(IndexConfig); got {type(index_config).__name__}.")
         log_manager, data_manager = self._managers(index_config.index_name)
         CreateAction(df, index_config, log_manager, data_manager, self.conf).run()
+
+    def delete(self, index_name: str) -> None:
+        log_manager, _ = self._managers(index_name)
+        DeleteAction(log_manager).run()
+
+    def restore(self, index_name: str) -> None:
+        log_manager, _ = self._managers(index_name)
+        RestoreAction(log_manager).run()
+
+    def vacuum(self, index_name: str) -> None:
+        log_manager, data_manager = self._managers(index_name)
+        VacuumAction(log_manager, data_manager, self.conf).run()
+
+    def refresh(self, index_name: str, mode: str = "full") -> None:
+        """mode 'full' rebuilds; 'incremental' indexes only the source
+        delta (RefreshIncrementalAction). A data-skipping entry is refused
+        with a typed error: that index kind is not part of this package
+        yet (ROADMAP.md, PyTorch port Queue 1 item 8)."""
+        log_manager, data_manager = self._managers(index_name)
+        if mode == "full":
+            RefreshAction(log_manager, data_manager, self.conf).run()
+        elif mode == "incremental":
+            from hyperspace_tpu_torch.actions.refresh_incremental import (
+                RefreshIncrementalAction)
+            RefreshIncrementalAction(log_manager, data_manager,
+                                     self.conf).run()
+        else:
+            raise HyperspaceException(
+                f"Unknown refresh mode: {mode} (use 'full' or 'incremental').")
+
+    def optimize(self, index_name: str) -> None:
+        log_manager, data_manager = self._managers(index_name)
+        OptimizeAction(log_manager, data_manager, self.conf).run()
 
     def cancel(self, index_name: str) -> None:
         log_manager, _ = self._managers(index_name)
@@ -216,6 +269,26 @@ class CachingIndexCollectionManager(IndexCollectionManager):
     def create(self, df, index_config: IndexConfig) -> None:
         self.clear_cache()
         super().create(df, index_config)
+
+    def delete(self, index_name: str) -> None:
+        self.clear_cache()
+        super().delete(index_name)
+
+    def restore(self, index_name: str) -> None:
+        self.clear_cache()
+        super().restore(index_name)
+
+    def vacuum(self, index_name: str) -> None:
+        self.clear_cache()
+        super().vacuum(index_name)
+
+    def refresh(self, index_name: str, mode: str = "full") -> None:
+        self.clear_cache()
+        super().refresh(index_name, mode)
+
+    def optimize(self, index_name: str) -> None:
+        self.clear_cache()
+        super().optimize(index_name)
 
     def cancel(self, index_name: str) -> None:
         self.clear_cache()

@@ -312,3 +312,106 @@ def write_index(df, indexed_columns: Sequence[str],
                       tuple(indexed_columns))
     parquet.write_bucket_spec(path, spec, schema)
     return written
+
+
+_MERGE_KEY_DTYPES = ("int64", "int32", "int16", "int8", "date32",
+                     "timestamp", "bool")
+
+
+def _merge_path_permutation(table, ordered, counts, names, schema,
+                            num_buckets):
+    """The compaction fast path: single null-free integer key -> a TRUE
+    merge of each bucket's sorted runs (no re-sort of the base run,
+    `ops/merge.host_merge_runs_permutation`). None when the shape doesn't
+    qualify (multi-key, strings, floats — float lane order differs from
+    raw order — or a nullable key); callers fall back to the bucket
+    sort."""
+    if len(names) != 1 or schema.field(names[0]).dtype not in \
+            _MERGE_KEY_DTYPES:
+        return None
+    col = table.column(names[0])
+    if col.null_count:
+        return None
+    from hyperspace_tpu_torch.ops.merge import host_merge_runs_permutation
+    key = col.to_numpy(zero_copy_only=False)
+    # run_bounds indexed by BUCKET ID (empty list for absent buckets) so
+    # the writer's starts/ends line up with bucket file numbering.
+    run_bounds = [[] for _ in range(num_buckets)]
+    offset = 0
+    for (b, _), c in zip(ordered, counts):
+        run_bounds[b].append((offset, offset + c))
+        offset += c
+    return host_merge_runs_permutation(key, run_bounds)
+
+
+def compact_index(prev_entry, out_path: str,
+                  device: Optional[torch.device]):
+    """Merge-compact the current data version's runs (base + incremental
+    delta runs living side by side in one `v__=N` dir) into one
+    fully-sorted file per bucket at `out_path` (OptimizeAction's op).
+    Returns (files written, lane): "merge", "host-lexsort" or "device".
+
+    The permutation comes from the host merge fast path when the key
+    qualifies, else from one stable (bucket, *keys) sort over every
+    bucket at once — on `device` at or above BUILD_MIN_DEVICE_ROWS rows,
+    with a host lexsort below; the host streams the permuted payload out
+    per bucket.
+    """
+    import re
+
+    from hyperspace_tpu_torch.ops.merge import (bucket_sort_permutation,
+                                                host_bucket_sort_permutation)
+    from hyperspace_tpu_torch.plan.schema import Schema
+
+    indexed = prev_entry.indexed_columns
+    num_buckets = prev_entry.num_buckets
+    per_bucket = dict(parquet.bucket_files(prev_entry.content.root))
+    if not per_bucket:
+        raise HyperspaceException("No index data files found to compact.")
+
+    # ONE ordered read of every run, bucket-major, VERSION order within a
+    # bucket: base runs (no delta suffix, chunk suffixes keep name order)
+    # then delta runs by delta number — so equal keys keep their append
+    # order and the stable sort reproduces the tie order a full rebuild
+    # over (base files + appended files) produces.
+    def run_order(path: str):
+        name = os.path.basename(path)
+        m = re.search(r"-delta(\d+)", name)
+        return (int(m.group(1)) if m else 0, name)
+
+    ordered = [(b, f) for b in sorted(per_bucket)
+               for f in sorted(per_bucket[b], key=run_order)]
+    with _phase("decode"):
+        counts = parquet.file_row_counts([f for _, f in ordered])
+        table = parquet.read_table([f for _, f in ordered])
+    lengths = np.zeros(num_buckets, dtype=np.int64)
+    for (b, _), c in zip(ordered, counts):
+        lengths[b] += c
+    schema = Schema.from_arrow(table.schema)
+    names = [schema.field(c).name for c in indexed]
+
+    merge_perm = _merge_path_permutation(table, ordered, counts, names,
+                                         schema, num_buckets)
+    if merge_perm is not None:
+        lane = "merge"
+        chunks, starts, ends = merge_perm
+    elif device is None or _host_lane_preferred(table.num_rows):
+        lane = "host-lexsort"
+        with _phase("bucket_sort"):
+            key_batch = columnar.from_arrow(table.select(names))
+            chunks, starts, ends = host_bucket_sort_permutation(
+                key_batch, names, lengths)
+    else:
+        lane = "device"
+        with _phase("h2d", device):
+            key_batch = columnar.from_arrow(table.select(names),
+                                            device=device)
+        with _phase("bucket_sort", device):
+            chunks, starts, ends = bucket_sort_permutation(key_batch, names,
+                                                           lengths)
+    (perm,) = chunks
+    written = _write_sorted_runs(table, perm, starts, ends, out_path,
+                                 file_suffix=None)
+    spec = BucketSpec(num_buckets, tuple(indexed), tuple(indexed))
+    parquet.write_bucket_spec(out_path, spec, schema)
+    return written, lane

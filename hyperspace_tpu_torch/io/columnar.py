@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import warnings
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -324,6 +324,51 @@ def _merged_dictionary(dictionaries, device: Optional[torch.device]):
     if device is not None:
         remaps = [_to_device(r, device) for r in remaps]
     return merged, remaps, _split_hashes(_string_hash64(merged), device)
+
+
+def concat_batches(batches: List[ColumnBatch]) -> ColumnBatch:
+    """Concatenate batches row-wise. String columns are re-unified through
+    a merged sorted dictionary so codes stay order-preserving and
+    comparable. All-host inputs concatenate on the host lane; any device
+    input promotes the result to that device (the host inputs take one
+    H2D copy per column)."""
+    if not batches:
+        raise HyperspaceException("Cannot concat zero batches.")
+    if len(batches) == 1:
+        return batches[0]
+    device = next((b.device for b in batches if not b.is_host), None)
+    if device is not None:
+        batches = [host_batch_to_device(b, device) if b.is_host else b
+                   for b in batches]
+
+    def cat(arrays):
+        return (np.concatenate(arrays) if device is None
+                else torch.cat(arrays))
+
+    def ones(n):
+        return (np.ones(n, dtype=bool) if device is None
+                else torch.ones(n, dtype=torch.bool, device=device))
+
+    schema = batches[0].schema
+    out: Dict[str, DeviceColumn] = {}
+    for f in schema.fields:
+        cols = [b.columns[f.name] for b in batches]
+        validity = None
+        if any(c.validity is not None for c in cols):
+            validity = cat([c.validity if c.validity is not None
+                            else ones(len(c)) for c in cols])
+        if f.dtype == "string":
+            merged, remaps, hashes = _merged_dictionary(
+                [c.dictionary for c in cols], device)
+            codes = [remap[c.data] if device is None
+                     else remap[c.data.to(torch.int64)]
+                     for remap, c in zip(remaps, cols)]
+            out[f.name] = DeviceColumn(cat(codes), "string", validity,
+                                       merged, hashes)
+        else:
+            out[f.name] = DeviceColumn(cat([c.data for c in cols]), f.dtype,
+                                       validity)
+    return ColumnBatch(schema, out)
 
 
 def unify_string_columns(a: DeviceColumn, b: DeviceColumn):

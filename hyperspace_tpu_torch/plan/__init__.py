@@ -5,7 +5,7 @@ from hyperspace_tpu_torch.plan.expr import (
     NotEqualTo, Or, Sub,
 )
 from hyperspace_tpu_torch.plan.nodes import (
-    BucketSpec, Filter, Join, LogicalPlan, Project, Scan,
+    BucketSpec, Filter, Join, LogicalPlan, Project, Scan, Union,
 )
 
 __all__ = [
@@ -14,4 +14,5 @@ __all__ = [
     "GreaterThanOrEqual", "In", "IsNotNull", "IsNull", "LessThan",
     "LessThanOrEqual", "Literal", "Mul", "Not", "NotEqualTo", "Or", "Sub",
     "BucketSpec", "Filter", "Join", "LogicalPlan", "Project", "Scan",
+    "Union",
 ]

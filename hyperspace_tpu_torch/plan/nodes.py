@@ -2,9 +2,10 @@
 
 The reference matches/rewrites Catalyst trees
 (`Project(Filter(LogicalRelation))`); this package owns the node set the
-filter and join paths need: Scan (= LogicalRelation over lake files),
-Filter, Project and Join. The JAX package's other nodes (Aggregate, Sort,
-Union, ...) come with the engine slices that execute them (ROADMAP.md).
+filter and join paths and hybrid scan need: Scan (= LogicalRelation over
+lake files), Filter, Project, Join and Union. The JAX package's other
+nodes (Aggregate, Sort, ...) come with the engine slices that execute them
+(ROADMAP.md).
 Nodes are immutable, JSON-serializable (see
 `plan/serde.py`), and carry enough metadata (root paths, bucket spec) for the
 rewrite rules to swap base-table scans for index scans exactly as the
@@ -355,3 +356,36 @@ class Join(LogicalPlan):
         if self.condition is None:
             return f"Join {self.join_type}"
         return f"Join {self.join_type} ({self.condition!r})"
+
+
+class Union(LogicalPlan):
+    """Row-wise union of same-schema children (column names must align).
+    Exists for Hybrid Scan: index data UNION appended source files."""
+
+    def __init__(self, children: Sequence[LogicalPlan]):
+        if not children:
+            raise HyperspaceException("Union requires at least one child.")
+        self._children = list(children)
+        names0 = [n.lower() for n in self._children[0].schema.names]
+        for c in self._children[1:]:
+            if [n.lower() for n in c.schema.names] != names0:
+                raise HyperspaceException(
+                    "Union children must share column names/order.")
+
+    @property
+    def children(self) -> List[LogicalPlan]:
+        return list(self._children)
+
+    @property
+    def schema(self) -> Schema:
+        return self._children[0].schema
+
+    def with_children(self, children):
+        return Union(children)
+
+    def to_dict(self) -> dict:
+        return {"node": "union",
+                "children": [c.to_dict() for c in self._children]}
+
+    def simple_string(self) -> str:
+        return f"Union ({len(self._children)} children)"

@@ -171,5 +171,15 @@ class Rule:
                 scan.files()  # odd backend: pay the generic listing
         return scan
 
+    @staticmethod
+    def lineage_exclusion(deleted_ids):
+        """`_hs_file_id NOT IN (deleted...)` predicate excluding the index
+        rows of deleted source files (hybrid scan over deletes; lineage-
+        enabled builds only)."""
+        from hyperspace_tpu_torch import constants
+        from hyperspace_tpu_torch.plan import expr as E
+        return ~E.Column(constants.LINEAGE_COLUMN).isin(
+            *[int(i) for i in deleted_ids])
+
     def apply(self, plan: LogicalPlan) -> LogicalPlan:
         raise NotImplementedError

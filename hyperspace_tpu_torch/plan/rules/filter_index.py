@@ -13,9 +13,12 @@ Parity: reference `index/rules/FilterIndexRule.scala:41-229`.
   the index data root with NO bucket spec — a plain scan keeps full read
   parallelism (reference `:109-131`).
 - Any exception makes the rule a no-op with a warning (reference `:76-80`).
+- Hybrid scan (`spark.hyperspace.index.hybridscan.enabled`): an index
+  whose source changed since its build still serves the filter — its data
+  UNION the appended files, minus the rows of deleted files.
 
-The JAX package's hybrid-scan and data-skipping branches are not part of
-this package yet (both are off by default; ROADMAP.md).
+The JAX package's data-skipping branch is not part of this package yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -115,21 +118,24 @@ class FilterIndexRule(Rule):
                           "num_buckets": index.num_buckets,
                           "side": "filter"}])
         else:
-            # The whyNot record: the relation (scan roots), the predicate
-            # columns, which of them are point (equality) comparisons —
-            # bucket pruning only helps those — and the full column set
-            # a covering index would have to carry.
-            telemetry.event(
-                "rule", "FilterIndexRule", action="skipped",
-                reason="no ACTIVE covering index matches the plan "
-                       "signature (filter must reference the first "
-                       "indexed column; all columns must be covered)",
-                filter_columns=list(filter_columns),
-                eq_columns=_eq_columns(filt.condition),
-                project_columns=sorted(
-                    {c.lower() for c in project_columns}),
-                roots=list(scan.root_paths))
-            return node
+            source = self._hybrid_scan_source(filt, scan, project_columns,
+                                              filter_columns)
+            if source is None:
+                # The whyNot record: the relation (scan roots), the
+                # predicate columns, which of them are point (equality)
+                # comparisons — bucket pruning only helps those — and the
+                # full column set a covering index would have to carry.
+                telemetry.event(
+                    "rule", "FilterIndexRule", action="skipped",
+                    reason="no ACTIVE covering index matches the plan "
+                           "signature (filter must reference the first "
+                           "indexed column; all columns must be covered)",
+                    filter_columns=list(filter_columns),
+                    eq_columns=_eq_columns(filt.condition),
+                    project_columns=sorted(
+                        {c.lower() for c in project_columns}),
+                    roots=list(scan.root_paths))
+                return node
 
         rewritten: LogicalPlan = Filter(filt.condition, source)
         if project is not None:
@@ -139,6 +145,76 @@ class FilterIndexRule(Rule):
             # enabling indexes must not change result shape.
             rewritten = Project(scan.schema.names, rewritten)
         return rewritten
+
+    def _hybrid_scan_source(self, filt: Filter, scan: Scan,
+                            project_columns: Sequence[str],
+                            filter_columns: Sequence[str]):
+        """Hybrid Scan: when the index covers the columns but the source
+        has CHANGED since build time, serve the query from index data
+        anyway — appended files ride along as a UNION branch, and (for
+        lineage-enabled indexes) deleted files' rows are excluded by a
+        `_hs_file_id NOT IN (...)` filter pushed onto the index scan. No
+        refresh required. Gated on
+        `spark.hyperspace.index.hybridscan.enabled`.
+
+        The JAX package also thins the appended branch with data-skipping
+        sketches; that waits for data-skipping indexes in this package
+        (ROADMAP.md, PyTorch port Queue 1 item 8)."""
+        from hyperspace_tpu_torch import constants
+        from hyperspace_tpu_torch.index.source_delta import (
+            classify_current, restricted_scan, split_current)
+        from hyperspace_tpu_torch.plan.nodes import Union
+
+        if self.session.conf.get(constants.HYBRID_SCAN_ENABLED,
+                                 "false").lower() != "true":
+            return None
+        needed = {c.lower() for c in (*filter_columns, *project_columns)}
+        for entry in self._covering_indexes():
+            if not self._covers(entry, project_columns, filter_columns):
+                continue
+            delta = classify_current(entry, scan.files())
+            if delta is not None:
+                appended, deleted_ids, modified = delta
+                # In-place rewrites invalidate the index rows of that file
+                # with no way to tell which rows changed — decline.
+                if modified or not (appended or deleted_ids):
+                    continue
+            else:
+                # Pre-lineage entry: per-file stamps absent, so deletions
+                # are un-servable and untouched-survivor proof falls back
+                # to the aggregate signature over the stored file set.
+                # (Path-set subset alone misses in-place rewrites.)
+                appended, missing, stored = split_current(entry,
+                                                          scan.files())
+                deleted_ids = []
+                if missing or not appended or not stored:
+                    continue
+                if not self.signature_matches(
+                        entry, restricted_scan(entry, scan, sorted(stored))):
+                    continue
+            index_source = self.index_scan(entry, bucketed=True)
+            if deleted_ids:
+                index_source = Filter(self.lineage_exclusion(deleted_ids),
+                                      index_source)
+            needed_cols = [f.name for f in index_source.schema.fields
+                           if f.name.lower() in needed]
+            logger.info("FilterIndexRule: hybrid scan with index %s "
+                        "(+%d appended files, -%d deleted files)",
+                        entry.name, len(appended), len(deleted_ids))
+            telemetry.event(
+                "rule", "FilterIndexRule", action="applied",
+                indexes=[{"name": entry.name, "root": entry.content.root,
+                          "num_buckets": entry.num_buckets,
+                          "side": "filter", "hybrid": True,
+                          "appended_files": len(appended),
+                          "deleted_files": len(deleted_ids)}])
+            if not appended:
+                return Project(needed_cols, index_source)
+            appended_scan = Scan(scan.root_paths, scan.schema,
+                                 files=appended)
+            return Union([Project(needed_cols, index_source),
+                          Project(needed_cols, appended_scan)])
+        return None
 
     def _find_covering_index(self, filt: Filter, scan: Scan,
                              project_columns: Sequence[str],

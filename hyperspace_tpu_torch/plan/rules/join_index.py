@@ -9,7 +9,7 @@ Applicability (reference `:163-166`):
 - join attributes resolve directly to base relations with a strict
   one-to-one left<->right column mapping (`:278-317`).
 Index selection (reference `:328-594`):
-- per-side candidates by EXACT signature match;
+- per-side candidates by signature match;
 - an index is usable iff its indexed columns are SET-equal to that side's
   join columns and it covers every column the side needs;
 - left/right indexes are compatible iff their indexed-column ORDER agrees
@@ -19,22 +19,22 @@ Replacement swaps each side's scan for the index scan WITH its bucket spec
 so the physical planner elides Exchange+Sort (reference `:124-153`).
 Errors degrade to a no-op with a warning (reference `:66-69`).
 
-The JAX package's hybrid scan (an index over a source that changed since
-the build, served with the appended files unioned in) is not part of this
-package yet (ROADMAP.md): such a side is skipped with a recorded reason.
+Hybrid scan (`spark.hyperspace.index.hybridscan.enabled`): an index over a
+source that changed since its build still serves its side — the index
+data (minus deleted files' rows, lineage-enabled indexes) UNION the
+appended files, which the planner re-buckets through an Exchange.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from hyperspace_tpu_torch import telemetry
-from hyperspace_tpu_torch.constants import LINEAGE_COLUMN
 from hyperspace_tpu_torch.index.log_entry import IndexLogEntry
 from hyperspace_tpu_torch.plan import expr as E
 from hyperspace_tpu_torch.plan.nodes import (Filter, Join, LogicalPlan,
-                                             Project, Scan)
+                                             Project, Scan, Union)
 from hyperspace_tpu_torch.plan.rules.base import Rule
 from hyperspace_tpu_torch.plan.rules.ranker import JoinIndexRanker
 
@@ -96,30 +96,57 @@ class JoinIndexRule(Rule):
                   left_referenced=self._referenced_columns(join.left),
                   right_referenced=self._referenced_columns(join.right))
             return node
-        left_index, right_index = pair
-        logger.info("JoinIndexRule: applying indexes %s, %s",
-                    left_index.name, right_index.name)
+        ((left_index, left_appended, left_deleted),
+         (right_index, right_appended, right_deleted)) = pair
+        logger.info("JoinIndexRule: applying indexes %s (+%d appended, "
+                    "-%d deleted), %s (+%d appended, -%d deleted)",
+                    left_index.name, len(left_appended), len(left_deleted),
+                    right_index.name, len(right_appended),
+                    len(right_deleted))
         telemetry.event(
             "rule", "JoinIndexRule", action="applied",
             indexes=[{"name": e.name, "root": e.content.root,
                       "num_buckets": e.num_buckets, "side": side,
-                      "appended_files": 0, "deleted_files": 0}
-                     for e, side in ((left_index, "left"),
-                                     (right_index, "right"))])
-        return Join(self._swap(join.left, left_index),
-                    self._swap(join.right, right_index),
+                      "appended_files": len(app),
+                      "deleted_files": len(dele)}
+                     for e, app, dele, side in
+                     ((left_index, left_appended, left_deleted, "left"),
+                      (right_index, right_appended, right_deleted,
+                       "right"))])
+        return Join(self._swap(join.left, left_index, left_appended,
+                               left_deleted),
+                    self._swap(join.right, right_index, right_appended,
+                               right_deleted),
                     join.condition, join.join_type)
 
-    def _swap(self, side_plan: LogicalPlan,
-              entry: IndexLogEntry) -> LogicalPlan:
+    def _swap(self, side_plan: LogicalPlan, entry: IndexLogEntry,
+              appended: Sequence[str], deleted_ids) -> LogicalPlan:
         replacement: LogicalPlan = self.index_scan(entry, bucketed=True)
-        if replacement.schema.contains(LINEAGE_COLUMN):
-            # A lineage-enabled index carries the internal `_hs_file_id`
-            # column; a Project (which preserves bucketing) keeps it out
-            # of the join's output schema.
+        if deleted_ids:
+            # Deleted source files (lineage-enabled index): exclude their
+            # rows right above the bucketed scan — filters preserve
+            # bucketing, so the bucketed join is kept.
+            replacement = Filter(self.lineage_exclusion(deleted_ids),
+                                 replacement)
+        if appended or deleted_ids or entry.has_lineage:
+            # Hybrid scan (join path): index data UNION the appended source
+            # files, re-bucketed at execution time through the planner's
+            # ExchangeExec so the bucketed join still applies. The Project
+            # also drops the internal lineage column from the join input —
+            # needed even on an exact match of a lineage-enabled index, or
+            # `_hs_file_id` would leak into the join output schema.
             needed = set(self._referenced_columns(side_plan))
-            replacement = Project([f.name for f in replacement.schema.fields
-                                   if f.name.lower() in needed], replacement)
+            # Filter preserves its child's schema, so `replacement` still
+            # exposes the index scan's fields here.
+            names = [f.name for f in replacement.schema.fields
+                     if f.name.lower() in needed]
+            branches = [Project(names, replacement)]
+            if appended:
+                scan = self._base_scan(side_plan)
+                branches.append(Project(names, Scan(
+                    scan.root_paths, scan.schema, files=list(appended))))
+            replacement = (Union(branches) if len(branches) > 1
+                           else branches[0])
 
         def f(n: LogicalPlan) -> LogicalPlan:
             return replacement if isinstance(n, Scan) else n
@@ -185,14 +212,23 @@ class JoinIndexRule(Rule):
         return sorted(walk(plan, set(plan.schema.names)))
 
     def _usable_indexes(self, plan: LogicalPlan, join_cols: Sequence[str]
-                        ) -> List[IndexLogEntry]:
-        """Signature-matching ACTIVE indexes whose indexed columns are
-        set-equal to the join columns and that cover the side's referenced
-        columns (reference `:328-353, 399-409, 515-524`). A covering index
-        whose signature no longer matches (the source changed) would need
-        hybrid scan and is skipped with a recorded reason."""
+                        ) -> List[Tuple[IndexLogEntry, List[str], List[int]]]:
+        """(entry, appended files, deleted lineage ids) candidates for one
+        join side: signature-matching ACTIVE indexes whose indexed columns
+        are set-equal to the join columns and that cover the side's
+        referenced columns (reference `:328-353, 399-409, 515-524`). With
+        hybrid scan enabled, an index over a CHANGED source is usable too:
+        appended files ride along as a union branch, and (lineage-enabled
+        indexes) deleted files' rows are excluded by a lineage filter."""
+        from hyperspace_tpu_torch import constants
+        from hyperspace_tpu_torch.index.source_delta import (
+            classify_current, restricted_scan, split_current)
+
+        hybrid = (self.session.conf.get(constants.HYBRID_SCAN_ENABLED,
+                                        "false").lower() == "true")
         referenced = set(self._referenced_columns(plan))
         join_set = {c.lower() for c in join_cols}
+        scan = self._base_scan(plan)
         out = []
         for entry in self._covering_indexes():
             if {c.lower() for c in entry.indexed_columns} != join_set:
@@ -202,11 +238,25 @@ class JoinIndexRule(Rule):
             if not referenced <= covered:
                 continue
             if self.signature_matches(entry, plan):
-                out.append(entry)
-            else:
+                out.append((entry, [], []))
+                continue
+            if not hybrid or scan is None:
                 _skip("index signature does not match the current source "
-                      "(hybrid scan is not part of this package yet)",
-                      index=entry.name)
+                      "(hybrid scan disabled)", index=entry.name)
+                continue
+            delta = classify_current(entry, scan.files())
+            if delta is not None:
+                appended, deleted_ids, modified = delta
+                if not modified and (appended or deleted_ids):
+                    out.append((entry, appended, deleted_ids))
+                continue
+            appended, missing, stored = split_current(entry, scan.files())
+            if missing or not appended or not stored:
+                continue
+            if self.signature_matches(entry,
+                                      restricted_scan(entry, scan,
+                                                      sorted(stored))):
+                out.append((entry, appended, []))
         return out
 
     def _best_index_pair(self, join: Join, mapping: Dict[str, str]):
@@ -216,10 +266,12 @@ class JoinIndexRule(Rule):
         right_candidates = self._usable_indexes(join.right, right_join_cols)
         compatible = [(lc, rc) for lc in left_candidates
                       for rc in right_candidates
-                      if self._compatible(lc, rc, mapping)]
+                      if self._compatible(lc[0], rc[0], mapping)]
         if not compatible:
             return None
-        return JoinIndexRanker.rank(compatible)[0]
+        best = JoinIndexRanker.rank([(l[0], r[0]) for l, r in compatible])[0]
+        return next(pair for pair in compatible
+                    if pair[0][0] is best[0] and pair[1][0] is best[1])
 
     @staticmethod
     def _compatible(left_index: IndexLogEntry, right_index: IndexLogEntry,

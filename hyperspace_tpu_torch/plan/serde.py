@@ -17,7 +17,8 @@ import json
 from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.plan.expr import Expression
 from hyperspace_tpu_torch.plan.nodes import (BucketSpec, Filter, Join,
-                                             LogicalPlan, Project, Scan)
+                                             LogicalPlan, Project, Scan,
+                                             Union)
 from hyperspace_tpu_torch.plan.schema import Field, Schema
 
 
@@ -47,6 +48,8 @@ def plan_from_dict(d: dict) -> LogicalPlan:
         return Join(plan_from_dict(d["left"]), plan_from_dict(d["right"]),
                     Expression.from_dict(cond) if cond is not None else None,
                     d.get("type", "inner"))
+    if node == "union":
+        return Union([plan_from_dict(c) for c in d["children"]])
     raise HyperspaceException(f"Unknown plan node kind: {node}")
 
 

@@ -192,6 +192,13 @@ class MetricsRegistry:
         with self._lock:
             self._action_reports.append(report)
 
+    def last_action_report(self) -> Optional[dict]:
+        """The newest structured action report (rows, lane, phase
+        seconds of the last index maintenance action), or None."""
+        with self._lock:
+            return self._action_reports[-1] if self._action_reports \
+                else None
+
     # -- snapshots -----------------------------------------------------
 
     def to_dict(self) -> dict:

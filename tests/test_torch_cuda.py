@@ -1,6 +1,7 @@
 """`hyperspace_tpu_torch` on a CUDA card: the hand-written kernels against
-their plain versions, and the card's build, filter, Exchange and join lanes
-against the CPU's.
+their plain versions, and the card's build, filter, Exchange, join,
+incremental-refresh, compaction-sort and hybrid-join lanes against the
+CPU's.
 
 Marked `cuda`; each test skips where there is no card. On the machine
 with the card (which has no JAX, so the JAX-loading conftest is skipped):
@@ -172,4 +173,116 @@ def test_card_mismatched_bucket_join_equals_cpu(card, tmp_path):
                                  for c in table.column_names])
         rows[device] = ordered
     assert rows["cuda"].num_rows > n
+    assert rows["cuda"].equals(rows["cpu"])
+
+
+def _files(path):
+    return sorted(f for f in os.listdir(path) if f.endswith(".parquet"))
+
+
+def test_card_incremental_delta_equals_host_lane(card, tmp_path,
+                                                 monkeypatch):
+    """A 1,048,576-row incremental delta builds on the card (the hash
+    kernel launched) and writes the host lane's delta files, byte for
+    byte."""
+    import hyperspace_tpu_torch as ths
+
+    rng = np.random.default_rng(13)
+    src = tmp_path / "src"
+    os.makedirs(src)
+
+    def part(name, n):
+        pq.write_table(pa.table({
+            "key": rng.integers(0, 1 << 18, n).astype(np.int64),
+            "score": rng.random(n)}), str(src / name))
+
+    part("part-0.parquet", 1 << 16)
+    sessions = {}
+    for device in ("cuda", "cpu"):
+        sess = ths.HyperspaceSession(ths.HyperspaceConf({
+            "spark.hyperspace.warehouse.dir": str(tmp_path / device)}),
+            device=device)
+        ths.Hyperspace(sess).create_index(
+            sess.read_parquet(str(src)),
+            ths.IndexConfig("inc", ["key"], ["score"]))
+        sessions[device] = sess
+    part("part-1.parquet", 1 << 20)
+    for device, sess in sessions.items():
+        if device == "cpu":
+            # The host lane: the delta's permutation from numpy.
+            monkeypatch.setattr(builder, "BUILD_MIN_DEVICE_ROWS", 1 << 30)
+        before = hash_kernel.hash_lanes_to_buckets.launches
+        ths.Hyperspace(sess).refresh_index("inc", mode="incremental")
+        launched = hash_kernel.hash_lanes_to_buckets.launches - before
+        assert (launched > 0) == (device == "cuda")
+    gpu = tmp_path / "cuda" / "indexes" / "inc" / "v__=1"
+    cpu = tmp_path / "cpu" / "indexes" / "inc" / "v__=1"
+    names = _files(gpu)
+    assert names == _files(cpu) and any("-delta1" in f for f in names)
+    for name in names:
+        assert (gpu / name).read_bytes() == (cpu / name).read_bytes(), name
+
+
+@pytest.mark.parametrize("keys", [["k"], ["k", "s"], ["x"]])
+def test_card_bucket_sort_permutation_equals_cpu(card, keys):
+    from hyperspace_tpu_torch.ops import merge
+
+    rng = np.random.default_rng(len(keys))
+    lengths = rng.integers(0, 5000, 200).astype(np.int64)
+    lengths[::7] = 0
+    table = _table(int(lengths.sum()))
+    (gpu,), gstarts, gends = merge.bucket_sort_permutation(
+        columnar.from_arrow(table, device=card), keys, lengths)
+    (cpu,), cstarts, cends = merge.bucket_sort_permutation(
+        columnar.from_arrow(table, device=torch.device("cpu")), keys,
+        lengths)
+    assert gpu.device.type == "cuda"
+    assert torch.equal(gpu.cpu(), cpu)
+    assert (gstarts == cstarts).all() and (gends == cends).all()
+
+
+def test_card_hybrid_left_outer_join_equals_cpu(card, tmp_path):
+    """A left_outer join with a stale index on the right: the appended
+    branch of its hybrid scan is re-bucketed on the card through the
+    partition kernel, and the rows equal the same query on the CPU."""
+    import hyperspace_tpu_torch as ths
+
+    rng = np.random.default_rng(21)
+    n = 60_000
+    for name, size in (("left", n // 2), ("right", n)):
+        os.makedirs(tmp_path / name)
+        pq.write_table(pa.table({
+            "key": rng.integers(0, n // 4, size).astype(np.int64),
+            "v": rng.random(size)}), str(tmp_path / name / "a.parquet"))
+    sessions = {}
+    for device in ("cuda", "cpu"):
+        sess = ths.HyperspaceSession(ths.HyperspaceConf({
+            "spark.hyperspace.warehouse.dir": str(tmp_path / device),
+            "spark.hyperspace.execution.min.device.rows": "0",
+            "spark.hyperspace.index.num.buckets": "16",
+            "spark.hyperspace.index.hybridscan.enabled": "true",
+            "spark.hyperspace.broadcast.threshold": "-1"}), device=device)
+        for name in ("left", "right"):
+            ths.Hyperspace(sess).create_index(
+                sess.read_parquet(str(tmp_path / name)),
+                ths.IndexConfig(f"{name}Idx", ["key"], ["v"]))
+        sessions[device] = sess
+    pq.write_table(pa.table({
+        "key": rng.integers(0, n // 4, 9000).astype(np.int64),
+        "v": rng.random(9000)}), str(tmp_path / "right" / "b.parquet"))
+    rows = {}
+    for device, sess in sessions.items():
+        sess.enable_hyperspace()
+        left = sess.read_parquet(str(tmp_path / "left"))
+        right = sess.read_parquet(str(tmp_path / "right"))
+        before = partition_kernel.partition_ids_and_histogram.launches
+        table, metrics = left.join(right, on="key", how="left_outer") \
+            .collect(with_metrics=True)
+        names = [op.name for op in metrics.operators]
+        assert "Union" in names and "Exchange" in names
+        launched = partition_kernel.partition_ids_and_histogram.launches
+        assert (launched > before) == (device == "cuda")
+        rows[device] = table.sort_by([(c, "ascending")
+                                      for c in table.column_names])
+    assert rows["cuda"].num_rows >= n // 2
     assert rows["cuda"].equals(rows["cpu"])
