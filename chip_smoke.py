@@ -27,18 +27,24 @@ entry points:
   (its appended branch re-bucketed through the Exchange's partition
   kernel); then an incremental refresh (the delta built with the hash
   kernel) after which the same queries plan without a Union;
-- index maintenance (`bench.py`'s rung 5): over a fresh 8,388,608-row
+- index maintenance (`bench.py`'s rung 5): over a fresh 4,194,304-row
   source, three rounds of append + incremental refresh + optimize (the
   host merge lane), two full refreshes, the last optimize byte-equal to
   the first full refresh; a composite-key index whose optimize sorts on
   the device, byte-equal to its full refresh; then delete, restore,
-  delete and vacuum.
+  delete and vacuum;
+- TPC-H at SF1's row counts (6,753,260 `lineitem` rows, the port's seeded
+  generator at scale 100): the five covering indexes of its query module
+  at 200 buckets, then all 22 queries with `min.device.rows` = 0, so every
+  operator (aggregates, sorts, top-k, cross joins, reused subplans) runs
+  on the card — rules on (a warm-up, then two timed runs) and rules off,
+  each against the pandas oracle; q1 must give the same bytes twice.
 
-Every result is checked against numpy over the sources. Every phase prints
-one JSON line, with the kernel launches counted from zero over it; any
-mismatch or error ends the run with a non-zero exit. The last lines are
-the kernel table, the card's name and power limit as `nvidia-smi` reports
-them, and `{"ok": true, "device": {...}}`.
+Every result is checked against numpy (TPC-H: pandas) over the sources.
+Every phase prints one JSON line, with the kernel launches counted from
+zero over it; any mismatch or error ends the run with a non-zero exit. The
+last lines are the kernel table, the card's name and power limit as
+`nvidia-smi` reports them, and `{"ok": true, "device": {...}}`.
 
 Needs one CUDA card; exits non-zero without one, or without the package
 beside it. Scratch data lives under `_smoke/` in the checkout and is
@@ -57,8 +63,9 @@ N_ROWS = 1 << 24
 N_FILES = 4
 N_RIGHT = 1 << 23               # rows of each join right source
 N_APPEND = 1 << 22              # the hybrid phase's appended file
-N_MAINT = 1 << 23               # the maintenance phase's base source
+N_MAINT = 1 << 22               # the maintenance phase's base source
 N_MAINT_APPEND = N_MAINT // 20  # each maintenance round's appended slice
+TPCH_SCALE = 100                # the generator's scale for SF1 row counts
 EXCHANGE_BUCKETS = 200          # the left index's count: B's Exchange target
 SEED = 42
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
@@ -654,8 +661,8 @@ def _same_bytes(dir_a, dir_b):
 
 
 def phase_maintenance(hs, sess, work):
-    """bench.py's rung 5 at its own size: incremental refresh, optimize and
-    full refresh of an 8,388,608-row index, then the lifecycle verbs."""
+    """bench.py's rung 5 at half its size: incremental refresh, optimize
+    and full refresh of a 4,194,304-row index, then the lifecycle verbs."""
     import numpy as np
     import pyarrow as pa
     import pyarrow.parquet as pq
@@ -724,6 +731,122 @@ def phase_maintenance(hs, sess, work):
     catalog = hs.indexes()
     check("bench_opt" not in list(catalog.get("name", [])),
           "bench_opt is still listed after vacuum")
+    return out
+
+
+# The covering indexes each TPC-H rules-on plan reads: q1/q6's shipdate
+# filter under their aggregate, and the joins whose two sides are linear
+# and covered. The other queries join a non-linear side, or need a
+# lineitem column that no index includes.
+TPCH_INDEXES_READ = {
+    "q1": ["tpch_li_ship"], "q6": ["tpch_li_ship"],
+    "q10": ["tpch_li_ord", "tpch_ord_key"],
+    "q18": ["tpch_li_ord", "tpch_ord_key"],
+    "q14": ["tpch_li_part", "tpch_part_key"],
+    "q17": ["tpch_li_part", "tpch_part_key"],
+    "q19": ["tpch_li_part", "tpch_part_key"],
+}
+
+
+def _ipc_bytes(table):
+    import pyarrow as pa
+
+    sink = pa.BufferOutputStream()
+    with pa.ipc.new_stream(sink, table.schema) as writer:
+        writer.write_table(table)
+    return sink.getvalue().to_pybytes()
+
+
+def phase_tpch(hs, sess, work):
+    """The 22 TPC-H queries at SF1 row counts on the card, rules on and
+    off, against the pandas oracle. Returns the phase summary; prints one
+    line per query."""
+    import statistics
+
+    import pandas as pd
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch.tpch import QUERIES, generate
+    from hyperspace_tpu_torch.tpch.queries import (create_indexes,
+                                                   normalize_result)
+
+    t0 = time.perf_counter()
+    paths = generate(os.path.join(work, "tpch"), scale=TPCH_SCALE)
+    out = {"generate_s": time.perf_counter() - t0,
+           "table_rows": {name: pq.ParquetFile(
+               os.path.join(p, "part-0.parquet")).metadata.num_rows
+               for name, p in paths.items()}}
+    sess.conf.set("spark.hyperspace.execution.min.device.rows", "0")
+    dfs = {name: sess.read_parquet(path) for name, path in paths.items()}
+    t0 = time.perf_counter()
+    create_indexes(hs, dfs)
+    out["create_indexes_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pdfs = {name: pq.read_table(os.path.join(p, "part-0.parquet"))
+            .to_pandas() for name, p in paths.items()}
+    out["pandas_load_s"] = time.perf_counter() - t0
+
+    def same(got, want, tag):
+        check(list(got.columns) == list(want.columns),
+              f"{tag}: columns {list(got.columns)}")
+        try:
+            pd.testing.assert_frame_equal(
+                normalize_result(got), normalize_result(want),
+                check_dtype=False, check_exact=False, rtol=1e-6, atol=1e-9)
+        except AssertionError as exc:
+            fail(f"{tag}: differs from the pandas oracle: {exc}")
+
+    oracle_s = 0.0
+    queries = {}
+    for name, (build, oracle) in QUERIES.items():
+        t0 = time.perf_counter()
+        expected = oracle(pdfs)
+        oracle_s += time.perf_counter() - t0
+        check(len(expected) > 0, f"tpch {name}: the oracle returned no rows")
+
+        sess.enable_hyperspace()
+        frame = build(dfs)
+        read = sorted({leaf.index_name for leaf in
+                       sess.optimize(frame.plan).collect_leaves()
+                       if leaf.index_name})
+        check(read == TPCH_INDEXES_READ.get(name, []),
+              f"tpch {name}: the rules-on plan reads {read}")
+        frame.collect()  # warm-up
+        runs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            table, metrics = frame.collect(with_metrics=True)
+            runs.append(((time.perf_counter() - t0) * 1e3, table, metrics))
+        on_ms = statistics.median(ms for ms, _, _ in runs)
+        _, table, metrics = runs[-1]
+        host_ops = sorted({o.name for o in metrics.operators
+                           if o.name in ("Aggregate", "SortMergeJoin")
+                           and o.detail.get("lane") == "host"})
+        check(not host_ops, f"tpch {name}: {host_ops} ran on a host batch")
+        if name == "q1":
+            check(_ipc_bytes(runs[0][1]) == _ipc_bytes(runs[1][1]),
+                  "tpch q1: two rules-on runs gave different bytes")
+        same(table.to_pandas(), expected, f"tpch {name} rules on")
+
+        sess.disable_hyperspace()
+        t0 = time.perf_counter()
+        plain = build(dfs).collect()
+        off_ms = (time.perf_counter() - t0) * 1e3
+        same(plain.to_pandas(), expected, f"tpch {name} rules off")
+
+        ops = sorted(operator_ms(metrics), key=lambda o: -o["self_ms"])
+        line = {"name": name, "rows": table.num_rows, "on_ms": on_ms,
+                "off_ms": off_ms, "indexes": read,
+                "top_operators": [{"op": o["op"], "self_ms": o["self_ms"]}
+                                  for o in ops[:3]]}
+        emit("tpch_query", **line)
+        queries[name] = line
+    sess.conf.unset("spark.hyperspace.execution.min.device.rows")
+    out.update(oracle_s=oracle_s,
+               on_ms_total=sum(q["on_ms"] for q in queries.values()),
+               off_ms_total=sum(q["off_ms"] for q in queries.values()),
+               slowest_on=sorted(queries,
+                                 key=lambda q: -queries[q]["on_ms"])[:5])
     return out
 
 
@@ -814,6 +937,10 @@ def main():
         emit("maintenance", **out)
         check(tally("maintenance", n)[0] > 0,
               "the maintenance phase never launched the hash kernel")
+        out, n = counted(counters, phase_tpch, hs, sess, work)
+        emit("tpch", **out)
+        check(tally("tpch", n)[0] > 0,
+              "the tpch phase never launched the hash kernel")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for row, count in zip(rows, launches):

@@ -55,7 +55,12 @@ class _Arrays:
             return v
         if isinstance(v, np.ndarray):
             return torch.from_numpy(v).to(self.device)
-        return torch.as_tensor(v, device=self.device)
+        # A Python float literal is float64, as numpy makes it: torch's
+        # default float32 would round it (0.2 -> 0.20000000298) before any
+        # widening.
+        return torch.as_tensor(v, device=self.device,
+                               dtype=torch.float64 if isinstance(v, float)
+                               else None)
 
     def cast(self, arr, dtype: str):
         """`arr` converted to the logical dtype `dtype`."""
@@ -432,6 +437,10 @@ class ExpressionCompiler:
             flipped = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le",
                        "eq": "eq", "ne": "ne"}[op]
             lv, rv, op = rv, lv, flipped
+        if isinstance(rv, float):
+            # compare in float64 (torch would compare an int column with
+            # a Python float in float32)
+            rv = self.xp.asarray(rv)
         mask = getattr(self.xp.asarray(lv), _CMP[op])(rv)
         return self._with_validity(mask, lval, rval)
 

@@ -1,10 +1,11 @@
 """User-facing DataFrame: a logical plan + session.
 
-The equivalent of the Spark DataFrame surface the reference operates on,
-cut to the filter and join paths: `filter`/`select`/`join` are lazy plan
-builders; `collect`/`to_pandas`/`count` run the optimizer (rewrite rules,
-when enabled) and execute. Sorts, aggregates and the other verbs of the
-JAX package come with the engine slices that execute them (ROADMAP.md).
+The equivalent of the Spark DataFrame surface the reference operates on:
+`filter`/`select`/`with_column`/`join`/`sort`/`limit`/`group_by`/`agg`/
+`distinct` are lazy plan builders; `collect`/`to_pandas`/`count` run the
+optimizer (rewrite rules, when enabled) and execute. Windows, set
+operations and scalar subqueries of the JAX package come with the engine
+slice that executes them (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -13,8 +14,9 @@ from typing import List, Optional, Sequence, Union
 
 from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.plan import expr as E
-from hyperspace_tpu_torch.plan.nodes import (Filter, Join, LogicalPlan,
-                                             Project)
+from hyperspace_tpu_torch.plan.nodes import (Aggregate, AggSpec, Filter,
+                                             Join, Limit, LogicalPlan,
+                                             Project, Sort)
 from hyperspace_tpu_torch.plan.schema import Schema
 
 
@@ -39,6 +41,9 @@ class DataFrame:
         return DataFrame(Filter(condition, self.plan), self.session)
 
     where = filter
+    # HAVING is a filter over an aggregate's output (SQL surface parity);
+    # the engine plans it as FilterExec(AggregateExec(...)).
+    having = filter
 
     def select(self, *columns) -> "DataFrame":
         """Projection. Entries are column names or named expressions:
@@ -47,14 +52,29 @@ class DataFrame:
                  for c in (col if isinstance(col, (list, tuple)) else [col])]
         return DataFrame(Project(names, self.plan), self.session)
 
+    def with_column(self, name: str, expression: E.Expression) -> "DataFrame":
+        """Append a computed column; replacing an existing one keeps its
+        position (Spark withColumn semantics)."""
+        alias = E.Alias(expression, name)
+        entries: list = []
+        replaced = False
+        for c in self.schema.names:
+            if c.lower() == name.lower():
+                entries.append(alias)
+                replaced = True
+            else:
+                entries.append(c)
+        if not replaced:
+            entries.append(alias)
+        return DataFrame(Project(entries, self.plan), self.session)
+
     def join(self, other: "DataFrame",
              on: Union[E.Expression, str, Sequence[str], None] = None,
              how: str = "inner") -> "DataFrame":
         """Equi-join on column names (`on="key"` or a list, each name on
         both sides) or an AND of column equalities. `how`: inner,
         left_outer/left, right_outer/right, full_outer/full/outer,
-        left_semi/semi, left_anti/anti; cross (no `on`) builds the plan
-        but does not execute yet."""
+        left_semi/semi, left_anti/anti; cross (no `on`)."""
         how = {"semi": "left_semi", "anti": "left_anti",
                "left": "left_outer", "right": "right_outer",
                "full": "full_outer", "outer": "full_outer"}.get(how, how)
@@ -79,6 +99,31 @@ class DataFrame:
             condition = on
         return DataFrame(Join(self.plan, other.plan, condition, how),
                          self.session)
+
+    def sort(self, *columns: str) -> "DataFrame":
+        """ORDER BY. Plain names sort ascending (nulls first); prefix a
+        name with "-" for descending (nulls last): df.sort("a", "-b")."""
+        return DataFrame(Sort(list(columns), self.plan), self.session)
+
+    order_by = sort
+
+    def limit(self, n: int) -> "DataFrame":
+        return DataFrame(Limit(n, self.plan), self.session)
+
+    def group_by(self, *columns: str) -> "GroupedData":
+        return GroupedData(self, list(columns))
+
+    def distinct(self) -> "DataFrame":
+        """SELECT DISTINCT: deduplicate rows (an aggregation over all
+        columns with no aggregate outputs)."""
+        return DataFrame(Aggregate(self.columns, [], self.plan),
+                         self.session)
+
+    drop_duplicates = distinct
+
+    def agg(self, *specs, **named) -> "DataFrame":
+        """Global aggregation (no grouping); see GroupedData.agg."""
+        return GroupedData(self, []).agg(*specs, **named)
 
     # -- actions (execute) ------------------------------------------------
 
@@ -135,3 +180,59 @@ class DataFrame:
     def __repr__(self):
         return f"DataFrame[{', '.join(self.schema.names)}]"
 
+
+class GroupedData:
+    """`df.group_by(cols).agg(...)` builder.
+
+    Aggregations are given as tuples `(func, column[, alias])` or keyword
+    form `alias=(func, column)`; funcs: sum, count, min, max, avg, stddev,
+    count_distinct; column "*" with count counts rows; the column may be a
+    value Expression (with an explicit alias).
+
+        df.group_by("k").agg(("sum", "x", "total"), cnt=("count", "*"))
+    """
+
+    def __init__(self, df: DataFrame, group_columns: Sequence[str]):
+        self._df = df
+        self._group_columns = list(group_columns)
+
+    def agg(self, *specs, **named) -> DataFrame:
+        parsed = []
+        for spec in specs:
+            if not isinstance(spec, (tuple, list)) or len(spec) not in (2, 3):
+                raise HyperspaceException(
+                    "Aggregation spec must be (func, column[, alias]); the "
+                    "column may be a name or a value Expression.")
+            func, column = spec[0], spec[1]
+            if len(spec) == 3:
+                alias = spec[2]
+            elif isinstance(column, E.Expression):
+                raise HyperspaceException(
+                    "Expression aggregations need an explicit alias: "
+                    "(func, expr, alias).")
+            else:
+                alias = f"{func}_{column}" if column != "*" else func
+            parsed.append(AggSpec(func, column, alias))
+        for alias, spec in named.items():
+            if not isinstance(spec, (tuple, list)) or len(spec) != 2:
+                raise HyperspaceException(
+                    "Keyword aggregation must be alias=(func, column).")
+            parsed.append(AggSpec(spec[0], spec[1], alias))
+        return DataFrame(Aggregate(self._group_columns, parsed,
+                                   self._df.plan), self._df.session)
+
+    # Convenience verbs.
+    def count(self) -> DataFrame:
+        return self.agg(("count", "*", "count"))
+
+    def sum(self, *columns: str) -> DataFrame:
+        return self.agg(*[("sum", c) for c in columns])
+
+    def avg(self, *columns: str) -> DataFrame:
+        return self.agg(*[("avg", c) for c in columns])
+
+    def min(self, *columns: str) -> DataFrame:
+        return self.agg(*[("min", c) for c in columns])
+
+    def max(self, *columns: str) -> DataFrame:
+        return self.agg(*[("max", c) for c in columns])

@@ -10,9 +10,10 @@ skips the work. Scan, Filter and Project run the filter path, with bucket
 pruning of equality literals over an index's bucketed layout; small join
 sides broadcast (`BroadcastHashJoinExec`). Union runs hybrid scan (index
 data UNION appended files), and a join over a Union distributes over it
-where the join type allows. Any other logical node raises a typed
-HyperspaceException; aggregates, sorts and the other operators are queued
-in ROADMAP.md (the PyTorch port's queue).
+where the join type allows. Aggregate, Sort, Limit (TopK over a Sort) and
+cross joins run the analytic operators; identical subtrees plan as one
+shared `ReusedExec`. Window and set operations are queued in ROADMAP.md
+(the PyTorch port's queue) and raise a typed HyperspaceException.
 """
 
 from __future__ import annotations
@@ -27,9 +28,10 @@ from hyperspace_tpu_torch import telemetry
 from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.io import columnar, parquet
 from hyperspace_tpu_torch.plan import expr as E
-from hyperspace_tpu_torch.plan.nodes import (BucketSpec, Filter, Join,
-                                             LogicalPlan, Project, Scan,
-                                             Union)
+from hyperspace_tpu_torch.plan.nodes import (Aggregate, BucketSpec, Filter,
+                                             Join, Limit, LogicalPlan,
+                                             Project, Scan, Sort, Union,
+                                             sort_direction)
 from hyperspace_tpu_torch.plan.schema import Schema
 
 
@@ -478,10 +480,17 @@ class ExchangeExec(PhysicalNode):
         return self.partition(self.child.execute())
 
 
+def _annotate_lane(batch: columnar.ColumnBatch) -> None:
+    """The lane an operator's input ran on, on its operator record."""
+    telemetry.annotate(lane="host" if batch.is_host else "device")
+
+
 class SortExec(PhysicalNode):
-    """Ascending sort on `keys`, nulls first — the wrapper the general join
-    path emits over each side's Exchange (the Spark-shaped plan). The join
-    unwraps it: the counting join matches unsorted rows."""
+    """ORDER BY `keys` ("-name" descending; ascending nulls first,
+    descending nulls last), stable (`ops/sort.sort_batch`). It is also the
+    wrapper the general join path emits over each side's Exchange (the
+    Spark-shaped plan); the join unwraps it, since the counting join
+    matches unsorted rows."""
 
     name = "Sort"
 
@@ -497,18 +506,208 @@ class SortExec(PhysicalNode):
         return f"Sort [{', '.join(self.keys)}]"
 
     def execute(self) -> columnar.ColumnBatch:
-        from hyperspace_tpu_torch.ops import keys as keymod
-
+        from hyperspace_tpu_torch.ops.sort import sort_batch
         batch = self.child.execute()
         if batch.num_rows == 0:
             return batch
+        _annotate_lane(batch)
+        return sort_batch(batch, self.keys)
+
+
+class TopKExec(PhysicalNode):
+    """Sort+Limit collapsed (`ops/sort.topk_batch`): ORDER BY + LIMIT n
+    computes the exact first n rows via a packed-prefix threshold pass
+    plus a small candidate sort, instead of fully sorting millions of rows
+    that the limit immediately discards. A device input comes out on the
+    host unless the candidate cap forced the full sort."""
+
+    name = "TopK"
+
+    def __init__(self, n: int, keys: Sequence[str], child: PhysicalNode):
+        self.n = n
+        self.keys = list(keys)
+        self.child = child
+
+    @property
+    def children(self):
+        return [self.child]
+
+    def simple_string(self) -> str:
+        return f"TopK {self.n} [{', '.join(self.keys)}]"
+
+    def execute(self) -> columnar.ColumnBatch:
+        from hyperspace_tpu_torch.ops.sort import topk_batch
+        batch = self.child.execute()
+        if batch.num_rows == 0:
+            return batch
+        _annotate_lane(batch)
+        return topk_batch(batch, self.keys, self.n)
+
+
+class AggregateExec(PhysicalNode):
+    name = "Aggregate"
+
+    def __init__(self, group_columns: Sequence[str], aggregates,
+                 out_schema: Schema, child: PhysicalNode):
+        self.group_columns = list(group_columns)
+        self.aggregates = list(aggregates)
+        self.out_schema = out_schema
+        self.child = child
+
+    @property
+    def children(self):
+        return [self.child]
+
+    def simple_string(self) -> str:
+        aggs = ", ".join(f"{a.func}({a.column})" for a in self.aggregates)
+        return f"Aggregate [{', '.join(self.group_columns)}] [{aggs}]"
+
+    def _materialize_inputs(self, batch: columnar.ColumnBatch):
+        """Evaluate expression aggregation inputs (sum(x*y)) into temp
+        columns so the segment reducers see plain columns; returns
+        (augmented batch, rewritten specs)."""
+        from hyperspace_tpu_torch.plan.nodes import AggSpec
+        if not any(s.is_expression for s in self.aggregates):
+            return batch, self.aggregates
+        from hyperspace_tpu_torch.engine.compiler import ExpressionCompiler
+        from hyperspace_tpu_torch.plan.expr import infer_dtype
+        from hyperspace_tpu_torch.plan.schema import Field
+        compiler = ExpressionCompiler(batch)
+        fields = list(batch.schema.fields)
+        columns = dict(batch.columns)
+        specs = []
+        for i, spec in enumerate(self.aggregates):
+            if not spec.is_expression:
+                specs.append(spec)
+                continue
+            dtype = infer_dtype(spec.column, batch.schema)
+            name = f"__agg_in_{i}"
+            columns[name] = compiler.value_column(spec.column, dtype)
+            fields.append(Field(name, dtype, True))
+            specs.append(AggSpec(spec.func, name, spec.alias))
+        return columnar.ColumnBatch(Schema(fields), columns), specs
+
+    def execute(self) -> columnar.ColumnBatch:
+        from hyperspace_tpu_torch.ops.aggregate import group_aggregate
+        batch = self.child.execute()
+        _annotate_lane(batch)
+        batch, specs = self._materialize_inputs(batch)
+        return group_aggregate(batch, self.group_columns, specs,
+                               self.out_schema)
+
+
+class LimitExec(PhysicalNode):
+    name = "Limit"
+
+    def __init__(self, n: int, child: PhysicalNode):
+        self.n = n
+        self.child = child
+
+    @property
+    def children(self):
+        return [self.child]
+
+    def simple_string(self) -> str:
+        return f"Limit {self.n}"
+
+    def execute(self) -> columnar.ColumnBatch:
+        import torch
+        batch = self.child.execute()
+        if batch.num_rows <= self.n:
+            return batch
         if batch.is_host:
-            lanes = [lane for k in self.keys for lane in
-                     keymod.host_column_sort_lanes(batch.column(k))]
-            return batch.take(np.lexsort(tuple(reversed(lanes))))
-        lanes = [lane for k in self.keys
-                 for lane in keymod.column_sort_lanes(batch.column(k))]
-        return batch.take(keymod.lexsort_permutation(lanes))
+            return batch.take(np.arange(self.n, dtype=np.int32))
+        return batch.take(torch.arange(self.n, device=batch.device))
+
+
+class CrossJoinExec(PhysicalNode):
+    """Cartesian product (CROSS JOIN). Exists for the scalar-assembly
+    idiom — TPC-H q11 and q22 cross a one-row aggregate with a larger side
+    — so it is guarded against accidental blow-ups rather than optimized
+    for scale. Output naming matches the equi-join: right-side duplicates
+    get a `_r` suffix."""
+
+    name = "CrossJoin"
+    MAX_ROWS = 50_000_000
+
+    def __init__(self, left: PhysicalNode, right: PhysicalNode):
+        self.left = left
+        self.right = right
+
+    @property
+    def children(self):
+        return [self.left, self.right]
+
+    def simple_string(self) -> str:
+        return "CrossJoin"
+
+    def execute(self) -> columnar.ColumnBatch:
+        import torch
+
+        from hyperspace_tpu_torch.plan.schema import Field
+
+        lbatch, rbatch = _one_lane(self.left.execute(), self.right.execute())
+        n_left, n_right = lbatch.num_rows, rbatch.num_rows
+        if n_left * n_right > self.MAX_ROWS:
+            raise HyperspaceException(
+                f"Cross join would produce {n_left * n_right} rows "
+                f"({n_left} x {n_right}); refusing.")
+        if lbatch.is_host:
+            li = np.repeat(np.arange(n_left, dtype=np.int64), n_right)
+            ri = np.tile(np.arange(n_right, dtype=np.int64), n_left)
+        else:
+            li = torch.arange(n_left, device=lbatch.device
+                              ).repeat_interleave(n_right)
+            ri = torch.arange(n_right, device=lbatch.device).repeat(n_left)
+        lt, rt = lbatch.take(li), rbatch.take(ri)
+        fields = list(lt.schema.fields)
+        columns = dict(lt.columns)
+        left_names = {f.name.lower() for f in fields}
+        for f in rt.schema.fields:
+            name = (f.name if f.name.lower() not in left_names
+                    else f.name + "_r")
+            fields.append(Field(name, f.dtype, f.nullable))
+            columns[name] = rt.columns[f.name]
+        return columnar.ColumnBatch(Schema(fields), columns)
+
+
+class ReusedExec(PhysicalNode):
+    """Common-subplan reuse (Spark's ReuseExchange/ReuseSubquery analog):
+    the planner routes every occurrence of an identical logical subtree
+    (same serialization, same required columns) through ONE shared node
+    that memoizes its executed batch, so a view used twice (TPC-H q15's
+    revenue aggregate, a join distributed over a hybrid Union) computes
+    once. Physical plans are built fresh per query, so the memo's lifetime
+    is a single execution."""
+
+    name = "ReusedSubplan"
+
+    def __init__(self, child: PhysicalNode):
+        self.child = child
+        self._memo = None
+        self._memo_bucketed = {}
+
+    @property
+    def children(self):
+        return [self.child]
+
+    def simple_string(self) -> str:
+        return "ReusedSubplan"
+
+    def execute(self) -> columnar.ColumnBatch:
+        if self._memo is None:
+            self._memo = self.child.execute()
+        else:
+            telemetry.annotate(reused=True)
+        return self._memo
+
+    def execute_bucketed(self, num_buckets: int):
+        if num_buckets not in self._memo_bucketed:
+            self._memo_bucketed[num_buckets] = \
+                self.child.execute_bucketed(num_buckets)
+        else:
+            telemetry.annotate(reused=True)
+        return self._memo_bucketed[num_buckets]
 
 
 class SortMergeJoinExec(PhysicalNode):
@@ -550,6 +749,7 @@ class SortMergeJoinExec(PhysicalNode):
             else:
                 lbatch, rbatch = _one_lane(self.left.execute(),
                                            self.right.execute())
+            _annotate_lane(lbatch)
             idx = semi_anti_indices(lbatch, rbatch, self.left_keys,
                                     self.right_keys,
                                     anti=self.how == "left_anti")
@@ -560,6 +760,7 @@ class SortMergeJoinExec(PhysicalNode):
             from hyperspace_tpu_torch.ops.bucketed_join import (
                 bucketed_sort_merge_join)
             lbatch, rbatch, l_lengths, r_lengths = self._bucketed_inputs()
+            _annotate_lane(lbatch)
             return bucketed_sort_merge_join(lbatch, rbatch, l_lengths,
                                             r_lengths, self.left_keys,
                                             self.right_keys, how=self.how,
@@ -578,6 +779,7 @@ class SortMergeJoinExec(PhysicalNode):
 
         lbatch, rbatch = _one_lane(unwrap(self.left).execute(),
                                    unwrap(self.right).execute())
+        _annotate_lane(lbatch)
         return sort_merge_join(lbatch, rbatch, self.left_keys,
                                self.right_keys, how=self.how,
                                columns=self.out_columns)
@@ -589,7 +791,6 @@ class SortMergeJoinExec(PhysicalNode):
         lbatch, l_lengths = self.left.execute_bucketed(self.num_buckets)
         rbatch, r_lengths = self.right.execute_bucketed(self.num_buckets)
         lbatch, rbatch = _one_lane(lbatch, rbatch)
-        telemetry.annotate(lane="host" if lbatch.is_host else "device")
         return lbatch, rbatch, l_lengths, r_lengths
 
 
@@ -635,6 +836,7 @@ class BroadcastHashJoinExec(PhysicalNode):
                                                    sort_merge_join)
 
         lbatch, rbatch = _one_lane(self.left.execute(), self.right.execute())
+        _annotate_lane(lbatch)
         if self.how in ("left_semi", "left_anti"):
             anti = self.how == "left_anti"
             idx = broadcast_membership(lbatch, rbatch, self.left_keys,
@@ -827,7 +1029,7 @@ def _hoist_union(plan: LogicalPlan) -> LogicalPlan:
 
 
 def _chain_has_bucketed_scan(node: PhysicalNode) -> bool:
-    while isinstance(node, (ProjectExec, FilterExec)):
+    while isinstance(node, (ProjectExec, FilterExec, ReusedExec)):
         node = node.child
     return isinstance(node, ScanExec) and node.scan.bucket_spec is not None
 
@@ -837,8 +1039,9 @@ def _bucketize_union_children(node: PhysicalNode, keys: List[str],
     """Descend a join side's Project/Filter chain; if it feeds a UnionExec
     (hybrid scan), wrap each child that does NOT ride a bucketed layout in
     an ExchangeExec over the join keys — the appended slice then arrives
-    co-partitioned with the index buckets. Idempotent."""
-    while isinstance(node, (ProjectExec, FilterExec)):
+    co-partitioned with the index buckets. Idempotent (a shared union may
+    be visited by both sides of a self-join)."""
+    while isinstance(node, (ProjectExec, FilterExec, ReusedExec)):
         node = node.child
     if not isinstance(node, UnionExec):
         return
@@ -921,8 +1124,9 @@ def _estimated_plan_bytes(plan: LogicalPlan,
                           required: Set[str]) -> Optional[int]:
     """Upper-bound decoded bytes of `plan`'s output restricted to
     `required`, from Parquet footer row counts (no data read). None when
-    the subtree's cardinality is not bounded by its scans (a join can
-    grow), so such a side never qualifies for broadcast. Mirrors what
+    the subtree's cardinality is not bounded by its scans (aggregates and
+    joins can shrink OR grow), so such a side never qualifies for
+    broadcast. Mirrors what
     Spark's `autoBroadcastJoinThreshold` keys on (leaf statistics
     propagated through Filter/Project)."""
     if isinstance(plan, Scan):
@@ -937,7 +1141,8 @@ def _estimated_plan_bytes(plan: LogicalPlan,
         width = sum(_DTYPE_WIDTH.get(f.dtype, 8) for f in plan.schema.fields
                     if f.name.lower() in lowered)
         return rows * max(width, 1)
-    if isinstance(plan, Filter):
+    if isinstance(plan, (Filter, Sort, Limit)):
+        # Row count bounded by the child's (Filter/Limit only shrink).
         return _estimated_plan_bytes(plan.child, required)
     if isinstance(plan, Project):
         # Map required OUTPUT names back through the projection to child
@@ -975,21 +1180,104 @@ def plan_physical(plan: LogicalPlan,
                   conf=None) -> PhysicalNode:
     """Logical -> physical with projection pushdown into scans. `conf`
     carries the session's lane thresholds, device and broadcast threshold
-    to the operators."""
+    to the operators. Identical logical subtrees (by fingerprint + required
+    columns) compile to ONE shared `ReusedExec`, so a repeated subquery
+    executes once."""
+    counts: dict = {}
+    keys: dict = {}
+
+    def _count(node):
+        key = _subtree_key(node, keys)
+        counts[key] = counts.get(key, 0) + 1
+        for c in node.children:
+            _count(c)
+
+    _count(plan)
+    return _plan_physical(plan, required, conf,
+                          {"counts": counts, "keys": keys, "built": {}})
+
+
+def _subtree_key(node: LogicalPlan, memo: dict) -> str:
+    """Bottom-up md5 fingerprint of a subtree: each node hashes its LOCAL
+    fields plus its children's fingerprints, so the whole walk is O(nodes)
+    instead of re-serializing every subtree per ancestor. Memoized by node
+    identity (nodes stay alive for the duration of planning)."""
+    import hashlib
+    import json
+
+    k = memo.get(id(node))
+    if k is not None:
+        return k
+    local = node.to_dict()
+    for field in ("child", "children", "left", "right"):
+        local.pop(field, None)
+    payload = (type(node).__name__ + json.dumps(local, sort_keys=True)
+               + "[" + ",".join(_subtree_key(c, memo)
+                                for c in node.children) + "]")
+    k = hashlib.md5(payload.encode()).hexdigest()
+    memo[id(node)] = k
+    return k
+
+
+def _is_prunable_chain(plan: LogicalPlan) -> bool:
+    """Project*/Scan chain over a bucketed scan with no Filter inside —
+    the shape `_apply_bucket_pruning` prunes FROM ABOVE. Sharing it would
+    either disable pruning or wrongly prune one consumer's rows with
+    another's condition, so such chains are never reused."""
+    node = plan
+    while isinstance(node, Project):
+        node = node.child
+    return isinstance(node, Scan) and node.bucket_spec is not None
+
+
+def _plan_physical(plan: LogicalPlan, required: Optional[Set[str]], conf,
+                   ctx) -> PhysicalNode:
     if required is None:
         required = set(plan.schema.names)
 
+    parent_count = ctx.get("parent_count", 1)
+    reuse_key = None
+    count = parent_count
+    if plan.children and not _is_prunable_chain(plan):
+        subtree = _subtree_key(plan, ctx["keys"])
+        count = ctx["counts"].get(subtree, 0)
+        # Only MAXIMAL shared subtrees get a ReusedExec: inside a shared
+        # subtree every descendant repeats as often as its ancestor, and
+        # the ancestor's memo already deduplicates the whole region. A
+        # descendant shared MORE widely than its ancestor (used elsewhere
+        # too) still gets its own wrapper. The enclosing share count scopes
+        # through ctx (saved/restored around the subtree build).
+        if count > parent_count:
+            reuse_key = (subtree, frozenset(r.lower() for r in required))
+            shared = ctx["built"].get(reuse_key)
+            if shared is not None:
+                return shared
+
+    ctx["parent_count"] = max(parent_count, count)
+    try:
+        built = _plan_physical_node(plan, required, conf, ctx)
+    finally:
+        ctx["parent_count"] = parent_count
+    if reuse_key is not None:
+        built = ReusedExec(built)
+        ctx["built"][reuse_key] = built
+    return built
+
+
+def _plan_physical_node(plan: LogicalPlan, required: Set[str], conf,
+                        ctx) -> PhysicalNode:
     if isinstance(plan, Scan):
         return ScanExec(plan, _required_for(plan, required), conf=conf)
 
     if isinstance(plan, Filter):
         child_required = set(required) | plan.condition.references()
         child = _apply_bucket_pruning(
-            plan.condition, plan_physical(plan.child, child_required, conf))
+            plan.condition,
+            _plan_physical(plan.child, child_required, conf, ctx))
         return FilterExec(plan.condition, child)
 
     if isinstance(plan, Project):
-        child = plan_physical(plan.child, plan.references(), conf)
+        child = _plan_physical(plan.child, plan.references(), conf, ctx)
         # Resolve names against the child schema but KEEP the declared
         # order; computed entries carry their expression.
         entries = []
@@ -1001,6 +1289,36 @@ def plan_physical(plan: LogicalPlan,
                 entries.append((c.name, c.child))
         return ProjectExec(entries, child)
 
+    if isinstance(plan, Aggregate):
+        child_required = set(plan.group_columns)
+        for a in plan.aggregates:
+            child_required |= a.references()
+        if not child_required:
+            # Bare count(*): a ColumnBatch carries its row count only
+            # through its columns, so read at least one.
+            child_required = {plan.child.schema.names[0]}
+        return AggregateExec(plan.group_columns, plan.aggregates,
+                             plan.schema,
+                             _plan_physical(plan.child, child_required,
+                                            conf, ctx))
+
+    if isinstance(plan, Sort):
+        child_required = (set(required)
+                          | {sort_direction(c)[0] for c in plan.columns})
+        return SortExec(plan.columns,
+                        _plan_physical(plan.child, child_required, conf,
+                                       ctx))
+
+    if isinstance(plan, Limit):
+        if isinstance(plan.child, Sort):
+            child_required = (set(required) | {sort_direction(c)[0]
+                                               for c in plan.child.columns})
+            return TopKExec(plan.n, plan.child.columns,
+                            _plan_physical(plan.child.child, child_required,
+                                           conf, ctx))
+        return LimitExec(plan.n,
+                         _plan_physical(plan.child, required, conf, ctx))
+
     if isinstance(plan, Union):
         # Children may expose different column orders for the same names
         # (index schema vs source schema): normalize through a Project.
@@ -1008,32 +1326,43 @@ def plan_physical(plan: LogicalPlan,
         return UnionExec([
             ProjectExec([(c.schema.field(n).name, c.schema.field(n).name)
                          for n in wanted],
-                        plan_physical(c, set(wanted), conf))
+                        _plan_physical(c, set(wanted), conf, ctx))
             for c in plan.children])
 
     if isinstance(plan, Join):
-        return _plan_join(plan, required, conf)
+        return _plan_join(plan, required, conf, ctx)
 
     raise HyperspaceException(
         f"{type(plan).__name__} is not executable in hyperspace_tpu_torch "
-        f"yet (this package runs Scan, Filter, Project and equi-joins); the "
-        f"operator is queued in ROADMAP.md's PyTorch port queue.")
+        f"yet; the operator is queued in ROADMAP.md's PyTorch port queue.")
 
 
-def _plan_join(plan: Join, required: Set[str], conf) -> PhysicalNode:
-    """The equi-join branch: the bucketed sort-merge join when both sides
-    ride compatible bucketed layouts (the coarser side re-bucketed through
-    an Exchange when the counts differ), a broadcast join when one side is
-    small, the general sort-merge join otherwise."""
+def _plan_join(plan: Join, required: Set[str], conf, ctx) -> PhysicalNode:
+    """The join branch: a cross product for a cross join; for an equi-join
+    the bucketed sort-merge join when both sides ride compatible bucketed
+    layouts (the coarser side re-bucketed through an Exchange when the
+    counts differ), a broadcast join when one side is small, the general
+    sort-merge join otherwise."""
     if plan.join_type == "cross":
-        raise HyperspaceException(
-            "Cross joins are not executable in hyperspace_tpu_torch yet; "
-            "they are queued in ROADMAP.md's PyTorch port queue (Queue 1).")
+        left_req, right_req = _split_join_required(
+            set(required), plan.left.schema, plan.right.schema)
+        # A side no output column resolves to must still read ONE column:
+        # a zero-column batch reports num_rows == 0 and would collapse the
+        # whole product (the floor the Aggregate branch applies for a bare
+        # count(*)).
+        if not left_req:
+            left_req = {plan.left.schema.names[0]}
+        if not right_req:
+            right_req = {plan.right.schema.names[0]}
+        return CrossJoinExec(_plan_physical(plan.left, left_req, conf, ctx),
+                             _plan_physical(plan.right, right_req, conf,
+                                            ctx))
     # Join-over-union distribution: (A UNION B) JOIN R executes as
     # (A JOIN R) UNION (B JOIN R) when the join type distributes over that
     # side. The hybrid-scan Union then keeps its index part on the
     # bucketed fast path while only the (small) appended part pays a
-    # general join. R is planned, and read, once per branch. Filter and
+    # general join. R's share count rises by the extra branches, so a
+    # non-prunable R plans as one ReusedExec and executes once. Filter and
     # Project distribute over Union, so the union is hoisted through them
     # first.
     left_h = _hoist_union(plan.left)
@@ -1041,14 +1370,18 @@ def _plan_join(plan: Join, required: Set[str], conf) -> PhysicalNode:
     if (isinstance(left_h, Union)
             and plan.join_type in ("inner", "left_outer", "left_semi",
                                    "left_anti")):
-        return plan_physical(
+        k = _subtree_key(plan.right, ctx["keys"])
+        ctx["counts"][k] = ctx["counts"].get(k, 0) + len(left_h.children) - 1
+        return _plan_physical_node(
             Union([Join(c, plan.right, plan.condition, plan.join_type)
-                   for c in left_h.children]), required, conf)
+                   for c in left_h.children]), required, conf, ctx)
     if (isinstance(right_h, Union)
             and plan.join_type in ("inner", "right_outer")):
-        return plan_physical(
+        k = _subtree_key(plan.left, ctx["keys"])
+        ctx["counts"][k] = ctx["counts"].get(k, 0) + len(right_h.children) - 1
+        return _plan_physical_node(
             Union([Join(plan.left, c, plan.condition, plan.join_type)
-                   for c in right_h.children]), required, conf)
+                   for c in right_h.children]), required, conf, ctx)
     left_keys, right_keys = _join_keys(plan.condition, plan.left.schema,
                                        plan.right.schema)
     membership = plan.join_type in ("left_semi", "left_anti")
@@ -1063,8 +1396,8 @@ def _plan_join(plan: Join, required: Set[str], conf) -> PhysicalNode:
         left_required, right_required = _split_join_required(
             set(required), plan.left.schema, plan.right.schema,
             left_keys, right_keys)
-    left_phys = plan_physical(plan.left, left_required, conf)
-    right_phys = plan_physical(plan.right, right_required, conf)
+    left_phys = _plan_physical(plan.left, left_required, conf, ctx)
+    right_phys = _plan_physical(plan.right, right_required, conf, ctx)
     lspec = _underlying_bucket_spec(plan.left)
     rspec = _underlying_bucket_spec(plan.right)
 

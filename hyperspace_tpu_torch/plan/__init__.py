@@ -5,7 +5,8 @@ from hyperspace_tpu_torch.plan.expr import (
     NotEqualTo, Or, Sub,
 )
 from hyperspace_tpu_torch.plan.nodes import (
-    BucketSpec, Filter, Join, LogicalPlan, Project, Scan, Union,
+    Aggregate, AggSpec, BucketSpec, Filter, Join, Limit, LogicalPlan,
+    Project, Scan, Sort, Union,
 )
 
 __all__ = [
@@ -13,6 +14,6 @@ __all__ = [
     "Add", "And", "Column", "Div", "EqualTo", "Expression", "GreaterThan",
     "GreaterThanOrEqual", "In", "IsNotNull", "IsNull", "LessThan",
     "LessThanOrEqual", "Literal", "Mul", "Not", "NotEqualTo", "Or", "Sub",
-    "BucketSpec", "Filter", "Join", "LogicalPlan", "Project", "Scan",
-    "Union",
+    "Aggregate", "AggSpec", "BucketSpec", "Filter", "Join", "Limit",
+    "LogicalPlan", "Project", "Scan", "Sort", "Union",
 ]

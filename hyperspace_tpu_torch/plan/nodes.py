@@ -2,10 +2,10 @@
 
 The reference matches/rewrites Catalyst trees
 (`Project(Filter(LogicalRelation))`); this package owns the node set the
-filter and join paths and hybrid scan need: Scan (= LogicalRelation over
-lake files), Filter, Project, Join and Union. The JAX package's other
-nodes (Aggregate, Sort, ...) come with the engine slices that execute them
-(ROADMAP.md).
+filter and join paths, hybrid scan and the analytic operators need: Scan
+(= LogicalRelation over lake files), Filter, Project, Join, Union,
+Aggregate, Sort and Limit. The JAX package's Window and set-operation
+nodes come with the engine slice that executes them (ROADMAP.md).
 Nodes are immutable, JSON-serializable (see
 `plan/serde.py`), and carry enough metadata (root paths, bucket spec) for the
 rewrite rules to swap base-table scans for index scans exactly as the
@@ -295,13 +295,184 @@ class Project(LogicalPlan):
         return f"Project [{', '.join(parts)}]"
 
 
+_AGG_FUNCS = ("sum", "count", "min", "max", "avg", "stddev",
+              "count_distinct")
+
+
+@dataclass(frozen=True)
+class AggSpec:
+    """One aggregation: func over an input (a column name, "*" for
+    count(*), or a value Expression — e.g. sum(x * y))."""
+
+    func: str
+    column: object  # str | Expression
+    alias: str
+
+    def __post_init__(self):
+        if self.func not in _AGG_FUNCS:
+            raise HyperspaceException(f"Unsupported aggregate: {self.func}")
+
+    @property
+    def is_expression(self) -> bool:
+        return isinstance(self.column, Expression)
+
+    def references(self) -> set:
+        if self.is_expression:
+            return self.column.references()
+        return set() if self.column == "*" else {self.column}
+
+    def input_dtype(self, child_schema) -> str:
+        from hyperspace_tpu_torch.plan.expr import infer_dtype
+        if self.is_expression:
+            return infer_dtype(self.column, child_schema)
+        return child_schema.field(self.column).dtype
+
+    def to_dict(self) -> dict:
+        column = (self.column.to_dict() if self.is_expression
+                  else self.column)
+        return {"func": self.func, "column": column, "alias": self.alias}
+
+    @staticmethod
+    def from_dict(d: dict) -> "AggSpec":
+        column = d["column"]
+        if isinstance(column, dict):
+            column = Expression.from_dict(column)
+        return AggSpec(d["func"], column, d["alias"])
+
+
+class Aggregate(LogicalPlan):
+    """Group-by aggregation (sum/count/min/max/avg/stddev/count_distinct).
+    The reference delegates aggregation to Spark SQL; this engine executes
+    it as sorted-segment reductions (`ops/aggregate.py`). Group columns
+    with no aggregates = DISTINCT over those columns."""
+
+    def __init__(self, group_columns: Sequence[str],
+                 aggregates: Sequence[AggSpec], child: LogicalPlan):
+        self.group_columns = list(group_columns)
+        self.aggregates = list(aggregates)
+        if not self.aggregates and not self.group_columns:
+            raise HyperspaceException(
+                "Aggregate requires group columns or at least one "
+                "aggregation expression.")
+        self.child = child
+
+    @property
+    def children(self) -> List[LogicalPlan]:
+        return [self.child]
+
+    @cached_property
+    def schema(self) -> Schema:
+        from hyperspace_tpu_torch.plan.schema import Field
+        fields = [self.child.schema.field(c) for c in self.group_columns]
+        for spec in self.aggregates:
+            if spec.func in ("count", "count_distinct"):
+                dtype = "int64"
+            elif spec.func in ("avg", "stddev"):
+                dtype = "float64"
+            elif spec.func == "sum":
+                src = spec.input_dtype(self.child.schema)
+                dtype = ("float64" if src in ("float32", "float64")
+                         else "int64")
+            else:  # min/max keep the input type
+                dtype = spec.input_dtype(self.child.schema)
+            fields.append(Field(spec.alias, dtype, True))
+        return Schema(fields)
+
+    def with_children(self, children):
+        (child,) = children
+        return Aggregate(self.group_columns, self.aggregates, child)
+
+    def to_dict(self) -> dict:
+        return {"node": "aggregate", "groupBy": list(self.group_columns),
+                "aggregates": [a.to_dict() for a in self.aggregates],
+                "child": self.child.to_dict()}
+
+    def simple_string(self) -> str:
+        aggs = ", ".join(f"{a.func}({a.column}) AS {a.alias}"
+                         for a in self.aggregates)
+        return f"Aggregate [{', '.join(self.group_columns)}] [{aggs}]"
+
+
+def sort_direction(column: str):
+    """Parse a sort spec: "name" -> (name, False); "-name" -> (name, True)
+    (descending). Descending follows Spark's default null placement:
+    ascending is nulls-first, descending is nulls-last."""
+    if column.startswith("-"):
+        return column[1:], True
+    return column, False
+
+
+class Sort(LogicalPlan):
+    """ORDER BY. Plain column names sort ascending (nulls first); a
+    leading "-" sorts that column descending (nulls last)."""
+
+    def __init__(self, columns: Sequence[str], child: LogicalPlan):
+        self.columns = list(columns)
+        self.child = child
+        for spec in self.columns:
+            name, desc = sort_direction(spec)
+            if desc and child.schema.contains(spec):
+                # A column literally named "-x" would silently alias
+                # column "x" descending; fail loudly instead.
+                raise HyperspaceException(
+                    f"Ambiguous sort spec {spec!r}: a column with that "
+                    "literal name exists; rename it to sort by it.")
+
+    @property
+    def children(self) -> List[LogicalPlan]:
+        return [self.child]
+
+    @property
+    def schema(self) -> Schema:
+        return self.child.schema
+
+    def with_children(self, children):
+        (child,) = children
+        return Sort(self.columns, child)
+
+    def to_dict(self) -> dict:
+        return {"node": "sort", "columns": list(self.columns),
+                "child": self.child.to_dict()}
+
+    def simple_string(self) -> str:
+        parts = [f"{name} DESC" if desc else name
+                 for name, desc in map(sort_direction, self.columns)]
+        return f"Sort [{', '.join(parts)}]"
+
+
+class Limit(LogicalPlan):
+    def __init__(self, n: int, child: LogicalPlan):
+        if n < 0:
+            raise HyperspaceException("Limit must be non-negative.")
+        self.n = n
+        self.child = child
+
+    @property
+    def children(self) -> List[LogicalPlan]:
+        return [self.child]
+
+    @property
+    def schema(self) -> Schema:
+        return self.child.schema
+
+    def with_children(self, children):
+        (child,) = children
+        return Limit(self.n, child)
+
+    def to_dict(self) -> dict:
+        return {"node": "limit", "n": self.n, "child": self.child.to_dict()}
+
+    def simple_string(self) -> str:
+        return f"Limit {self.n}"
+
+
 _JOIN_TYPES = ("inner", "left_outer", "right_outer", "full_outer",
                "left_semi", "left_anti", "cross")
 
 
 class Join(LogicalPlan):
-    """Equi-join (or a cross join, which the planner does not execute yet).
-    The rewrite rule (`plan/rules/join_index.py`) swaps both sides' scans
+    """Equi-join, or a cross join (no condition). The rewrite rule
+    (`plan/rules/join_index.py`) swaps both sides' scans
     for bucketed index scans; the planner then elides the Exchange."""
 
     def __init__(self, left: LogicalPlan, right: LogicalPlan,

@@ -33,8 +33,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from hyperspace_tpu_torch import telemetry
 from hyperspace_tpu_torch.index.log_entry import IndexLogEntry
 from hyperspace_tpu_torch.plan import expr as E
-from hyperspace_tpu_torch.plan.nodes import (Filter, Join, LogicalPlan,
-                                             Project, Scan, Union)
+from hyperspace_tpu_torch.plan.nodes import (Aggregate, Filter, Join,
+                                             Limit, LogicalPlan, Project,
+                                             Scan, Sort, Union,
+                                             sort_direction)
 from hyperspace_tpu_torch.plan.rules.base import Rule
 from hyperspace_tpu_torch.plan.rules.ranker import JoinIndexRanker
 
@@ -194,7 +196,7 @@ class JoinIndexRule(Rule):
         """BASE-relation columns the side needs (reference `:446-457`): the
         output resolved top-down through projections — computed entries
         contribute their references, not their alias names — plus every
-        filter reference along the chain."""
+        filter/sort/aggregate reference along the chain."""
 
         def walk(node: LogicalPlan, required: set) -> set:
             if isinstance(node, Scan):
@@ -204,6 +206,16 @@ class JoinIndexRule(Rule):
                             set(required) | node.condition.references())
             if isinstance(node, Project):
                 return walk(node.child, node.references())
+            if isinstance(node, Aggregate):
+                req = set(node.group_columns)
+                for a in node.aggregates:
+                    req |= a.references()
+                return walk(node.child, req)
+            if isinstance(node, Sort):
+                return walk(node.child, set(required)
+                            | {sort_direction(c)[0] for c in node.columns})
+            if isinstance(node, Limit):
+                return walk(node.child, required)
             out = {r.lower() for r in required}
             for c in node.children:
                 out |= walk(c, set(c.schema.names))

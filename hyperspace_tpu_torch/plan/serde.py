@@ -16,8 +16,9 @@ import json
 
 from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.plan.expr import Expression
-from hyperspace_tpu_torch.plan.nodes import (BucketSpec, Filter, Join,
-                                             LogicalPlan, Project, Scan,
+from hyperspace_tpu_torch.plan.nodes import (Aggregate, AggSpec,
+                                             BucketSpec, Filter, Join, Limit,
+                                             LogicalPlan, Project, Scan, Sort,
                                              Union)
 from hyperspace_tpu_torch.plan.schema import Field, Schema
 
@@ -50,6 +51,14 @@ def plan_from_dict(d: dict) -> LogicalPlan:
                     d.get("type", "inner"))
     if node == "union":
         return Union([plan_from_dict(c) for c in d["children"]])
+    if node == "aggregate":
+        return Aggregate(d["groupBy"],
+                         [AggSpec.from_dict(a) for a in d["aggregates"]],
+                         plan_from_dict(d["child"]))
+    if node == "sort":
+        return Sort(d["columns"], plan_from_dict(d["child"]))
+    if node == "limit":
+        return Limit(d["n"], plan_from_dict(d["child"]))
     raise HyperspaceException(f"Unknown plan node kind: {node}")
 
 

@@ -59,6 +59,11 @@ def _predicates(E):
         "like": c("t").like("v1%"),
         "arith": (c("i") * lit(2) + c("j")) > lit(20),
         "division": (c("f") / c("j")) > lit(0.25),
+        # 25j * 0.2 equals 5j in float64; a float literal rounded to
+        # float32 first makes it larger (TPC-H q17's `avg * 0.2`)
+        "float_literal": (c("j") * lit(5)) < (c("j") * lit(25) * lit(0.2)),
+        # int64 values past 2^24 against a float literal: equal in float32
+        "int_vs_float_literal": (c("i") + lit(16777217)) > lit(16777216.5),
         "literal_left": lit(5) > c("j"),
         "bool_literal": lit(True),
     }

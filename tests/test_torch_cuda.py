@@ -286,3 +286,93 @@ def test_card_hybrid_left_outer_join_equals_cpu(card, tmp_path):
                                       for c in table.column_names])
     assert rows["cuda"].num_rows >= n // 2
     assert rows["cuda"].equals(rows["cpu"])
+
+
+def _analytic_table(n):
+    rng = np.random.default_rng([17, n])
+    null = rng.random(n) < 0.1
+    return pa.table({
+        "id": np.arange(n, dtype=np.int64),
+        "g": rng.integers(0, 50, n).astype(np.int64),
+        "s": pa.array([f"w{i}" for i in rng.integers(0, 40, n)],
+                      mask=rng.random(n) < 0.05),
+        "d": rng.integers(8000, 10000, n).astype(np.int32),
+        "x": rng.standard_normal(n) * 1e4,
+        "nx": pa.array(rng.standard_normal(n), mask=null),
+        "q": pa.array(rng.integers(1, 50, n).astype(np.int64), mask=null)})
+
+
+@pytest.mark.parametrize("group", [[], ["g"], ["s", "d"],
+                                   ["g", "s", "d", "q"]],
+                         ids=lambda g: "+".join(g) or "global")
+def test_card_group_aggregate_equals_cpu(card, group):
+    """Every function on the card against the same call on the CPU: group
+    keys, counts and integers exactly, float64 within rtol=1e-9 (the
+    segment sums add in another order on each device)."""
+    from hyperspace_tpu_torch.ops.aggregate import group_aggregate
+    from hyperspace_tpu_torch.plan.nodes import Aggregate, AggSpec
+
+    table = _analytic_table(200_000)
+    specs = [AggSpec("count", "*", "n"), AggSpec("count", "q", "nq"),
+             AggSpec("count_distinct", "s", "ds"),
+             AggSpec("sum", "x", "sx"), AggSpec("sum", "q", "sq"),
+             AggSpec("avg", "nx", "ax"), AggSpec("stddev", "x", "sdx"),
+             AggSpec("min", "d", "mind"), AggSpec("max", "nx", "maxx")]
+    out = {}
+    for device in (card, torch.device("cpu")):
+        batch = columnar.from_arrow(table, device=device)
+
+        class _Child:
+            schema = batch.schema
+        schema = Aggregate(group, specs, _Child()).schema
+        got = group_aggregate(batch, group, specs, schema)
+        assert got.device.type == device.type
+        out[device.type] = columnar.to_arrow(got)
+    gpu, cpu = out["cuda"], out["cpu"]
+    assert gpu.num_rows == cpu.num_rows > 0
+    for name in cpu.column_names:
+        if pa.types.is_floating(cpu.schema.field(name).type):
+            g = gpu.column(name).to_numpy(zero_copy_only=False)
+            c = cpu.column(name).to_numpy(zero_copy_only=False)
+            assert np.allclose(g, c, rtol=1e-9, atol=0, equal_nan=True), name
+        else:
+            assert gpu.column(name).equals(cpu.column(name)), name
+
+
+def test_card_float_sum_repeats_bit_for_bit(card):
+    """The same float64 sum on the same data gives the same bits twice."""
+    from hyperspace_tpu_torch.ops.aggregate import group_aggregate
+    from hyperspace_tpu_torch.plan.nodes import Aggregate, AggSpec
+
+    batch = columnar.from_arrow(_analytic_table(1 << 20), device=card)
+
+    class _Child:
+        schema = batch.schema
+    for group in ([], ["g"]):
+        specs = [AggSpec("sum", "x", "sx"), AggSpec("avg", "nx", "ax")]
+        schema = Aggregate(group, specs, _Child()).schema
+        runs = [columnar.to_arrow(group_aggregate(batch, group, specs,
+                                                  schema))
+                for _ in range(2)]
+        assert runs[0].equals(runs[1])
+
+
+@pytest.mark.parametrize("keys", [["g", "-x"], ["-s", "d", "id"],
+                                  ["-q", "nx"]])
+def test_card_sort_and_topk_equal_cpu(card, keys):
+    """`sort_batch` and `topk_batch` on the card against the CPU: the same
+    rows in the same order; the threshold top-k comes back on the host."""
+    from hyperspace_tpu_torch.ops.sort import sort_batch, topk_batch
+
+    table = _analytic_table(300_000)
+    gpu_in = columnar.from_arrow(table, device=card)
+    cpu_in = columnar.from_arrow(table, device=torch.device("cpu"))
+    gpu = sort_batch(gpu_in, keys)
+    assert gpu.device.type == "cuda"
+    assert columnar.to_arrow(gpu).equals(
+        columnar.to_arrow(sort_batch(cpu_in, keys)))
+    for k in (1, 100, 5000):
+        got = topk_batch(gpu_in, keys, k)
+        assert got.is_host
+        assert columnar.to_arrow(got).equals(
+            columnar.to_arrow(topk_batch(cpu_in, keys, k)))
