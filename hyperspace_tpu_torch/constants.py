@@ -100,6 +100,17 @@ LATEST_STABLE_LOG = "latestStable"
 # The leading underscore keeps it out of every parquet file listing.
 INDEX_DATA_COMMIT_MARKER = "_committed"
 
+# Explain display mode (reference `index/IndexConstants.scala:42-49`).
+DISPLAY_MODE = "spark.hyperspace.explain.displayMode"
+HIGHLIGHT_BEGIN_TAG = "spark.hyperspace.explain.displayMode.highlight.beginTag"
+HIGHLIGHT_END_TAG = "spark.hyperspace.explain.displayMode.highlight.endTag"
+
+
+class DisplayModeNames:
+    CONSOLE = "console"
+    PLAIN_TEXT = "plaintext"
+    HTML = "html"
+
 
 class States:
     """Index lifecycle states (reference `actions/Constants.scala:20-30`)."""

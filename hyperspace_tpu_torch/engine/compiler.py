@@ -168,6 +168,10 @@ class ExpressionCompiler:
             arr = xp.cast(v, "float64")
             floored = np.floor(arr) if xp.host else torch.floor(arr)
             return xp.cast(floored, "int64"), valid
+        if isinstance(e, E.ScalarSubquery):
+            # Resolved by the executor's subquery phase; compiles as the
+            # value it produced (NULL for an empty subquery).
+            return self.value(e.literal())
         raise HyperspaceException(f"Unsupported value expression: {e!r}")
 
     def _case_when(self, e: "E.CaseWhen"):
@@ -404,6 +408,14 @@ class ExpressionCompiler:
         return mask, (ak_ & bk_) | mask
 
     def _comparison(self, e):
+        # Resolved scalar subqueries compare as the literal they produced
+        # (so the string code-space fast path still applies).
+        left = (e.left.literal() if isinstance(e.left, E.ScalarSubquery)
+                else e.left)
+        right = (e.right.literal() if isinstance(e.right, E.ScalarSubquery)
+                 else e.right)
+        if left is not e.left or right is not e.right:
+            e = type(e)(left, right)
         op = type(e).op
         ls = (None if isinstance(e.left, E.Literal)
               else self.string_column(e.left))

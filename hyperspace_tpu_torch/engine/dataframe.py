@@ -2,10 +2,9 @@
 
 The equivalent of the Spark DataFrame surface the reference operates on:
 `filter`/`select`/`with_column`/`join`/`sort`/`limit`/`group_by`/`agg`/
-`distinct` are lazy plan builders; `collect`/`to_pandas`/`count` run the
-optimizer (rewrite rules, when enabled) and execute. Windows, set
-operations and scalar subqueries of the JAX package come with the engine
-slice that executes them (ROADMAP.md).
+`distinct`/`window`/`union`/`intersect`/`except_` are lazy plan builders
+and `as_scalar` makes a query a scalar subquery; `collect`/`to_pandas`/
+`count` run the optimizer (rewrite rules, when enabled) and execute.
 """
 
 from __future__ import annotations
@@ -113,6 +112,20 @@ class DataFrame:
     def group_by(self, *columns: str) -> "GroupedData":
         return GroupedData(self, list(columns))
 
+    def window(self, partition_by: Sequence[str],
+               order_by: Optional[Sequence[str]] = None,
+               **specs) -> "DataFrame":
+        """Append window columns over partitions:
+        `df.window(["k"], order_by=["-total"], rk=("rank", "*"),
+        part_avg=("avg", "total"))`. Functions: rank, dense_rank,
+        row_number (ORDER BY required; column "*"), and partition-wide
+        sum/avg/min/max/count."""
+        from hyperspace_tpu_torch.plan.nodes import Window
+        parsed = [AggSpec(func, column, alias)
+                  for alias, (func, column) in specs.items()]
+        return DataFrame(Window(list(partition_by), list(order_by or []),
+                                parsed, self.plan), self.session)
+
     def distinct(self) -> "DataFrame":
         """SELECT DISTINCT: deduplicate rows (an aggregation over all
         columns with no aggregate outputs)."""
@@ -120,6 +133,38 @@ class DataFrame:
                          self.session)
 
     drop_duplicates = distinct
+
+    def union(self, other: "DataFrame") -> "DataFrame":
+        """UNION ALL (SQL): row-wise concatenation; column names must
+        align. DISTINCT union = .union(o).distinct()."""
+        from hyperspace_tpu_torch.plan.nodes import Union as UnionNode
+        return DataFrame(UnionNode([self.plan, other.plan]), self.session)
+
+    union_all = union
+
+    def intersect(self, other: "DataFrame") -> "DataFrame":
+        """SQL INTERSECT (DISTINCT set semantics; NULL rows compare
+        equal, unlike joins)."""
+        from hyperspace_tpu_torch.plan.nodes import Intersect
+        return DataFrame(Intersect(self.plan, other.plan), self.session)
+
+    def except_(self, other: "DataFrame") -> "DataFrame":
+        """SQL EXCEPT (DISTINCT set semantics)."""
+        from hyperspace_tpu_torch.plan.nodes import Except
+        return DataFrame(Except(self.plan, other.plan), self.session)
+
+    def create_or_replace_temp_view(self, name: str) -> None:
+        """Register this query as a named temp view on the session
+        (Spark `createOrReplaceTempView` parity)."""
+        if self.session is None:
+            raise HyperspaceException("DataFrame has no session.")
+        self.session.create_or_replace_temp_view(name, self)
+
+    def as_scalar(self) -> E.Expression:
+        """This (one-column, at-most-one-row) query as a scalar value
+        expression — SQL's scalar subquery: `col("x") >
+        df.agg(("avg","x","a")).as_scalar()`."""
+        return E.ScalarSubquery(self.plan)
 
     def agg(self, *specs, **named) -> "DataFrame":
         """Global aggregation (no grouping); see GroupedData.agg."""
@@ -176,6 +221,15 @@ class DataFrame:
 
     def count(self) -> int:
         return self.collect().num_rows
+
+    def explain_plans(self):
+        """(logical, optimized, physical) — used by plananalysis. The
+        physical plan is the operator tree explain displays (the
+        Exchange/Sort elision diff)."""
+        from hyperspace_tpu_torch.engine.executor import compile_plan
+        optimized = self._optimized_plan()
+        return self.plan, optimized, compile_plan(optimized,
+                                                  conf=self._conf())
 
     def __repr__(self):
         return f"DataFrame[{', '.join(self.schema.names)}]"

@@ -11,9 +11,9 @@ pruning of equality literals over an index's bucketed layout; small join
 sides broadcast (`BroadcastHashJoinExec`). Union runs hybrid scan (index
 data UNION appended files), and a join over a Union distributes over it
 where the join type allows. Aggregate, Sort, Limit (TopK over a Sort) and
-cross joins run the analytic operators; identical subtrees plan as one
-shared `ReusedExec`. Window and set operations are queued in ROADMAP.md
-(the PyTorch port's queue) and raise a typed HyperspaceException.
+cross joins run the analytic operators, Window the window functions and
+Intersect/Except the set operations; identical subtrees plan as one
+shared `ReusedExec`.
 """
 
 from __future__ import annotations
@@ -28,9 +28,10 @@ from hyperspace_tpu_torch import telemetry
 from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.io import columnar, parquet
 from hyperspace_tpu_torch.plan import expr as E
-from hyperspace_tpu_torch.plan.nodes import (Aggregate, BucketSpec, Filter,
-                                             Join, Limit, LogicalPlan,
-                                             Project, Scan, Sort, Union,
+from hyperspace_tpu_torch.plan.nodes import (Aggregate, BucketSpec, Except,
+                                             Filter, Join, Limit,
+                                             LogicalPlan, Project, Scan,
+                                             SetOp, Sort, Union, Window,
                                              sort_direction)
 from hyperspace_tpu_torch.plan.schema import Schema
 
@@ -485,6 +486,38 @@ def _annotate_lane(batch: columnar.ColumnBatch) -> None:
     telemetry.annotate(lane="host" if batch.is_host else "device")
 
 
+class WindowExec(PhysicalNode):
+    """Window functions (`ops/window.window_compute`): one column per spec
+    appended to the child's rows, in the child's row order, on the lane
+    the child's batch is on."""
+
+    name = "Window"
+
+    def __init__(self, partition_by, order_by, specs, out_schema: Schema,
+                 child: PhysicalNode):
+        self.partition_by = list(partition_by)
+        self.order_by = list(order_by)
+        self.specs = list(specs)
+        self.out_schema = out_schema
+        self.child = child
+
+    @property
+    def children(self):
+        return [self.child]
+
+    def simple_string(self) -> str:
+        parts = [f"{s.func}({s.column}) AS {s.alias}" for s in self.specs]
+        return (f"Window [{', '.join(parts)}] PARTITION BY "
+                f"[{', '.join(self.partition_by)}]")
+
+    def execute(self) -> columnar.ColumnBatch:
+        from hyperspace_tpu_torch.ops.window import window_compute
+        batch = self.child.execute()
+        _annotate_lane(batch)
+        return window_compute(batch, self.partition_by, self.order_by,
+                              self.specs, self.out_schema)
+
+
 class SortExec(PhysicalNode):
     """ORDER BY `keys` ("-name" descending; ascending nulls first,
     descending nulls last), stable (`ops/sort.sort_batch`). It is also the
@@ -922,6 +955,39 @@ class UnionExec(PhysicalNode):
                 total_lengths)
 
 
+class SetOpExec(PhysicalNode):
+    """INTERSECT / EXCEPT (DISTINCT set semantics, NULL == NULL — see
+    `ops/setops.py`). Output rows come from the left side in
+    first-occurrence order; columns align across sides by name. A host
+    side meeting a device side runs on the device."""
+
+    def __init__(self, left: PhysicalNode, right: PhysicalNode,
+                 names: Sequence[str], anti: bool):
+        self.left = left
+        self.right = right
+        self.names = list(names)
+        self.anti = anti
+        self.name = "Except" if anti else "Intersect"
+
+    @property
+    def children(self):
+        return [self.left, self.right]
+
+    def simple_string(self) -> str:
+        return f"{self.name} [{', '.join(self.names)}]"
+
+    def execute(self) -> columnar.ColumnBatch:
+        from hyperspace_tpu_torch.ops.setops import set_op_indices
+        lbatch = self.left.execute()
+        rbatch = self.right.execute()
+        host = lbatch.is_host and rbatch.is_host
+        telemetry.annotate(lane="host" if host else "device")
+        idx = set_op_indices(lbatch, rbatch, self.names, self.anti)
+        if lbatch.is_host and not host:
+            lbatch = columnar.host_batch_to_device(lbatch, rbatch.device)
+        return lbatch.select(self.names).take(idx)
+
+
 # ---------------------------------------------------------------------------
 # Planner
 # ---------------------------------------------------------------------------
@@ -1302,6 +1368,27 @@ def _plan_physical_node(plan: LogicalPlan, required: Set[str], conf,
                              _plan_physical(plan.child, child_required,
                                             conf, ctx))
 
+    if isinstance(plan, Window):
+        aliases = {s.alias.lower() for s in plan.specs}
+        child_required = ({n for n in required if n.lower() not in aliases
+                           and plan.child.schema.contains(n)}
+                          | set(plan.partition_by)
+                          | {sort_direction(c)[0] for c in plan.order_by})
+        for s in plan.specs:
+            child_required |= s.references()
+        if not child_required:
+            child_required = {plan.child.schema.names[0]}
+        # Output schema restricted to what survives pruning: child columns
+        # actually read + every window column.
+        child_phys = _plan_physical(plan.child, child_required, conf, ctx)
+        kept = {n.lower() for n in child_required}
+        fields = [f for f in plan.child.schema.fields
+                  if f.name.lower() in kept]
+        out_schema = Schema(fields + [plan.schema.field(s.alias)
+                                      for s in plan.specs])
+        return WindowExec(plan.partition_by, plan.order_by, plan.specs,
+                          out_schema, child_phys)
+
     if isinstance(plan, Sort):
         child_required = (set(required)
                           | {sort_direction(c)[0] for c in plan.columns})
@@ -1329,12 +1416,20 @@ def _plan_physical_node(plan: LogicalPlan, required: Set[str], conf,
                         _plan_physical(c, set(wanted), conf, ctx))
             for c in plan.children])
 
+    if isinstance(plan, SetOp):
+        # Set-op identity is over FULL rows of the node schema: children
+        # must produce every column regardless of what the parent needs.
+        names = [f.name for f in plan.left.schema.fields]
+        left_phys = _plan_physical(plan.left, set(names), conf, ctx)
+        right_phys = _plan_physical(
+            plan.right, set(plan.right.schema.names), conf, ctx)
+        return SetOpExec(left_phys, right_phys, names,
+                         anti=isinstance(plan, Except))
+
     if isinstance(plan, Join):
         return _plan_join(plan, required, conf, ctx)
 
-    raise HyperspaceException(
-        f"{type(plan).__name__} is not executable in hyperspace_tpu_torch "
-        f"yet; the operator is queued in ROADMAP.md's PyTorch port queue.")
+    raise HyperspaceException(f"Cannot plan node: {plan!r}")
 
 
 def _plan_join(plan: Join, required: Set[str], conf, ctx) -> PhysicalNode:

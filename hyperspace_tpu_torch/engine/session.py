@@ -36,6 +36,7 @@ class HyperspaceSession:
         self._rules: List = []
         self._hyperspace_enabled = False
         self._last_query_metrics = None
+        self._views: dict = {}
 
     def last_query_metrics(self):
         """`telemetry.QueryMetrics` of the most recent query collected
@@ -82,6 +83,47 @@ class HyperspaceSession:
             schema = Schema.from_arrow(pq.read_schema(probe))
         return DataFrame(Scan(list(paths), schema), self)
 
+    def create_dataframe(self, table):
+        """Arrow table / pandas DataFrame -> DataFrame backed by a temp
+        parquet spill (all scans are file-backed, like the reference's
+        relations)."""
+        import tempfile
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+        if not isinstance(table, pa.Table):
+            table = pa.Table.from_pandas(table, preserve_index=False)
+        tmpdir = tempfile.mkdtemp(prefix="hyperspace_df_")
+        pq.write_table(table, os.path.join(tmpdir, "part-0.parquet"))
+        return self.read_parquet(tmpdir)
+
+    # -- named sources (temp views) ---------------------------------------
+    #
+    # Spark temp-view parity (the reference's E2E suite covers view-served
+    # index queries, `E2EHyperspaceRulesTests` view cases): a view is a
+    # NAME bound to a logical plan, expanded at `table()` time — so the
+    # rewrite rules see the underlying relations and index signatures
+    # match exactly as for a directly-built DataFrame, and serialized
+    # plans (log entries) capture the expansion, never the name.
+
+    def create_or_replace_temp_view(self, name: str, df) -> None:
+        self._views[name.lower()] = df.plan
+
+    def create_temp_view(self, name: str, df) -> None:
+        if name.lower() in self._views:
+            raise HyperspaceException(f"Temp view already exists: {name}")
+        self._views[name.lower()] = df.plan
+
+    def table(self, name: str):
+        """DataFrame over a registered temp view (expanded plan)."""
+        from hyperspace_tpu_torch.engine.dataframe import DataFrame
+        plan = self._views.get(name.lower())
+        if plan is None:
+            raise HyperspaceException(f"Unknown table or view: {name}")
+        return DataFrame(plan, self)
+
+    def drop_temp_view(self, name: str) -> bool:
+        return self._views.pop(name.lower(), None) is not None
+
     # -- optimizer plumbing ----------------------------------------------
 
     def enable_hyperspace(self) -> "HyperspaceSession":
@@ -103,7 +145,21 @@ class HyperspaceSession:
         self._hyperspace_enabled = False
         return self
 
+    @property
+    def is_hyperspace_enabled(self) -> bool:
+        return self._hyperspace_enabled
+
     def optimize(self, plan: LogicalPlan) -> LogicalPlan:
         for rule in self._rules:
             plan = rule.apply(plan)
+        # Scalar subqueries embedded in expressions carry their own
+        # plans; the rules rewrite those too (Spark applies the optimizer
+        # to subquery plans the same way). The rewrite lands in a
+        # side-slot (`_opt_plan`), refreshed EVERY optimize — including
+        # rules-off, which restores the plain plan — so the original
+        # expression the user holds is never mutated.
+        from hyperspace_tpu_torch.engine.executor import _scalar_subqueries
+        for sub in _scalar_subqueries(plan):
+            sub._opt_plan = (self.optimize(sub.plan) if self._rules
+                             else None)
         return plan

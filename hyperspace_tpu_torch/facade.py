@@ -5,7 +5,7 @@ the index collection manager and the `indexes` catalog view, plus the
 session-keyed context holding a CachingIndexCollectionManager
 (`Hyperspace.scala:107-133`). This package carries create, refresh
 (full and incremental), optimize, delete, restore, vacuum, cancel and
-recover; `explain` is queued in ROADMAP.md.
+recover, and `explain` (the plan diff with rules on vs off).
 """
 
 from __future__ import annotations
@@ -105,3 +105,16 @@ class Hyperspace:
         action reports, counters)."""
         from hyperspace_tpu_torch import telemetry
         return telemetry.get_registry()
+
+    def explain(self, df, verbose: bool = False, redirect=None,
+                metrics=None) -> None:
+        """Plan diff with rules on vs off (reference
+        `Hyperspace.scala:101-104`). Pass `metrics` (a
+        `telemetry.QueryMetrics`, e.g. `session.last_query_metrics()`)
+        to append the runtime numbers of an actual execution under the
+        diff — plan change and cost in one view."""
+        from hyperspace_tpu_torch.plananalysis.analyzer import PlanAnalyzer
+        out = PlanAnalyzer.explain_string(df, self.session,
+                                          self._manager.indexes(), verbose,
+                                          metrics=metrics)
+        (redirect or print)(out)

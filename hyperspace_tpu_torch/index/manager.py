@@ -64,6 +64,28 @@ class IndexSummary:
         }
 
 
+def summaries_for_roots(index_summaries: Sequence[IndexSummary],
+                        roots: Sequence[str]) -> List[IndexSummary]:
+    """Catalog entries whose data location matches any of the scan
+    `roots` (scan equality is root-path containment, the reference's
+    `PlanAnalyzer.scala:209-221` convention). Used by the explain "Indexes
+    used" section."""
+    import os
+
+    def contains(parent: str, child: str) -> bool:
+        parent = os.path.normpath(parent)
+        child = os.path.normpath(child)
+        return child == parent or child.startswith(parent + os.sep)
+
+    used = []
+    for summary in index_summaries:
+        if any(contains(summary.index_location, root)
+               or contains(root, summary.index_location)
+               for root in roots):
+            used.append(summary)
+    return used
+
+
 def _pretty_plan(entry: IndexLogEntry) -> str:
     """Pretty string of the LOGGED source plan (reference stores
     `df.queryExecution.optimizedPlan.toString`,

@@ -508,6 +508,78 @@ class Floor(Expression):
         return f"floor({self.child!r})"
 
 
+class ScalarSubquery(Expression):
+    """A subquery used as a scalar value inside an expression — TPC-DS's
+    `where x > (select 1.3 * avg(...) ...)` idiom. The reference
+    serializes Catalyst's ScalarSubquery wrappers for exactly these
+    queries (`index/serde/package.scala:64-167`); here the node embeds
+    the subplan's own-IR JSON.
+
+    Resolution: `engine/executor.execute_plan` executes the subplan
+    (must yield one column; one row -> its value, zero rows -> SQL NULL,
+    more -> error) ONCE per plan object and caches the value on the node
+    (like `Scan.files()` — per-plan-object staleness semantics). The
+    rewrite rules run inside the subplan too (`session.optimize`
+    recurses into embedded subqueries)."""
+
+    op = "scalar_subquery"
+
+    def __init__(self, plan):
+        self.plan = plan
+        # The optimizer's rewritten view of the subplan, refreshed on
+        # every session.optimize() — `plan` itself is never mutated, so
+        # an expression the user holds stays valid across
+        # enable/disable_hyperspace.
+        self._opt_plan = None
+        self._value = None
+        self._resolved = False
+        if len(plan.schema.fields) != 1:
+            raise HyperspaceException(
+                "Scalar subquery must produce exactly one column; got "
+                f"{plan.schema.names}.")
+
+    def execution_plan(self):
+        return self._opt_plan if self._opt_plan is not None else self.plan
+
+    @property
+    def dtype(self) -> str:
+        return self.plan.schema.fields[0].dtype
+
+    def references(self) -> Set[str]:
+        # No correlated references: the subplan reads its own sources.
+        return set()
+
+    def resolve(self, value) -> None:
+        self._value = value
+        self._resolved = True
+
+    def literal(self) -> "Expression":
+        """The resolved value as a Literal (NullLiteral for SQL NULL /
+        empty subquery). Compilation reads ONLY this."""
+        if not self._resolved:
+            raise HyperspaceException(
+                "Scalar subquery was not resolved before compilation.")
+        if self._value is None:
+            return NullLiteral(self.dtype)
+        return Literal(self._value)
+
+    def to_dict(self) -> dict:
+        d = {"op": "scalar_subquery", "plan": self.plan.to_dict()}
+        if self._resolved:
+            # The resolved value participates in plan identity; serde
+            # ignores it on load (fresh plans re-resolve).
+            d["value"] = self._value
+        return d
+
+    @staticmethod
+    def _from_dict(d: dict) -> "ScalarSubquery":
+        from hyperspace_tpu_torch.plan.serde import plan_from_dict
+        return ScalarSubquery(plan_from_dict(d["plan"]))
+
+    def __repr__(self):
+        return f"scalar_subquery({self.plan.simple_string()})"
+
+
 _REGISTRY: Dict[str, Any] = {
     "column": Column, "literal": Literal,
     "eq": EqualTo, "ne": NotEqualTo, "lt": LessThan, "le": LessThanOrEqual,
@@ -516,7 +588,8 @@ _REGISTRY: Dict[str, Any] = {
     "add": Add, "sub": Sub, "mul": Mul, "div": Div,
     "is_null": IsNull, "is_not_null": IsNotNull, "in": In,
     "alias": Alias, "substr": Substr, "case": CaseWhen,
-    "null": NullLiteral, "like": Like, "floor": Floor,
+    "null": NullLiteral, "like": Like, "scalar_subquery": ScalarSubquery,
+    "floor": Floor,
 }
 
 
@@ -575,6 +648,8 @@ def infer_dtype(expr: Expression, schema) -> str:
             return "bool"
         floats = {"float32", "float64"}
         return "float64" if any(o in floats for o in outs) else "int64"
+    if isinstance(expr, ScalarSubquery):
+        return expr.dtype
     if isinstance(expr, Floor):
         if infer_dtype(expr.child, schema) == "string":
             raise HyperspaceException("FLOOR over a string operand.")

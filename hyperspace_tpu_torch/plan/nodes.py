@@ -4,8 +4,8 @@ The reference matches/rewrites Catalyst trees
 (`Project(Filter(LogicalRelation))`); this package owns the node set the
 filter and join paths, hybrid scan and the analytic operators need: Scan
 (= LogicalRelation over lake files), Filter, Project, Join, Union,
-Aggregate, Sort and Limit. The JAX package's Window and set-operation
-nodes come with the engine slice that executes them (ROADMAP.md).
+Aggregate, Window, Sort, Limit, and the set operations Intersect and
+Except.
 Nodes are immutable, JSON-serializable (see
 `plan/serde.py`), and carry enough metadata (root paths, bucket spec) for the
 rewrite rules to swap base-table scans for index scans exactly as the
@@ -309,7 +309,10 @@ class AggSpec:
     alias: str
 
     def __post_init__(self):
-        if self.func not in _AGG_FUNCS:
+        # Window reuses this spec shape with its own function set;
+        # Aggregate and Window each validate against theirs.
+        if self.func not in _AGG_FUNCS + ("rank", "dense_rank",
+                                          "row_number"):
             raise HyperspaceException(f"Unsupported aggregate: {self.func}")
 
     @property
@@ -354,6 +357,10 @@ class Aggregate(LogicalPlan):
             raise HyperspaceException(
                 "Aggregate requires group columns or at least one "
                 "aggregation expression.")
+        for spec in self.aggregates:
+            if spec.func not in _AGG_FUNCS:
+                raise HyperspaceException(
+                    f"Unsupported aggregate: {spec.func}")
         self.child = child
 
     @property
@@ -391,6 +398,87 @@ class Aggregate(LogicalPlan):
         aggs = ", ".join(f"{a.func}({a.column}) AS {a.alias}"
                          for a in self.aggregates)
         return f"Aggregate [{', '.join(self.group_columns)}] [{aggs}]"
+
+
+_WINDOW_FUNCS = ("rank", "dense_rank", "row_number", "sum", "avg", "min",
+                 "max", "count")
+
+
+class Window(LogicalPlan):
+    """Window functions: appends one column per spec to the child's rows
+    (input row order preserved). `partition_by` are plain column names;
+    `order_by` uses Sort's spec syntax ("name" asc / "-name" desc) and is
+    required by the rank family. The reference delegates windows to Spark
+    SQL; this engine executes them as sorted-segment computations
+    (`ops/window.py`)."""
+
+    def __init__(self, partition_by: Sequence[str], order_by: Sequence[str],
+                 specs: Sequence[AggSpec], child: LogicalPlan):
+        self.partition_by = list(partition_by)
+        self.order_by = list(order_by)
+        self.specs = list(specs)
+        self.child = child
+        if not self.specs:
+            raise HyperspaceException("Window requires at least one spec.")
+        for spec in self.specs:
+            if spec.func not in _WINDOW_FUNCS:
+                raise HyperspaceException(
+                    f"Unsupported window function: {spec.func}")
+            if spec.func in ("rank", "dense_rank") and not self.order_by:
+                raise HyperspaceException(
+                    f"{spec.func} requires an ORDER BY.")
+            if spec.is_expression:
+                raise HyperspaceException(
+                    "Window inputs must be plain columns; project the "
+                    "expression first.")
+            if (spec.column == "*"
+                    and spec.func not in ("rank", "dense_rank",
+                                          "row_number", "count")):
+                raise HyperspaceException(
+                    f"Window {spec.func} requires a column input.")
+            if child.schema.contains(spec.alias):
+                raise HyperspaceException(
+                    f"Window output name collides with an input column: "
+                    f"{spec.alias}")
+
+    @property
+    def children(self) -> List[LogicalPlan]:
+        return [self.child]
+
+    @cached_property
+    def schema(self) -> Schema:
+        from hyperspace_tpu_torch.plan.schema import Field
+        fields = list(self.child.schema.fields)
+        for spec in self.specs:
+            if spec.func in ("rank", "dense_rank", "row_number", "count"):
+                dtype = "int64"
+            elif spec.func == "avg":
+                dtype = "float64"
+            elif spec.func == "sum":
+                src = spec.input_dtype(self.child.schema)
+                dtype = ("float64" if src in ("float32", "float64")
+                         else "int64")
+            else:  # min/max keep the input type
+                dtype = spec.input_dtype(self.child.schema)
+            fields.append(Field(spec.alias, dtype, True))
+        return Schema(fields)
+
+    def with_children(self, children):
+        (child,) = children
+        return Window(self.partition_by, self.order_by, self.specs, child)
+
+    def to_dict(self) -> dict:
+        return {"node": "window", "partitionBy": list(self.partition_by),
+                "orderBy": list(self.order_by),
+                "specs": [s.to_dict() for s in self.specs],
+                "child": self.child.to_dict()}
+
+    def simple_string(self) -> str:
+        parts = [f"{s.func}({s.column}) AS {s.alias}" for s in self.specs]
+        order = f" ORDER BY {', '.join(self.order_by)}" if self.order_by \
+            else ""
+        return (f"Window [{', '.join(parts)}] PARTITION BY "
+                f"[{', '.join(self.partition_by)}]{order}")
 
 
 def sort_direction(column: str):
@@ -560,3 +648,56 @@ class Union(LogicalPlan):
 
     def simple_string(self) -> str:
         return f"Union ({len(self._children)} children)"
+
+
+class SetOp(LogicalPlan):
+    """SQL set operation with DISTINCT semantics (INTERSECT / EXCEPT):
+    output = DISTINCT rows of `left` present in (Intersect) / absent from
+    (Except) `right`. Row equality treats NULL as equal to NULL — SQL set
+    operations, UNLIKE joins, group nulls together. The reference's serde
+    zoo exists to make exactly these queries serializable
+    (`index/serde/package.scala:64-167`, IntersectWrapper/ExceptWrapper);
+    this IR carries them natively (TPC-DS q8/q14/q38/q87)."""
+
+    kind: str = ""
+
+    def __init__(self, left: LogicalPlan, right: LogicalPlan):
+        ln = [n.lower() for n in left.schema.names]
+        rn = [n.lower() for n in right.schema.names]
+        if ln != rn:
+            raise HyperspaceException(
+                f"{type(self).__name__} sides must share column "
+                f"names/order; got {ln} vs {rn}.")
+        self.left = left
+        self.right = right
+
+    @property
+    def children(self) -> List[LogicalPlan]:
+        return [self.left, self.right]
+
+    @property
+    def schema(self) -> Schema:
+        return self.left.schema
+
+    def with_children(self, children):
+        left, right = children
+        return type(self)(left, right)
+
+    def to_dict(self) -> dict:
+        return {"node": self.kind, "left": self.left.to_dict(),
+                "right": self.right.to_dict()}
+
+    def simple_string(self) -> str:
+        return type(self).__name__
+
+
+class Intersect(SetOp):
+    kind = "intersect"
+
+
+class Except(SetOp):
+    kind = "except"
+
+
+_JOIN_TYPES = ("inner", "left_outer", "right_outer", "full_outer",
+               "left_semi", "left_anti", "cross")

@@ -1,9 +1,8 @@
 """FilterIndexRule: redirect filter queries to covering indexes.
 
 Parity: reference `index/rules/FilterIndexRule.scala:41-229`.
-- Matches `Project(Filter(Scan))` and bare `Filter(Scan)`; under an
-  Aggregate, `Filter(Scan)` is judged on the aggregate's columns (the
-  shape Spark's column pruning gives the reference's rule).
+- Matches `Project(Filter(Scan))` and bare `Filter(Scan)`, judged on the
+  scan's columns.
 - Candidate = ACTIVE index whose signature matches the plan AND that covers
   it: the filter must reference the index's FIRST indexed column, and
   project+filter columns must be a subset of indexed+included columns
@@ -30,8 +29,7 @@ from typing import List, Optional, Sequence
 
 from hyperspace_tpu_torch import telemetry
 from hyperspace_tpu_torch.index.log_entry import IndexLogEntry
-from hyperspace_tpu_torch.plan.nodes import (Aggregate, Filter, LogicalPlan,
-                                             Project, Scan)
+from hyperspace_tpu_torch.plan.nodes import Filter, LogicalPlan, Project, Scan
 from hyperspace_tpu_torch.plan.rules.base import Rule
 
 logger = logging.getLogger(__name__)
@@ -93,9 +91,6 @@ class FilterIndexRule(Rule):
             return plan
 
     def _rewrite(self, node: LogicalPlan) -> LogicalPlan:
-        if isinstance(node, Aggregate) and isinstance(node.child, Filter) \
-                and isinstance(node.child.child, Scan):
-            return self._rewrite_under_aggregate(node)
         # Project(Filter(Scan)) or Filter(Scan)
         if isinstance(node, Project) and isinstance(node.child, Filter) \
                 and isinstance(node.child.child, Scan):
@@ -151,27 +146,6 @@ class FilterIndexRule(Rule):
             # enabling indexes must not change result shape.
             rewritten = Project(scan.schema.names, rewritten)
         return rewritten
-
-    def _rewrite_under_aggregate(self, agg: Aggregate) -> LogicalPlan:
-        """Aggregate(Filter(Scan)): an aggregate reads only its group and
-        input columns, so coverage is judged on those — the match sees
-        Project(those columns, Filter(Scan)), the shape Spark's column
-        pruning hands the reference's rule. Without a covering index the
-        plan is left as it was."""
-        filt = agg.child
-        needed = set(agg.group_columns)
-        for spec in agg.aggregates:
-            needed |= {c.lower() for c in spec.references()}
-        needed = {c.lower() for c in needed}
-        columns = [f.name for f in filt.child.schema.fields
-                   if f.name.lower() in needed]
-        if not columns:
-            return agg  # bare count(*): no narrower projection to judge
-        narrowed = Project(columns, filt)
-        rewritten = self._rewrite(narrowed)
-        if rewritten is narrowed:
-            return agg
-        return agg.with_children([rewritten])
 
     def _hybrid_scan_source(self, filt: Filter, scan: Scan,
                             project_columns: Sequence[str],

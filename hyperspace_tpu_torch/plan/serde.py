@@ -17,9 +17,10 @@ import json
 from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.plan.expr import Expression
 from hyperspace_tpu_torch.plan.nodes import (Aggregate, AggSpec,
-                                             BucketSpec, Filter, Join, Limit,
+                                             BucketSpec, Except, Filter,
+                                             Intersect, Join, Limit,
                                              LogicalPlan, Project, Scan, Sort,
-                                             Union)
+                                             Union, Window)
 from hyperspace_tpu_torch.plan.schema import Field, Schema
 
 
@@ -55,10 +56,19 @@ def plan_from_dict(d: dict) -> LogicalPlan:
         return Aggregate(d["groupBy"],
                          [AggSpec.from_dict(a) for a in d["aggregates"]],
                          plan_from_dict(d["child"]))
+    if node == "window":
+        return Window(d["partitionBy"], d["orderBy"],
+                      [AggSpec.from_dict(s) for s in d["specs"]],
+                      plan_from_dict(d["child"]))
     if node == "sort":
         return Sort(d["columns"], plan_from_dict(d["child"]))
     if node == "limit":
         return Limit(d["n"], plan_from_dict(d["child"]))
+    if node == "intersect":
+        return Intersect(plan_from_dict(d["left"]),
+                         plan_from_dict(d["right"]))
+    if node == "except":
+        return Except(plan_from_dict(d["left"]), plan_from_dict(d["right"]))
     raise HyperspaceException(f"Unknown plan node kind: {node}")
 
 

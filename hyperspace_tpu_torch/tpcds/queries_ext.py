@@ -1,0 +1,914 @@
+"""Round-4 TPC-DS additions: q1, q6, q20, q27, q29, q32, q34, q36, q41,
+q46, q70, q73, q81, q93, q97 — pushing the suite past 40 queries.
+
+Same contract as `queries.py`: each query is a rule-acceleratable join
+tree with a pandas oracle, and the 3-way equality check (rules on ==
+rules off == oracle) runs in `tests/test_torch_tpcds_ext.py` and
+chip_smoke.py's `tpcds` phase.
+Shapes introduced here: per-group average join-backs with HAVING (q1 /
+q6 / q32 / q81), ROLLUP as grouping-set unions with per-branch
+`lochierarchy` and rank-within-parent windows (q27/q36/q70), ticket-
+count band joins (q34/q73), item-only nested NOT-EXISTS-style counting
+(q41), the q68-family city comparison (q46), reason-routed partial
+returns over the ss-sr ticket identity (q93), and the store/catalog
+FULL OUTER customer-item overlap (q97).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import pandas as pd
+
+from hyperspace_tpu_torch.plan.expr import col, lit, when
+
+
+# ---------------------------------------------------------------------------
+# q1 — customers returning more than 1.2x their store's average
+# ---------------------------------------------------------------------------
+
+
+def q1(dfs):
+    dt = (dfs["date_dim"].filter(col("d_year") == lit(2000))
+          .select("d_date_sk"))
+    sr = dfs["store_returns"].select(
+        "sr_returned_date_sk", "sr_customer_sk", "sr_store_sk",
+        "sr_return_amt")
+    ctr = sr.join(dt, on=col("sr_returned_date_sk") == col("d_date_sk"))
+    ctr = (ctr.group_by("sr_customer_sk", "sr_store_sk")
+           .agg(("sum", "sr_return_amt", "ctr_total_return")))
+    avg_store = (ctr.group_by("sr_store_sk")
+                 .agg(("avg", "ctr_total_return", "ctr_avg")))
+    avg_store = avg_store.select(
+        col("sr_store_sk").alias("avg_store_sk"), "ctr_avg")
+    st = dfs["store"].filter(col("s_state") == lit("TN")) \
+        .select("s_store_sk")
+    j = ctr.join(avg_store, on=col("sr_store_sk") == col("avg_store_sk"))
+    j = j.filter(col("ctr_total_return") > col("ctr_avg") * lit(1.2))
+    j = j.join(st, on=col("sr_store_sk") == col("s_store_sk"))
+    j = j.join(dfs["customer"].select("c_customer_sk", "c_customer_id"),
+               on=col("sr_customer_sk") == col("c_customer_sk"))
+    return j.select("c_customer_id").sort("c_customer_id").limit(100)
+
+
+def q1_pandas(t):
+    d = t["date_dim"]
+    dt = d[d.d_year == 2000][["d_date_sk"]]
+    sr = t["store_returns"].merge(dt, left_on="sr_returned_date_sk",
+                                  right_on="d_date_sk")
+    ctr = sr.groupby(["sr_customer_sk", "sr_store_sk"],
+                     as_index=False).agg(
+        ctr_total_return=("sr_return_amt", "sum"))
+    avg_store = ctr.groupby("sr_store_sk", as_index=False).agg(
+        ctr_avg=("ctr_total_return", "mean"))
+    j = ctr.merge(avg_store, on="sr_store_sk")
+    j = j[j.ctr_total_return > 1.2 * j.ctr_avg]
+    st = t["store"][t["store"].s_state == "TN"][["s_store_sk"]]
+    j = j.merge(st, left_on="sr_store_sk", right_on="s_store_sk")
+    j = j.merge(t["customer"], left_on="sr_customer_sk",
+                right_on="c_customer_sk")
+    return (j[["c_customer_id"]].sort_values("c_customer_id")
+            .head(100).reset_index(drop=True))
+
+
+# ---------------------------------------------------------------------------
+# q6 — states where customers bought items priced >= 1.2x category average
+# ---------------------------------------------------------------------------
+
+
+def q6(dfs):
+    dt = (dfs["date_dim"]
+          .filter((col("d_year") == lit(2000)) & (col("d_moy") == lit(1)))
+          .select("d_date_sk"))
+    item = dfs["item"].select("i_item_sk", "i_category", "i_current_price")
+    cat_avg = (item.group_by("i_category")
+               .agg(("avg", "i_current_price", "cat_avg")))
+    cat_avg = cat_avg.select(col("i_category").alias("avg_category"),
+                             "cat_avg")
+    it = item.join(cat_avg, on=col("i_category") == col("avg_category"))
+    it = it.filter(col("i_current_price") > col("cat_avg") * lit(1.2)) \
+        .select("i_item_sk")
+    ss = dfs["store_sales"].select("ss_sold_date_sk", "ss_item_sk",
+                                   "ss_customer_sk")
+    j = ss.join(dt, on=col("ss_sold_date_sk") == col("d_date_sk"))
+    j = j.join(it, on=col("ss_item_sk") == col("i_item_sk"))
+    j = j.join(dfs["customer"].select("c_customer_sk", "c_current_addr_sk"),
+               on=col("ss_customer_sk") == col("c_customer_sk"))
+    j = j.join(dfs["customer_address"].select("ca_address_sk", "ca_state"),
+               on=col("c_current_addr_sk") == col("ca_address_sk"))
+    return (j.group_by("ca_state").agg(("count", "*", "cnt"))
+            .having(col("cnt") >= lit(10))
+            .sort("cnt", "ca_state").limit(100))
+
+
+def q6_pandas(t):
+    d = t["date_dim"]
+    dt = d[(d.d_year == 2000) & (d.d_moy == 1)][["d_date_sk"]]
+    item = t["item"]
+    cat_avg = item.groupby("i_category", as_index=False).agg(
+        cat_avg=("i_current_price", "mean"))
+    it = item.merge(cat_avg, on="i_category")
+    it = it[it.i_current_price > 1.2 * it.cat_avg][["i_item_sk"]]
+    j = t["store_sales"].merge(dt, left_on="ss_sold_date_sk",
+                               right_on="d_date_sk")
+    j = j.merge(it, left_on="ss_item_sk", right_on="i_item_sk")
+    j = j.merge(t["customer"], left_on="ss_customer_sk",
+                right_on="c_customer_sk")
+    j = j.merge(t["customer_address"], left_on="c_current_addr_sk",
+                right_on="ca_address_sk")
+    g = j.groupby("ca_state", as_index=False).agg(cnt=("ca_state", "size"))
+    g = g[g.cnt >= 10]
+    return (g.sort_values(["cnt", "ca_state"]).head(100)
+            .reset_index(drop=True))
+
+
+# ---------------------------------------------------------------------------
+# q20 — catalog item revenue share of its class (q98's catalog twin)
+# ---------------------------------------------------------------------------
+
+_Q20_KEYS = ("i_item_id", "i_item_desc", "i_category", "i_class",
+             "i_current_price")
+
+
+def q20(dfs):
+    cs = dfs["catalog_sales"].select("cs_item_sk", "cs_sold_date_sk",
+                                    "cs_ext_sales_price")
+    it = (dfs["item"]
+          .filter(col("i_category").isin("Sports", "Books", "Home"))
+          .select("i_item_sk", *_Q20_KEYS))
+    dt = (dfs["date_dim"]
+          .filter((col("d_year") == lit(2000)) & (col("d_moy") == lit(5)))
+          .select("d_date_sk"))
+    j = cs.join(dt, on=col("cs_sold_date_sk") == col("d_date_sk"))
+    j = j.join(it, on=col("cs_item_sk") == col("i_item_sk"))
+    g = (j.group_by(*_Q20_KEYS)
+         .agg(("sum", "cs_ext_sales_price", "itemrevenue")))
+    w = g.window(["i_class"], class_revenue=("sum", "itemrevenue"))
+    return (w.select(*_Q20_KEYS, "itemrevenue",
+                     ((col("itemrevenue") * lit(100.0))
+                      / col("class_revenue")).alias("revenueratio"))
+            .sort("i_category", "i_class", "i_item_id", "i_item_desc",
+                  "revenueratio"))
+
+
+def q20_pandas(t):
+    d = t["date_dim"]
+    dt = d[(d.d_year == 2000) & (d.d_moy == 5)][["d_date_sk"]]
+    it = t["item"]
+    it = it[it.i_category.isin(["Sports", "Books", "Home"])]
+    j = t["catalog_sales"].merge(dt, left_on="cs_sold_date_sk",
+                                 right_on="d_date_sk")
+    j = j.merge(it, left_on="cs_item_sk", right_on="i_item_sk")
+    g = j.groupby(list(_Q20_KEYS), as_index=False).agg(
+        itemrevenue=("cs_ext_sales_price", "sum"))
+    g["class_revenue"] = g.groupby("i_class").itemrevenue.transform("sum")
+    g["revenueratio"] = g.itemrevenue * 100.0 / g.class_revenue
+    out = g[list(_Q20_KEYS) + ["itemrevenue", "revenueratio"]]
+    return (out.sort_values(["i_category", "i_class", "i_item_id",
+                             "i_item_desc", "revenueratio"])
+            .reset_index(drop=True))
+
+
+# ---------------------------------------------------------------------------
+# q29 — quantities of returned items flowing through catalog (q25 family)
+# ---------------------------------------------------------------------------
+
+
+def q29(dfs):
+    ss = dfs["store_sales"].select(
+        "ss_sold_date_sk", "ss_item_sk", "ss_customer_sk", "ss_store_sk",
+        "ss_ticket_number", "ss_quantity")
+    sr = dfs["store_returns"].select(
+        "sr_returned_date_sk", "sr_item_sk", "sr_customer_sk",
+        "sr_ticket_number", "sr_return_quantity")
+    cs = dfs["catalog_sales"].select(
+        "cs_sold_date_sk", "cs_bill_customer_sk", "cs_item_sk",
+        "cs_quantity")
+    d1 = (dfs["date_dim"]
+          .filter((col("d_moy") == lit(9)) & (col("d_year") == lit(1999)))
+          .select("d_date_sk"))
+    d2 = (dfs["date_dim"]
+          .filter((col("d_moy") >= lit(9)) & (col("d_moy") <= lit(12))
+                  & (col("d_year") == lit(1999)))
+          .select("d_date_sk"))
+    d3 = (dfs["date_dim"]
+          .filter(col("d_year").isin(1999, 2000, 2001))
+          .select("d_date_sk"))
+    store = dfs["store"].select("s_store_sk", "s_store_id", "s_store_name")
+    item = dfs["item"].select("i_item_sk", "i_item_id", "i_item_desc")
+
+    j = ss.join(sr, on=(col("ss_customer_sk") == col("sr_customer_sk"))
+                & (col("ss_item_sk") == col("sr_item_sk"))
+                & (col("ss_ticket_number") == col("sr_ticket_number")))
+    j = j.join(cs, on=(col("sr_customer_sk") == col("cs_bill_customer_sk"))
+               & (col("sr_item_sk") == col("cs_item_sk")))
+    j = j.join(d1, on=col("ss_sold_date_sk") == col("d_date_sk")).select(
+        "ss_item_sk", "ss_store_sk", "ss_quantity", "sr_returned_date_sk",
+        "sr_return_quantity", "cs_sold_date_sk", "cs_quantity")
+    j = j.join(d2, on=col("sr_returned_date_sk") == col("d_date_sk")) \
+        .select("ss_item_sk", "ss_store_sk", "ss_quantity",
+                "sr_return_quantity", "cs_sold_date_sk", "cs_quantity")
+    j = j.join(d3, on=col("cs_sold_date_sk") == col("d_date_sk")).select(
+        "ss_item_sk", "ss_store_sk", "ss_quantity", "sr_return_quantity",
+        "cs_quantity")
+    j = j.join(store, on=col("ss_store_sk") == col("s_store_sk"))
+    j = j.join(item, on=col("ss_item_sk") == col("i_item_sk"))
+    return (j.group_by("i_item_id", "i_item_desc", "s_store_id",
+                       "s_store_name").agg(
+        ("sum", "ss_quantity", "store_sales_quantity"),
+        ("sum", "sr_return_quantity", "store_returns_quantity"),
+        ("sum", "cs_quantity", "catalog_sales_quantity"))
+        .sort("i_item_id", "i_item_desc", "s_store_id", "s_store_name")
+        .limit(100))
+
+
+def q29_pandas(t):
+    d = t["date_dim"]
+    d1 = d[(d.d_moy == 9) & (d.d_year == 1999)][["d_date_sk"]]
+    d2 = d[(d.d_moy >= 9) & (d.d_moy <= 12)
+           & (d.d_year == 1999)][["d_date_sk"]]
+    d3 = d[d.d_year.isin([1999, 2000, 2001])][["d_date_sk"]]
+    j = t["store_sales"].merge(
+        t["store_returns"],
+        left_on=["ss_customer_sk", "ss_item_sk", "ss_ticket_number"],
+        right_on=["sr_customer_sk", "sr_item_sk", "sr_ticket_number"])
+    j = j.merge(t["catalog_sales"],
+                left_on=["sr_customer_sk", "sr_item_sk"],
+                right_on=["cs_bill_customer_sk", "cs_item_sk"])
+    j = j.merge(d1, left_on="ss_sold_date_sk", right_on="d_date_sk")
+    j = j.merge(d2, left_on="sr_returned_date_sk", right_on="d_date_sk")
+    j = j.merge(d3, left_on="cs_sold_date_sk", right_on="d_date_sk")
+    j = j.merge(t["store"][["s_store_sk", "s_store_id", "s_store_name"]],
+                left_on="ss_store_sk", right_on="s_store_sk")
+    j = j.merge(t["item"][["i_item_sk", "i_item_id", "i_item_desc"]],
+                left_on="ss_item_sk", right_on="i_item_sk")
+    g = j.groupby(["i_item_id", "i_item_desc", "s_store_id",
+                   "s_store_name"], as_index=False).agg(
+        store_sales_quantity=("ss_quantity", "sum"),
+        store_returns_quantity=("sr_return_quantity", "sum"),
+        catalog_sales_quantity=("cs_quantity", "sum"))
+    return (g.sort_values(["i_item_id", "i_item_desc", "s_store_id",
+                           "s_store_name"])
+            .head(100).reset_index(drop=True))
+
+
+# ---------------------------------------------------------------------------
+# q32 — excess catalog discounts (avg * 1.3 join-back)
+# ---------------------------------------------------------------------------
+
+
+def q32(dfs):
+    it = dfs["item"].filter(col("i_manufact_id") == lit(77)) \
+        .select("i_item_sk")
+    # Full-year window (the official 90-day window is too sparse for
+    # the single item manufact 77 carries at small generator scales).
+    dt = (dfs["date_dim"].filter(col("d_year") == lit(2000))
+          .select("d_date_sk"))
+    cs = dfs["catalog_sales"].select("cs_item_sk", "cs_sold_date_sk",
+                                     "cs_ext_discount_amt")
+    win = cs.join(dt, on=col("cs_sold_date_sk") == col("d_date_sk"))
+    avg_disc = (win.group_by("cs_item_sk")
+                .agg(("avg", "cs_ext_discount_amt", "avg_disc")))
+    avg_disc = avg_disc.select(col("cs_item_sk").alias("avg_item_sk"),
+                               "avg_disc")
+    j = win.join(it, on=col("cs_item_sk") == col("i_item_sk"))
+    j = j.join(avg_disc, on=col("cs_item_sk") == col("avg_item_sk"))
+    j = j.filter(col("cs_ext_discount_amt") > col("avg_disc") * lit(1.3))
+    return j.agg(("sum", "cs_ext_discount_amt", "excess_discount_amount"))
+
+
+def q32_pandas(t):
+    it = t["item"][t["item"].i_manufact_id == 77][["i_item_sk"]]
+    d = t["date_dim"]
+    dt = d[d.d_year == 2000][["d_date_sk"]]
+    win = t["catalog_sales"].merge(dt, left_on="cs_sold_date_sk",
+                                   right_on="d_date_sk")
+    avg_disc = win.groupby("cs_item_sk", as_index=False).agg(
+        avg_disc=("cs_ext_discount_amt", "mean"))
+    j = win.merge(it, left_on="cs_item_sk", right_on="i_item_sk")
+    j = j.merge(avg_disc, on="cs_item_sk")
+    j = j[j.cs_ext_discount_amt > 1.3 * j.avg_disc]
+    return pd.DataFrame(
+        {"excess_discount_amount": [j.cs_ext_discount_amt.sum()]})
+
+
+# ---------------------------------------------------------------------------
+# q34 / q73 — ticket-size band analysis (counts per ticket joined back)
+# ---------------------------------------------------------------------------
+
+
+def _ticket_counts(dfs, dom_filter, hd_filter, store_filter):
+    dt = dfs["date_dim"].filter(dom_filter).select("d_date_sk")
+    st = dfs["store"].filter(store_filter).select("s_store_sk")
+    hd = dfs["household_demographics"].filter(hd_filter) \
+        .select("hd_demo_sk")
+    ss = dfs["store_sales"].select(
+        "ss_sold_date_sk", "ss_store_sk", "ss_hdemo_sk", "ss_customer_sk",
+        "ss_ticket_number")
+    j = ss.join(dt, on=col("ss_sold_date_sk") == col("d_date_sk"))
+    j = j.join(st, on=col("ss_store_sk") == col("s_store_sk"))
+    j = j.join(hd, on=col("ss_hdemo_sk") == col("hd_demo_sk"))
+    return (j.group_by("ss_ticket_number", "ss_customer_sk")
+            .agg(("count", "*", "cnt")))
+
+
+def _ticket_counts_pandas(t, dmask, hmask, smask):
+    dt = t["date_dim"][dmask][["d_date_sk"]]
+    st = t["store"][smask][["s_store_sk"]]
+    hd = t["household_demographics"][hmask][["hd_demo_sk"]]
+    j = t["store_sales"].merge(dt, left_on="ss_sold_date_sk",
+                               right_on="d_date_sk")
+    j = j.merge(st, left_on="ss_store_sk", right_on="s_store_sk")
+    j = j.merge(hd, left_on="ss_hdemo_sk", right_on="hd_demo_sk")
+    return j.groupby(["ss_ticket_number", "ss_customer_sk"],
+                     as_index=False).agg(cnt=("ss_ticket_number", "size"))
+
+
+def q34(dfs):
+    dom = (((col("d_dom") >= lit(1)) & (col("d_dom") <= lit(3)))
+           | ((col("d_dom") >= lit(25)) & (col("d_dom") <= lit(28)))) \
+        & col("d_year").isin(1999, 2000, 2001)
+    hd = (col("hd_buy_potential").isin(">10000", "unknown")
+          & (col("hd_vehicle_count") > lit(0)))
+    counts = _ticket_counts(dfs, dom, hd,
+                            col("s_county") == lit("Williamson County"))
+    counts = counts.having((col("cnt") >= lit(15)) & (col("cnt") <= lit(20)))
+    j = counts.join(dfs["customer"].select("c_customer_sk",
+                                           "c_customer_id"),
+                    on=col("ss_customer_sk") == col("c_customer_sk"))
+    return (j.select("c_customer_id", "ss_ticket_number", "cnt")
+            .sort("c_customer_id", "ss_ticket_number").limit(1000))
+
+
+def q34_pandas(t):
+    d = t["date_dim"]
+    dmask = (((d.d_dom >= 1) & (d.d_dom <= 3))
+             | ((d.d_dom >= 25) & (d.d_dom <= 28))) \
+        & d.d_year.isin([1999, 2000, 2001])
+    h = t["household_demographics"]
+    hmask = h.hd_buy_potential.isin([">10000", "unknown"]) \
+        & (h.hd_vehicle_count > 0)
+    smask = t["store"].s_county == "Williamson County"
+    counts = _ticket_counts_pandas(t, dmask, hmask, smask)
+    counts = counts[(counts.cnt >= 15) & (counts.cnt <= 20)]
+    j = counts.merge(t["customer"], left_on="ss_customer_sk",
+                     right_on="c_customer_sk")
+    return (j[["c_customer_id", "ss_ticket_number", "cnt"]]
+            .sort_values(["c_customer_id", "ss_ticket_number"])
+            .head(1000).reset_index(drop=True))
+
+
+def q73(dfs):
+    dom = ((col("d_dom") >= lit(1)) & (col("d_dom") <= lit(2))
+           & col("d_year").isin(1999, 2000, 2001))
+    hd = (col("hd_buy_potential").isin(">10000", "unknown")
+          & (col("hd_vehicle_count") > lit(0)))
+    counts = _ticket_counts(dfs, dom, hd,
+                            col("s_county") == lit("Ziebach County"))
+    counts = counts.having((col("cnt") >= lit(1)) & (col("cnt") <= lit(5)))
+    j = counts.join(dfs["customer"].select("c_customer_sk",
+                                           "c_customer_id"),
+                    on=col("ss_customer_sk") == col("c_customer_sk"))
+    return (j.select("c_customer_id", "ss_ticket_number", "cnt")
+            .sort("-cnt", "c_customer_id", "ss_ticket_number").limit(1000))
+
+
+def q73_pandas(t):
+    d = t["date_dim"]
+    dmask = (d.d_dom >= 1) & (d.d_dom <= 2) \
+        & d.d_year.isin([1999, 2000, 2001])
+    h = t["household_demographics"]
+    hmask = h.hd_buy_potential.isin([">10000", "unknown"]) \
+        & (h.hd_vehicle_count > 0)
+    smask = t["store"].s_county == "Ziebach County"
+    counts = _ticket_counts_pandas(t, dmask, hmask, smask)
+    counts = counts[(counts.cnt >= 1) & (counts.cnt <= 5)]
+    j = counts.merge(t["customer"], left_on="ss_customer_sk",
+                     right_on="c_customer_sk")
+    return (j[["c_customer_id", "ss_ticket_number", "cnt"]]
+            .sort_values(["cnt", "c_customer_id", "ss_ticket_number"],
+                         ascending=[False, True, True])
+            .head(1000).reset_index(drop=True))
+
+
+# ---------------------------------------------------------------------------
+# q27 / q36 / q70 — ROLLUP families (grouping-set unions + per-branch
+# lochierarchy, q36/q70 with rank-within-parent windows)
+# ---------------------------------------------------------------------------
+
+
+def _rollup_union(j, levels, measures, session, with_parent=False):
+    """UNION of len(levels)+1 grouping sets over `levels` (prefixes, like
+    ROLLUP); `measures` maps alias -> (func, input). Adds the
+    `lochierarchy` literal per branch (grouping depth, official
+    grouping()+grouping() output). `with_parent` adds the official
+    rank-partition column `_parent` (the CASE WHEN grouping(leaf)=0 THEN
+    <parent level> END): the parent key on LEAF rows, NULL on every
+    subtotal row — so all subtotals of one lochierarchy rank against
+    each other in one partition."""
+    from hyperspace_tpu_torch.engine.dataframe import DataFrame
+    from hyperspace_tpu_torch.plan.expr import null
+    from hyperspace_tpu_torch.plan.nodes import Union
+
+    names = [name for name, _ in levels]
+    branches = []
+    for depth in range(len(levels), -1, -1):
+        keep = names[:depth]
+        aggs = [(func, src, alias) for alias, (func, src) in
+                measures.items()]
+        if keep:
+            g = j.group_by(*keep).agg(*aggs)
+        else:
+            g = j.agg(*aggs)
+        entries = (list(keep)
+                   + [null(dtype).alias(name)
+                      for name, dtype in levels[depth:]]
+                   + [lit(len(levels) - depth).alias("lochierarchy")])
+        if with_parent:
+            if depth == len(levels):
+                entries.append(col(names[-2]).alias("_parent"))
+            else:
+                entries.append(null(levels[-2][1]).alias("_parent"))
+        entries += list(measures)
+        branches.append(g.select(*entries).plan)
+    return DataFrame(Union(branches), session)
+
+
+def q27(dfs):
+    cd = (dfs["customer_demographics"]
+          .filter((col("cd_gender") == lit("M"))
+                  & (col("cd_marital_status") == lit("S"))
+                  & (col("cd_education_status") == lit("College")))
+          .select("cd_demo_sk"))
+    dt = dfs["date_dim"].filter(col("d_year") == lit(2000)) \
+        .select("d_date_sk")
+    st = dfs["store"].filter(col("s_state").isin("TN", "CA")) \
+        .select("s_store_sk", "s_state")
+    it = dfs["item"].select("i_item_sk", "i_item_id")
+    ss = dfs["store_sales"].select(
+        "ss_sold_date_sk", "ss_item_sk", "ss_store_sk", "ss_cdemo_sk",
+        "ss_quantity", "ss_list_price", "ss_coupon_amt", "ss_sales_price")
+    j = ss.join(cd, on=col("ss_cdemo_sk") == col("cd_demo_sk"))
+    j = j.join(dt, on=col("ss_sold_date_sk") == col("d_date_sk"))
+    j = j.join(st, on=col("ss_store_sk") == col("s_store_sk"))
+    j = j.join(it, on=col("ss_item_sk") == col("i_item_sk"))
+    u = _rollup_union(j, [("i_item_id", "string"), ("s_state", "string")],
+                      {"agg1": ("avg", "ss_quantity"),
+                       "agg2": ("avg", "ss_list_price"),
+                       "agg3": ("avg", "ss_coupon_amt"),
+                       "agg4": ("avg", "ss_sales_price")}, j.session)
+    return (u.select("i_item_id", "s_state", "agg1", "agg2", "agg3",
+                     "agg4")
+            .sort("i_item_id", "s_state").limit(100))
+
+
+def q27_pandas(t):
+    cd = t["customer_demographics"]
+    cd = cd[(cd.cd_gender == "M") & (cd.cd_marital_status == "S")
+            & (cd.cd_education_status == "College")][["cd_demo_sk"]]
+    dt = t["date_dim"][t["date_dim"].d_year == 2000][["d_date_sk"]]
+    st = t["store"][t["store"].s_state.isin(["TN", "CA"])][
+        ["s_store_sk", "s_state"]]
+    j = t["store_sales"].merge(cd, left_on="ss_cdemo_sk",
+                               right_on="cd_demo_sk")
+    j = j.merge(dt, left_on="ss_sold_date_sk", right_on="d_date_sk")
+    j = j.merge(st, left_on="ss_store_sk", right_on="s_store_sk")
+    j = j.merge(t["item"][["i_item_sk", "i_item_id"]],
+                left_on="ss_item_sk", right_on="i_item_sk")
+    outs = []
+    for keys in (["i_item_id", "s_state"], ["i_item_id"], []):
+        if keys:
+            g = j.groupby(keys, as_index=False).agg(
+                agg1=("ss_quantity", "mean"),
+                agg2=("ss_list_price", "mean"),
+                agg3=("ss_coupon_amt", "mean"),
+                agg4=("ss_sales_price", "mean"))
+        else:
+            g = pd.DataFrame({"agg1": [j.ss_quantity.mean()],
+                              "agg2": [j.ss_list_price.mean()],
+                              "agg3": [j.ss_coupon_amt.mean()],
+                              "agg4": [j.ss_sales_price.mean()]})
+        for c in ("i_item_id", "s_state"):
+            if c not in g.columns:
+                g[c] = np.nan
+        outs.append(g[["i_item_id", "s_state", "agg1", "agg2", "agg3",
+                       "agg4"]])
+    u = pd.concat(outs, ignore_index=True)
+    return (u.sort_values(["i_item_id", "s_state"],
+                          na_position="first")
+            .head(100).reset_index(drop=True))
+
+
+def q36(dfs):
+    dt = dfs["date_dim"].filter(col("d_year") == lit(2000)) \
+        .select("d_date_sk")
+    st = dfs["store"].filter(col("s_state").isin("TN", "CA", "WA")) \
+        .select("s_store_sk")
+    it = dfs["item"].select("i_item_sk", "i_category", "i_class")
+    ss = dfs["store_sales"].select("ss_sold_date_sk", "ss_item_sk",
+                                   "ss_store_sk", "ss_net_profit",
+                                   "ss_ext_sales_price")
+    j = ss.join(dt, on=col("ss_sold_date_sk") == col("d_date_sk"))
+    j = j.join(it, on=col("ss_item_sk") == col("i_item_sk"))
+    j = j.join(st, on=col("ss_store_sk") == col("s_store_sk"))
+    u = _rollup_union(j, [("i_category", "string"), ("i_class", "string")],
+                      {"profit": ("sum", "ss_net_profit"),
+                       "sales": ("sum", "ss_ext_sales_price")}, j.session,
+                      with_parent=True)
+    u = u.select("i_category", "i_class", "lochierarchy", "_parent",
+                 (col("profit") / col("sales")).alias("gross_margin"))
+    # Official rank partition: (lochierarchy, CASE WHEN grouping(leaf)=0
+    # THEN i_category END) — subtotals of a level rank together.
+    w = u.window(["lochierarchy", "_parent"],
+                 order_by=["gross_margin"],
+                 rank_within_parent=("rank", "*"))
+    return (w.select("gross_margin", "i_category", "i_class",
+                     "lochierarchy", "rank_within_parent")
+            .sort("-lochierarchy", "i_category", "i_class",
+                  "rank_within_parent").limit(100))
+
+
+def q36_pandas(t):
+    dt = t["date_dim"][t["date_dim"].d_year == 2000][["d_date_sk"]]
+    st = t["store"][t["store"].s_state.isin(["TN", "CA", "WA"])][
+        ["s_store_sk"]]
+    j = t["store_sales"].merge(dt, left_on="ss_sold_date_sk",
+                               right_on="d_date_sk")
+    j = j.merge(t["item"][["i_item_sk", "i_category", "i_class"]],
+                left_on="ss_item_sk", right_on="i_item_sk")
+    j = j.merge(st, left_on="ss_store_sk", right_on="s_store_sk")
+    outs = []
+    for depth, keys in ((0, ["i_category", "i_class"]),
+                        (1, ["i_category"]), (2, [])):
+        if keys:
+            g = j.groupby(keys, as_index=False).agg(
+                profit=("ss_net_profit", "sum"),
+                sales=("ss_ext_sales_price", "sum"))
+        else:
+            g = pd.DataFrame({"profit": [j.ss_net_profit.sum()],
+                              "sales": [j.ss_ext_sales_price.sum()]})
+        for c in ("i_category", "i_class"):
+            if c not in g.columns:
+                g[c] = np.nan
+        g["lochierarchy"] = depth
+        outs.append(g)
+    u = pd.concat(outs, ignore_index=True)
+    u["gross_margin"] = u.profit / u.sales
+    u["_parent"] = u.i_category.where(u.lochierarchy == 0, np.nan)
+    u["rank_within_parent"] = u.groupby(
+        ["lochierarchy", "_parent"], dropna=False).gross_margin.rank(
+        method="min").astype("int64")
+    out = u[["gross_margin", "i_category", "i_class", "lochierarchy",
+             "rank_within_parent"]]
+    return (out.sort_values(["lochierarchy", "i_category", "i_class",
+                             "rank_within_parent"],
+                            ascending=[False, True, True, True],
+                            na_position="first")
+            .head(100).reset_index(drop=True))
+
+
+def q70(dfs):
+    dt = dfs["date_dim"].filter(col("d_year") == lit(2000)) \
+        .select("d_date_sk")
+    ss = dfs["store_sales"].select("ss_sold_date_sk", "ss_store_sk",
+                                   "ss_net_profit")
+    st = dfs["store"].select("s_store_sk", "s_state", "s_county")
+    base = ss.join(dt, on=col("ss_sold_date_sk") == col("d_date_sk"))
+    base = base.join(st, on=col("ss_store_sk") == col("s_store_sk"))
+    # top-5 states by total profit (the official rank()<=5 subquery)
+    top_states = (base.group_by("s_state")
+                  .agg(("sum", "ss_net_profit", "state_profit"))
+                  .sort("-state_profit", "s_state").limit(5)
+                  .select(col("s_state").alias("top_state")))
+    j = base.join(top_states, on=col("s_state") == col("top_state"),
+                  how="left_semi")
+    u = _rollup_union(j, [("s_state", "string"), ("s_county", "string")],
+                      {"total_sum": ("sum", "ss_net_profit")}, j.session,
+                      with_parent=True)
+    w = u.window(["lochierarchy", "_parent"], order_by=["-total_sum"],
+                 rank_within_parent=("rank", "*"))
+    return (w.select("total_sum", "s_state", "s_county", "lochierarchy",
+                     "rank_within_parent")
+            .sort("-lochierarchy", "s_state", "rank_within_parent",
+                  "s_county").limit(100))
+
+
+def q70_pandas(t):
+    dt = t["date_dim"][t["date_dim"].d_year == 2000][["d_date_sk"]]
+    base = t["store_sales"].merge(dt, left_on="ss_sold_date_sk",
+                                  right_on="d_date_sk")
+    base = base.merge(t["store"][["s_store_sk", "s_state", "s_county"]],
+                      left_on="ss_store_sk", right_on="s_store_sk")
+    sp = base.groupby("s_state", as_index=False).agg(
+        state_profit=("ss_net_profit", "sum"))
+    top = sp.sort_values(["state_profit", "s_state"],
+                         ascending=[False, True]).head(5).s_state
+    j = base[base.s_state.isin(top)]
+    outs = []
+    for depth, keys in ((0, ["s_state", "s_county"]), (1, ["s_state"]),
+                        (2, [])):
+        if keys:
+            g = j.groupby(keys, as_index=False).agg(
+                total_sum=("ss_net_profit", "sum"))
+        else:
+            g = pd.DataFrame({"total_sum": [j.ss_net_profit.sum()]})
+        for c in ("s_state", "s_county"):
+            if c not in g.columns:
+                g[c] = np.nan
+        g["lochierarchy"] = depth
+        outs.append(g)
+    u = pd.concat(outs, ignore_index=True)
+    u["_parent"] = u.s_state.where(u.lochierarchy == 0, np.nan)
+    u["rank_within_parent"] = u.groupby(
+        ["lochierarchy", "_parent"], dropna=False).total_sum.rank(
+        method="min", ascending=False).astype("int64")
+    out = u[["total_sum", "s_state", "s_county", "lochierarchy",
+             "rank_within_parent"]]
+    return (out.sort_values(["lochierarchy", "s_state",
+                             "rank_within_parent", "s_county"],
+                            ascending=[False, True, True, True],
+                            na_position="first")
+            .head(100).reset_index(drop=True))
+
+
+# ---------------------------------------------------------------------------
+# q41 — distinct product names of manufacturers with qualifying variants
+# ---------------------------------------------------------------------------
+
+
+def q41(dfs):
+    it = dfs["item"]
+    variant = ((col("i_category") == lit("Women"))
+               & col("i_color").isin("red", "orange")
+               & col("i_units").isin("Oz", "Bunch")
+               & col("i_size").isin("medium", "small")) | \
+              ((col("i_category") == lit("Men"))
+               & col("i_color").isin("navy", "blue")
+               & col("i_units").isin("Ton", "Dozen")
+               & col("i_size").isin("extra large", "petite"))
+    qualifying = (it.filter((col("i_manufact_id") >= lit(1))
+                            & (col("i_manufact_id") <= lit(120))
+                            & variant)
+                  .select("i_manufact").distinct())
+    j = it.filter((col("i_manufact_id") >= lit(1))
+                  & (col("i_manufact_id") <= lit(120)))
+    j = j.join(qualifying, on=col("i_manufact") == col("i_manufact"),
+               how="left_semi")
+    return (j.select("i_product_name").distinct()
+            .sort("i_product_name").limit(100))
+
+
+def q41_pandas(t):
+    it = t["item"]
+    it = it[(it.i_manufact_id >= 1) & (it.i_manufact_id <= 120)]
+    v = ((it.i_category == "Women") & it.i_color.isin(["red", "orange"])
+         & it.i_units.isin(["Oz", "Bunch"])
+         & it.i_size.isin(["medium", "small"])) | \
+        ((it.i_category == "Men") & it.i_color.isin(["navy", "blue"])
+         & it.i_units.isin(["Ton", "Dozen"])
+         & it.i_size.isin(["extra large", "petite"]))
+    manufs = it[v].i_manufact.unique()
+    out = it[it.i_manufact.isin(manufs)][["i_product_name"]] \
+        .drop_duplicates()
+    return (out.sort_values("i_product_name").head(100)
+            .reset_index(drop=True))
+
+
+# ---------------------------------------------------------------------------
+# q46 — weekend city shoppers (q68 family: bought city <> current city)
+# ---------------------------------------------------------------------------
+
+
+def q46(dfs):
+    dt = (dfs["date_dim"]
+          .filter(col("d_dow").isin(0, 6)
+                  & col("d_year").isin(1999, 2000, 2001))
+          .select("d_date_sk"))
+    st = (dfs["store"]
+          .filter(col("s_city").isin("Fairview", "Midway"))
+          .select("s_store_sk"))
+    hd = (dfs["household_demographics"]
+          .filter((col("hd_dep_count") == lit(4))
+                  | (col("hd_vehicle_count") == lit(3)))
+          .select("hd_demo_sk"))
+    ss = dfs["store_sales"].select(
+        "ss_sold_date_sk", "ss_store_sk", "ss_hdemo_sk", "ss_addr_sk",
+        "ss_customer_sk", "ss_ticket_number", "ss_coupon_amt",
+        "ss_net_profit")
+    j = ss.join(dt, on=col("ss_sold_date_sk") == col("d_date_sk"))
+    j = j.join(st, on=col("ss_store_sk") == col("s_store_sk"))
+    j = j.join(hd, on=col("ss_hdemo_sk") == col("hd_demo_sk"))
+    j = j.join(dfs["customer_address"].select("ca_address_sk", "ca_city"),
+               on=col("ss_addr_sk") == col("ca_address_sk"))
+    g = (j.group_by("ss_ticket_number", "ss_customer_sk", "ca_city")
+         .agg(("sum", "ss_coupon_amt", "amt"),
+              ("sum", "ss_net_profit", "profit")))
+    g = g.select("ss_ticket_number", "ss_customer_sk",
+                 col("ca_city").alias("bought_city"), "amt", "profit")
+    cust = dfs["customer"].select("c_customer_sk", "c_last_name",
+                                  "c_first_name", "c_current_addr_sk")
+    j2 = g.join(cust, on=col("ss_customer_sk") == col("c_customer_sk"))
+    j2 = j2.join(dfs["customer_address"].select("ca_address_sk",
+                                                "ca_city"),
+                 on=col("c_current_addr_sk") == col("ca_address_sk"))
+    j2 = j2.filter(col("ca_city") != col("bought_city"))
+    return (j2.select("c_last_name", "c_first_name", "ca_city",
+                      "bought_city", "ss_ticket_number", "amt", "profit")
+            .sort("c_last_name", "c_first_name", "ca_city", "bought_city",
+                  "ss_ticket_number").limit(100))
+
+
+def q46_pandas(t):
+    d = t["date_dim"]
+    dt = d[d.d_dow.isin([0, 6])
+           & d.d_year.isin([1999, 2000, 2001])][["d_date_sk"]]
+    st = t["store"][t["store"].s_city.isin(["Fairview", "Midway"])][
+        ["s_store_sk"]]
+    h = t["household_demographics"]
+    hd = h[(h.hd_dep_count == 4) | (h.hd_vehicle_count == 3)][
+        ["hd_demo_sk"]]
+    j = t["store_sales"].merge(dt, left_on="ss_sold_date_sk",
+                               right_on="d_date_sk")
+    j = j.merge(st, left_on="ss_store_sk", right_on="s_store_sk")
+    j = j.merge(hd, left_on="ss_hdemo_sk", right_on="hd_demo_sk")
+    j = j.merge(t["customer_address"][["ca_address_sk", "ca_city"]],
+                left_on="ss_addr_sk", right_on="ca_address_sk")
+    g = j.groupby(["ss_ticket_number", "ss_customer_sk", "ca_city"],
+                  as_index=False).agg(amt=("ss_coupon_amt", "sum"),
+                                      profit=("ss_net_profit", "sum"))
+    g = g.rename(columns={"ca_city": "bought_city"})
+    j2 = g.merge(t["customer"], left_on="ss_customer_sk",
+                 right_on="c_customer_sk")
+    j2 = j2.merge(t["customer_address"][["ca_address_sk", "ca_city"]],
+                  left_on="c_current_addr_sk", right_on="ca_address_sk")
+    j2 = j2[j2.ca_city != j2.bought_city]
+    out = j2[["c_last_name", "c_first_name", "ca_city", "bought_city",
+              "ss_ticket_number", "amt", "profit"]]
+    return (out.sort_values(["c_last_name", "c_first_name", "ca_city",
+                             "bought_city", "ss_ticket_number"])
+            .head(100).reset_index(drop=True))
+
+
+# ---------------------------------------------------------------------------
+# q81 — catalog returners above 1.2x their state's average (q1's twin)
+# ---------------------------------------------------------------------------
+
+
+def q81(dfs):
+    dt = dfs["date_dim"].filter(col("d_year") == lit(2000)) \
+        .select("d_date_sk")
+    cr = dfs["catalog_returns"].select(
+        "cr_returned_date_sk", "cr_returning_customer_sk",
+        "cr_return_amt_inc_tax")
+    cr = cr.join(dt, on=col("cr_returned_date_sk") == col("d_date_sk"))
+    cust = dfs["customer"].select("c_customer_sk", "c_customer_id",
+                                  "c_current_addr_sk")
+    addr = dfs["customer_address"].select("ca_address_sk", "ca_state")
+    j = cr.join(cust,
+                on=col("cr_returning_customer_sk") == col("c_customer_sk"))
+    j = j.join(addr, on=col("c_current_addr_sk") == col("ca_address_sk"))
+    ctr = (j.group_by("c_customer_id", "ca_state")
+           .agg(("sum", "cr_return_amt_inc_tax", "ctr_total_return")))
+    avg_state = (ctr.group_by("ca_state")
+                 .agg(("avg", "ctr_total_return", "ctr_avg")))
+    avg_state = avg_state.select(col("ca_state").alias("avg_state"),
+                                 "ctr_avg")
+    out = ctr.join(avg_state, on=col("ca_state") == col("avg_state"))
+    out = out.filter(col("ctr_total_return") > col("ctr_avg") * lit(1.2))
+    return (out.select("c_customer_id", "ca_state", "ctr_total_return")
+            .sort("c_customer_id", "ca_state").limit(100))
+
+
+def q81_pandas(t):
+    dt = t["date_dim"][t["date_dim"].d_year == 2000][["d_date_sk"]]
+    cr = t["catalog_returns"].merge(dt, left_on="cr_returned_date_sk",
+                                    right_on="d_date_sk")
+    j = cr.merge(t["customer"], left_on="cr_returning_customer_sk",
+                 right_on="c_customer_sk")
+    j = j.merge(t["customer_address"], left_on="c_current_addr_sk",
+                right_on="ca_address_sk")
+    ctr = j.groupby(["c_customer_id", "ca_state"], as_index=False).agg(
+        ctr_total_return=("cr_return_amt_inc_tax", "sum"))
+    avg_state = ctr.groupby("ca_state", as_index=False).agg(
+        ctr_avg=("ctr_total_return", "mean"))
+    out = ctr.merge(avg_state, on="ca_state")
+    out = out[out.ctr_total_return > 1.2 * out.ctr_avg]
+    return (out[["c_customer_id", "ca_state", "ctr_total_return"]]
+            .sort_values(["c_customer_id", "ca_state"])
+            .head(100).reset_index(drop=True))
+
+
+# ---------------------------------------------------------------------------
+# q93 — actual sales after reason-routed returns (ss LEFT JOIN sr)
+# ---------------------------------------------------------------------------
+
+
+def q93(dfs):
+    ss = dfs["store_sales"].select("ss_item_sk", "ss_ticket_number",
+                                   "ss_customer_sk", "ss_quantity",
+                                   "ss_sales_price")
+    sr = dfs["store_returns"].select("sr_item_sk", "sr_ticket_number",
+                                     "sr_reason_sk", "sr_return_quantity")
+    reason = (dfs["reason"]
+              .filter(col("r_reason_desc") == lit("Did not like the "
+                                                  "warranty"))
+              .select("r_reason_sk"))
+    j = ss.join(sr, on=(col("ss_item_sk") == col("sr_item_sk"))
+                & (col("ss_ticket_number") == col("sr_ticket_number")),
+                how="left_outer")
+    j = j.join(reason, on=col("sr_reason_sk") == col("r_reason_sk"))
+    act = when(col("sr_return_quantity").is_not_null(),
+               (col("ss_quantity") - col("sr_return_quantity"))
+               * col("ss_sales_price")) \
+        .otherwise(col("ss_quantity") * col("ss_sales_price"))
+    g = (j.group_by("ss_customer_sk").agg(("sum", act, "sumsales")))
+    return g.sort("sumsales", "ss_customer_sk").limit(100)
+
+
+def q93_pandas(t):
+    reason = t["reason"]
+    rk = reason[reason.r_reason_desc
+                == "Did not like the warranty"].r_reason_sk
+    j = t["store_sales"].merge(
+        t["store_returns"], how="left",
+        left_on=["ss_item_sk", "ss_ticket_number"],
+        right_on=["sr_item_sk", "sr_ticket_number"])
+    j = j[j.sr_reason_sk.isin(rk)]
+    act = (j.ss_quantity - j.sr_return_quantity.fillna(0)) \
+        * j.ss_sales_price
+    act = act.where(j.sr_return_quantity.notna(),
+                    j.ss_quantity * j.ss_sales_price)
+    j = j.assign(act_sales=act)
+    g = j.groupby("ss_customer_sk", as_index=False).agg(
+        sumsales=("act_sales", "sum"))
+    return (g.sort_values(["sumsales", "ss_customer_sk"]).head(100)
+            .reset_index(drop=True))
+
+
+# ---------------------------------------------------------------------------
+# q97 — store/catalog customer-item overlap (FULL OUTER join)
+# ---------------------------------------------------------------------------
+
+
+def q97(dfs):
+    dt = dfs["date_dim"].filter(col("d_year") == lit(2000)) \
+        .select("d_date_sk")
+    ssci = (dfs["store_sales"]
+            .select("ss_sold_date_sk", "ss_customer_sk", "ss_item_sk")
+            .join(dt, on=col("ss_sold_date_sk") == col("d_date_sk"))
+            .group_by("ss_customer_sk", "ss_item_sk").agg())
+    csci = (dfs["catalog_sales"]
+            .select("cs_sold_date_sk", "cs_bill_customer_sk",
+                    "cs_item_sk")
+            .join(dt, on=col("cs_sold_date_sk") == col("d_date_sk"))
+            .group_by("cs_bill_customer_sk", "cs_item_sk").agg())
+    j = ssci.join(csci,
+                  on=(col("ss_customer_sk") == col("cs_bill_customer_sk"))
+                  & (col("ss_item_sk") == col("cs_item_sk")),
+                  how="full_outer")
+    store_only = when(col("ss_customer_sk").is_not_null()
+                      & col("cs_bill_customer_sk").is_null(), 1) \
+        .otherwise(0)
+    catalog_only = when(col("ss_customer_sk").is_null()
+                        & col("cs_bill_customer_sk").is_not_null(), 1) \
+        .otherwise(0)
+    both = when(col("ss_customer_sk").is_not_null()
+                & col("cs_bill_customer_sk").is_not_null(), 1) \
+        .otherwise(0)
+    return j.agg(("sum", store_only, "store_only"),
+                 ("sum", catalog_only, "catalog_only"),
+                 ("sum", both, "store_and_catalog"))
+
+
+def q97_pandas(t):
+    dt = t["date_dim"][t["date_dim"].d_year == 2000][["d_date_sk"]]
+    ss = t["store_sales"].merge(dt, left_on="ss_sold_date_sk",
+                                right_on="d_date_sk")
+    ssci = ss[["ss_customer_sk", "ss_item_sk"]].drop_duplicates()
+    cs = t["catalog_sales"].merge(dt, left_on="cs_sold_date_sk",
+                                  right_on="d_date_sk")
+    csci = cs[["cs_bill_customer_sk", "cs_item_sk"]].drop_duplicates()
+    j = ssci.merge(csci, how="outer",
+                   left_on=["ss_customer_sk", "ss_item_sk"],
+                   right_on=["cs_bill_customer_sk", "cs_item_sk"])
+    return pd.DataFrame({
+        "store_only": [int((j.ss_customer_sk.notna()
+                            & j.cs_bill_customer_sk.isna()).sum())],
+        "catalog_only": [int((j.ss_customer_sk.isna()
+                              & j.cs_bill_customer_sk.notna()).sum())],
+        "store_and_catalog": [int((j.ss_customer_sk.notna()
+                                   & j.cs_bill_customer_sk.notna()).sum())],
+    })
+
+
+QUERIES_EXT = {
+    "q1": (q1, q1_pandas), "q6": (q6, q6_pandas),
+    "q20": (q20, q20_pandas), "q27": (q27, q27_pandas),
+    "q29": (q29, q29_pandas), "q32": (q32, q32_pandas),
+    "q34": (q34, q34_pandas), "q36": (q36, q36_pandas),
+    "q41": (q41, q41_pandas), "q46": (q46, q46_pandas),
+    "q70": (q70, q70_pandas), "q73": (q73, q73_pandas),
+    "q81": (q81, q81_pandas), "q93": (q93, q93_pandas),
+    "q97": (q97, q97_pandas),
+}

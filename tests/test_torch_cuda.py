@@ -1,7 +1,7 @@
 """`hyperspace_tpu_torch` on a CUDA card: the hand-written kernels against
 their plain versions, and the card's build, filter, Exchange, join,
-incremental-refresh, compaction-sort and hybrid-join lanes against the
-CPU's.
+incremental-refresh, compaction-sort, hybrid-join, aggregate, sort,
+window and set-operation lanes against the CPU's.
 
 Marked `cuda`; each test skips where there is no card. On the machine
 with the card (which has no JAX, so the JAX-loading conftest is skipped):
@@ -376,3 +376,71 @@ def test_card_sort_and_topk_equal_cpu(card, keys):
         assert got.is_host
         assert columnar.to_arrow(got).equals(
             columnar.to_arrow(topk_batch(cpu_in, keys, k)))
+
+
+@pytest.mark.parametrize("partition,order", [
+    (["g"], ["-x"]), (["s"], ["q", "-d"]), ([], ["-q"]), (["g", "s"], [])],
+    ids=["g/-x", "s/q,-d", "none/-q", "g,s/none"])
+def test_card_window_equals_host_lane(card, partition, order):
+    """`window_compute` on the card at 1,048,576 rows against the host
+    (numpy) lane: ties (low-cardinality keys) and nulls in partition and
+    order keys; ranks, counts and integers exactly, float64 within
+    rtol=1e-9 (partition sums add in another order on each lane)."""
+    from hyperspace_tpu_torch.ops.window import window_compute
+    from hyperspace_tpu_torch.plan.nodes import AggSpec, Window
+
+    table = _analytic_table(1 << 20)
+    specs = ([AggSpec("rank", "*", "rk"), AggSpec("dense_rank", "*", "drk")]
+             if order else [])
+    specs += [AggSpec("row_number", "*", "rn"), AggSpec("count", "*", "n"),
+              AggSpec("count", "q", "nq"), AggSpec("sum", "q", "sq"),
+              AggSpec("sum", "x", "sx"), AggSpec("avg", "nx", "ax"),
+              AggSpec("min", "d", "mind"), AggSpec("max", "nx", "maxx")]
+    out = {}
+    for lane, device in (("card", card), ("host", None)):
+        batch = columnar.from_arrow(table, device=device)
+
+        class _Child:
+            schema = batch.schema
+        schema = Window(partition, order, specs, _Child()).schema
+        got = window_compute(batch, partition, order, specs, schema)
+        assert got.is_host == (lane == "host")
+        out[lane] = columnar.to_arrow(got)
+    gpu, cpu = out["card"], out["host"]
+    assert gpu.num_rows == cpu.num_rows == 1 << 20
+    for name in cpu.column_names:
+        if pa.types.is_floating(cpu.schema.field(name).type):
+            g = gpu.column(name).to_numpy(zero_copy_only=False)
+            c = cpu.column(name).to_numpy(zero_copy_only=False)
+            assert np.allclose(g, c, rtol=1e-9, atol=0, equal_nan=True), name
+        else:
+            assert gpu.column(name).equals(cpu.column(name)), name
+
+
+@pytest.mark.parametrize("names", [["g"], ["s", "q"], ["g", "s", "d", "nx"]])
+@pytest.mark.parametrize("anti", [False, True], ids=["intersect", "except"])
+def test_card_set_op_indices_equal_host_lane(card, names, anti):
+    """`set_op_indices` on the card at 1,048,576 left rows against the host
+    lane: the same left-row indices in the same first-occurrence order,
+    with duplicates, nulls (NULL equals NULL) and string sides whose
+    dictionaries differ."""
+    from hyperspace_tpu_torch.ops.setops import set_op_indices
+
+    left = _analytic_table(1 << 20)
+    rng = np.random.default_rng(23)
+    right = _analytic_table(300_000).take(
+        rng.integers(0, 300_000, 200_000))
+    right = right.set_column(
+        right.column_names.index("s"), "s",
+        pa.array([f"w{i}" for i in rng.integers(20, 60, right.num_rows)],
+                 mask=rng.random(right.num_rows) < 0.05))
+    # No right row has a `g` divisible by 7, so EXCEPT on `g` keeps rows.
+    right = right.filter(np.asarray(right.column("g")) % 7 != 0)
+    got = set_op_indices(columnar.from_arrow(left, device=card),
+                         columnar.from_arrow(right, device=card), names,
+                         anti)
+    want = set_op_indices(columnar.from_arrow(left),
+                          columnar.from_arrow(right), names, anti)
+    assert len(want) > 0
+    assert isinstance(got, torch.Tensor) and got.device.type == "cuda"
+    assert got.cpu().numpy().tolist() == want.tolist()

@@ -6,7 +6,9 @@
   ReusedSubplan whose child executes once, a cross join refuses a product
   over its row guard and reads one column of a side the output does not
   use;
-- the filter and join rules still fire under Aggregate, Sort and Limit;
+- the filter and join rules still fire under Aggregate, Sort and Limit,
+  and an Aggregate over a bare Filter(Scan) reads the source when the
+  index does not cover every scan column, as in the JAX package;
 - the DataFrame verbs (`with_column`, `distinct`, `having`, the
   GroupedData shorthands) against numpy, on both lanes.
 """
@@ -135,13 +137,24 @@ def test_cross_join_guard_and_one_column_floor(lake, monkeypatch):
         df.join(df.select("g"), how="cross").count()
 
 
-def test_rules_fire_under_aggregate_sort_and_limit(lake):
+def test_rules_fire_under_aggregate_sort_and_limit(lake, tmp_path):
     sess, df, cols = lake
+    # A second source with a column `w` that its index `pkw` does not
+    # include: an Aggregate over a bare Filter(Scan) reads the source, as
+    # in the JAX package — the filter rule judges a bare Filter(Scan) on
+    # every scan column, not on the aggregate's.
+    wide = pa.table({**{c: cols[c] for c in ("key", "g", "v", "s")},
+                     "w": np.arange(N, dtype=np.int64)})
+    (tmp_path / "wide").mkdir()
+    pq.write_table(wide, str(tmp_path / "wide" / "part-0.parquet"))
+    wdf = sess.read_parquet(str(tmp_path / "wide"))
+    ths.Hyperspace(sess).create_index(
+        wdf, ths.IndexConfig("pkw", ["key"], ["g", "v"]))
     sess.enable_hyperspace()
     narrow = df.filter(col("key") < lit(250))
     frames = {
-        "aggregate_over_bare_filter": narrow.group_by("g").agg(
-            ("sum", "v", "t")),
+        "aggregate_over_bare_filter": wdf.filter(col("key") < lit(250))
+        .group_by("g").agg(("sum", "v", "t")),
         "aggregate": narrow.select("g", "v").group_by("g").agg(
             ("count", "*", "n")),
         "sort": narrow.select("key", "v").sort("-v"),
@@ -149,7 +162,8 @@ def test_rules_fire_under_aggregate_sort_and_limit(lake):
         "topk": narrow.select("key", "v").sort("v").limit(5),
     }
     for name, frame in frames.items():
-        assert _index_names(sess, frame) == ["pk"], name
+        want_read = [] if name == "aggregate_over_bare_filter" else ["pk"]
+        assert _index_names(sess, frame) == want_read, name
     got = frames["aggregate_over_bare_filter"].sort("g").collect()
     mask = cols["key"] < 250
     want = [cols["v"][mask & (cols["g"] == g)].sum() for g in range(4)]

@@ -1,0 +1,159 @@
+"""Helpers shared by the port's TPC-H and TPC-DS parity tests.
+
+- `plan_text`: an optimized logical plan as text, every scalar subquery's
+  optimized plan appended, with the warehouse and lake roots replaced by
+  placeholders — so the port's plan and the JAX package's compare as
+  strings.
+- `tpcds_lake`: one seeded TPC-DS lake (scale 0.05, 8 buckets — the size
+  of `tests/test_tpcds.py`) with the 13 indexes of `create_indexes` built
+  by the JAX package and by two sessions of the port: its host lane (the
+  default `min.device.rows`) and its torch lane (`min.device.rows = 0`
+  and every index built on the device lane).
+- `same`: the result comparison of `tests/test_tpcds.py` (rows sorted,
+  numbers as float64).
+"""
+
+import os
+
+import pandas as pd
+import pyarrow.parquet as pq
+
+TPCDS_SCALE = 0.05
+BUCKETS = "8"
+
+
+def plan_text(plan, scalar_subqueries, roots) -> str:
+    """`plan.tree_string()` plus the tree of each scalar subquery's
+    optimized plan, recursively; each `(path, placeholder)` of `roots`
+    replaced."""
+    text = plan.tree_string()
+    for i, sub in enumerate(scalar_subqueries(plan)):
+        text += (f"\n[scalar subquery {i}]\n"
+                 + plan_text(sub.execution_plan(), scalar_subqueries, ()))
+    for path, placeholder in roots:
+        text = text.replace(path, placeholder)
+    return text
+
+
+def optimized_plan_texts(name, port, jax, queries, jqueries, root):
+    """(port text, JAX text) of query `name`'s rules-on optimized plan.
+    `port`/`jax` are (session, dfs) pairs whose warehouses are
+    `<root>/<lane>` and `<root>/jax_wh`."""
+    from hyperspace_tpu.engine.executor import _scalar_subqueries as jsubs
+
+    from hyperspace_tpu_torch.engine.executor import (
+        _scalar_subqueries as tsubs)
+
+    (sess, dfs), (jsess, jdfs) = port, jax
+    sess.enable_hyperspace()
+    jsess.enable_hyperspace()
+    try:
+        got = sess.optimize(queries[name][0](dfs).plan)
+        want = jsess.optimize(jqueries[name][0](jdfs).plan)
+    finally:
+        sess.disable_hyperspace()
+        jsess.disable_hyperspace()
+    return (plan_text(got, tsubs, [(os.path.join(root, "host"), "<WH>")]),
+            plan_text(want, jsubs, [(os.path.join(root, "jax_wh"),
+                                     "<WH>")]))
+
+
+def _port_session(root, lane, paths):
+    import hyperspace_tpu_torch as ths
+    from hyperspace_tpu_torch.io import builder
+    from hyperspace_tpu_torch.tpcds.queries import create_indexes
+
+    conf = {"spark.hyperspace.warehouse.dir": os.path.join(root, lane),
+            "spark.hyperspace.index.num.buckets": BUCKETS}
+    if lane == "torch":
+        conf["spark.hyperspace.execution.min.device.rows"] = "0"
+    sess = ths.HyperspaceSession(ths.HyperspaceConf(conf), device="cpu")
+    dfs = {name: sess.read_parquet(path) for name, path in paths.items()}
+    saved = builder.BUILD_MIN_DEVICE_ROWS
+    if lane == "torch":
+        builder.BUILD_MIN_DEVICE_ROWS = 0
+    try:
+        create_indexes(ths.Hyperspace(sess), dfs)
+    finally:
+        builder.BUILD_MIN_DEVICE_ROWS = saved
+    return sess, dfs
+
+
+def tpcds_lake(root: str, jax_data: bool = False) -> dict:
+    """The lake, its sessions and the pandas tables; `jax_data` also
+    writes the JAX package's generator output beside the port's (for the
+    byte comparison)."""
+    import hyperspace_tpu as jhs
+    from hyperspace_tpu.tpcds import generate as jgenerate
+    from hyperspace_tpu.tpcds.queries import create_indexes as jcreate
+
+    from hyperspace_tpu_torch.tpcds import generate
+
+    paths = generate(os.path.join(root, "data"), scale=TPCDS_SCALE)
+    jpaths = (jgenerate(os.path.join(root, "jax_data"), scale=TPCDS_SCALE)
+              if jax_data else None)
+    jsess = jhs.HyperspaceSession(jhs.HyperspaceConf({
+        "hyperspace.warehouse.dir": os.path.join(root, "jax_wh"),
+        "spark.hyperspace.index.num.buckets": BUCKETS}))
+    jdfs = {name: jsess.read_parquet(path) for name, path in paths.items()}
+    jcreate(jhs.Hyperspace(jsess), jdfs)
+    pdfs = {name: pq.read_table(os.path.join(path, "part-0.parquet"))
+            .to_pandas() for name, path in paths.items()}
+    return {"root": root, "paths": paths, "jax_paths": jpaths,
+            "jax": (jsess, jdfs), "pandas": pdfs,
+            "host": _port_session(root, "host", paths),
+            "torch": _port_session(root, "torch", paths),
+            "jax_results": {}}
+
+
+def norm(df: pd.DataFrame) -> pd.DataFrame:
+    out = df.sort_values(list(df.columns)).reset_index(drop=True)
+    return out.astype({c: "float64" for c in out.columns
+                       if out[c].dtype.kind in "fi"})
+
+
+def same(got: pd.DataFrame, want: pd.DataFrame, **tol) -> None:
+    assert list(got.columns) == list(want.columns)
+    pd.testing.assert_frame_equal(norm(got), norm(want), check_dtype=False,
+                                  check_exact=False, **tol)
+
+
+# Operators that must not run on a host batch on the torch lane.
+DEVICE_OPERATORS = ("Window", "Intersect", "Except", "Aggregate",
+                    "SortMergeJoin")
+
+
+def check_tpcds_query(lake, name, lane, queries, jqueries) -> None:
+    """Query `name` through the port's `lane`, rules on and off, equals
+    the pandas oracle and the JAX package's rules-on result; on the torch
+    lane no Window, set operation, Aggregate or SortMergeJoin ran on a
+    host batch."""
+    sess, dfs = lake[lane]
+    build, oracle = queries[name]
+    expected = oracle(lake["pandas"])
+    assert len(expected) > 0, f"{name}: oracle returned no rows"
+    if name not in lake["jax_results"]:
+        jsess, jdfs = lake["jax"]
+        jsess.enable_hyperspace()
+        try:
+            lake["jax_results"][name] = jqueries[name][0](jdfs).to_pandas()
+        finally:
+            jsess.disable_hyperspace()
+    jax_on = lake["jax_results"][name]
+
+    sess.enable_hyperspace()
+    try:
+        table, metrics = build(dfs).collect(with_metrics=True)
+        got_on = table.to_pandas()
+    finally:
+        sess.disable_hyperspace()
+    got_off = build(dfs).to_pandas()
+
+    if lane == "torch":
+        host_ops = [o.name for o in metrics.operators
+                    if o.name in DEVICE_OPERATORS
+                    and o.detail.get("lane") == "host"]
+        assert host_ops == []
+    for got in (got_on, got_off):
+        same(got, jax_on, rtol=1e-9, atol=1e-12)
+        same(got, expected, rtol=1e-6)
