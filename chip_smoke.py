@@ -47,6 +47,19 @@ entry points:
   and rules off, each against the pandas oracle, each rules-on plan on the
   indexes the JAX package's plan reads.
 
+Around the main path it also drives the host I/O layer: the native host
+library (built with `g++` from `hyperspace_tpu_torch/native/`; a `native`
+line with its build time and the time to hash TPC-H `o_comment`'s
+dictionary with it and with the pure-Python loop), the transfer engine (a
+`transfer` line: its H2D and D2H rates for 512 MB against one plain
+`.to()` and `.cpu()`), the build's native-host against device
+permutations on the 16,777,216-row source, and the read caches: the
+`tpch` and `tpcds` phases run every query cold (after
+`parquet.clear_read_cache()` and `segcache.clear()`) and warm, rules on
+and off, with the `cache.*` and `link.h2d.*` counters of each pass, and
+the maintenance phase queries the index after every refresh, optimize,
+delete, restore and vacuum. The caches keep their default budgets.
+
 Every result is checked against numpy (TPC-H, TPC-DS: pandas) over the
 sources. Every phase prints one JSON line, with the kernel launches counted from
 zero over it; any mismatch or error ends the run with a non-zero exit. The
@@ -75,6 +88,7 @@ N_MAINT_APPEND = N_MAINT // 20  # each maintenance round's appended slice
 TPCH_SCALE = 100                # the generator's scale for SF1 row counts
 TPCDS_SCALE = 10                # ~SF1 fact-table rows (2.9M store_sales)
 EXCHANGE_BUCKETS = 200          # the left index's count: B's Exchange target
+TRANSFER_BYTES = 512 << 20      # each way, in the transfer phase
 SEED = 42
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 INT_OPS_PER_S = 67e12           # H100 SXM non-tensor 32-bit rate
@@ -93,6 +107,18 @@ def fail(message):
 def check(cond, message):
     if not cond:
         fail(message)
+
+
+def counter_deltas(before, after, prefixes=("cache.", "link.h2d.")):
+    """The registry counters under `prefixes` that moved between two
+    `counters_dict()` snapshots."""
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if k.startswith(prefixes) and v != before.get(k, 0)}
+
+
+def add_deltas(total, deltas):
+    for k, v in deltas.items():
+        total[k] = total.get(k, 0) + v
 
 
 def card_line():
@@ -280,6 +306,87 @@ def phase_kernel_partition(partition_kernel, hash_kernel):
     return row
 
 
+def phase_transfer(card):
+    """The transfer engine against one plain PyTorch copy, 512 MB each
+    way: H2D from a pageable numpy array (the engine stages it through
+    reused pinned buffers in 4 MiB chunks on a side stream) and D2H of a
+    card tensor (the engine's prefetch into pinned memory, then fetch).
+    GB/s from the median of 3 after one warm-up, each timed between
+    synchronizes."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from hyperspace_tpu_torch.io import transfer
+
+    engine = transfer.get_engine()
+    host = np.random.default_rng(SEED).integers(0, 1 << 62,
+                                                TRANSFER_BYTES // 8)
+    nbytes = host.nbytes
+
+    def rate(fn):
+        seconds, out = [], None
+        for i in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            if i:
+                seconds.append(time.perf_counter() - t0)
+        return nbytes / statistics.median(seconds) / 1e9, out
+
+    out = {"bytes": nbytes,
+           "chunk_bytes": engine.chunk_bytes,
+           "inflight_bytes": engine.inflight_bytes}
+    out["engine_h2d_gbps"], dev = rate(lambda: engine.put(host, card))
+    check(torch.equal(dev, torch.from_numpy(host).to(card)),
+          "transfer: the engine's H2D copy differs")
+    out["plain_h2d_gbps"], _ = rate(lambda: torch.from_numpy(host).to(card))
+
+    def engine_d2h():
+        engine.prefetch(dev)
+        return engine.fetch(dev)
+
+    out["engine_d2h_gbps"], back = rate(engine_d2h)
+    check(np.array_equal(back, host), "transfer: the engine's D2H differs")
+    out["plain_d2h_gbps"], _ = rate(lambda: dev.cpu())
+    out["staging"] = {k: engine.stats[k] for k in (
+        "staging_allocated", "staging_reused", "window_waits")}
+    return out
+
+
+def native_line(orders_dir):
+    """The native library's build time, and the FNV-1a hash of TPC-H
+    `o_comment`'s dictionary with the library and with the pure-Python
+    loop, equal bit for bit."""
+    import numpy as np
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import native
+    from hyperspace_tpu_torch.io import columnar
+
+    check(native.get_lib() is not None,
+          "the native host library did not load")
+    comments = pq.read_table(os.path.join(orders_dir, "part-0.parquet"),
+                             columns=["o_comment"]).column("o_comment")
+    dictionary = pc.unique(comments.combine_chunks())
+    values = np.asarray(dictionary.to_numpy(zero_copy_only=False), dtype=str)
+    t0 = time.perf_counter()
+    fast = native.arrow_string_hash64(dictionary)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    slow = columnar.string_hash64_python(values)
+    python_s = time.perf_counter() - t0
+    check(np.array_equal(fast, slow),
+          "native: o_comment hashes differ from the Python loop")
+    return {"loaded": True, "library": native.library_path(),
+            "build_s": native.build_seconds,
+            "o_comment_dictionary": len(values),
+            "native_hash_s": native_s, "python_hash_s": python_s}
+
+
 def write_source(src_dir):
     """bench.py's filter-rung schema at N_ROWS rows, in N_FILES files."""
     import numpy as np
@@ -307,7 +414,7 @@ def phase_build(hs, sess, src_dir, cols):
     import pyarrow.parquet as pq
 
     from hyperspace_tpu_torch import IndexConfig
-    from hyperspace_tpu_torch.io.builder import BUILD_PHASES
+    from hyperspace_tpu_torch.io.builder import BUILD_PHASES, build_lane
 
     registry = hs.metrics_registry()
     before = registry.counters_dict()
@@ -333,9 +440,58 @@ def phase_build(hs, sess, src_dir, cols):
               f"{name}: a row hashes to another bucket")
         check((np.diff(key) >= 0).all(), f"{name}: keys not sorted")
     check(rows == len(cols["key"]), f"index holds {rows} rows")
+    # The phases are walls on the calling thread: `decode` is the key
+    # decode plus the wait for the payload-decode thread, `write` the
+    # gathers plus the waits for the writer thread.
     emit("build", rows=rows, files=len(files), num_buckets=200,
-         seconds=build_s, phase_seconds=phases, root=root)
+         lane=build_lane(rows, sess.device), seconds=build_s,
+         phase_seconds=phases, root=root)
     return df, root
+
+
+def build_lanes(src_dir, card):
+    """The build's two permutation engines on the filter rung's
+    16,777,216 keys, 200 buckets: the native-host lane (the C++ radix
+    sort; the JAX package's choice once its library loads) and the device
+    lane (key H2D through the transfer engine, the hash kernel, the torch
+    sort, the permutation's D2H). Both permutations must be equal; each
+    lane is timed twice, in turns, after one warm-up each, best kept.
+    Runs outside the counted phases: its launches are not the main
+    path's."""
+    import numpy as np
+    import pyarrow.parquet as pq
+    import torch
+
+    from hyperspace_tpu_torch.io.builder import (_host_build_permutation,
+                                                 _stage_key_tree)
+    from hyperspace_tpu_torch.ops.build import permutation_from_tree
+
+    keys = pq.read_table(sorted(
+        os.path.join(src_dir, f) for f in os.listdir(src_dir)),
+        columns=["key"])
+
+    def native_lane():
+        return _host_build_permutation(keys, ["key"], 200)[0]
+
+    def device_lane():
+        tree = _stage_key_tree(keys, ["key"], card)
+        return permutation_from_tree(tree, ["key"], 200)[0].cpu().numpy()
+
+    seconds = {"native-host": [], "device": []}
+    perms = {}
+    for lane in ("native-host", "device", "device", "native-host",
+                 "native-host", "device"):
+        fn = native_lane if lane == "native-host" else device_lane
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        perms[lane] = fn()
+        torch.cuda.synchronize()
+        seconds[lane].append(time.perf_counter() - t0)
+    check(np.array_equal(perms["native-host"], perms["device"]),
+          "build lanes: the native-host and device permutations differ")
+    best = {lane: min(s[1:]) for lane, s in seconds.items()}
+    return {"rows": keys.num_rows, "seconds": seconds, "best_s": best,
+            "faster": min(best, key=best.get)}
 
 
 def phase_query(sess, df, root, cols):
@@ -670,41 +826,92 @@ def _same_bytes(dir_a, dir_b):
 
 def phase_maintenance(hs, sess, work):
     """bench.py's rung 5 at half its size: incremental refresh, optimize
-    and full refresh of a 4,194,304-row index, then the lifecycle verbs."""
+    and full refresh of a 4,194,304-row index, then the lifecycle verbs.
+    After every verb a point lookup (host lane, then device lane) must
+    read the newest committed version — or the source, once the index is
+    gone — and equal numpy over the source; the FSM's cache-invalidation
+    counter must have moved (restore writes no data, so it moves none)."""
     import numpy as np
     import pyarrow as pa
     import pyarrow.parquet as pq
 
-    from hyperspace_tpu_torch import IndexConfig
+    from hyperspace_tpu_torch import IndexConfig, col, lit
     from hyperspace_tpu_torch import telemetry
 
     src = os.path.join(work, "maint_src")
     os.makedirs(src)
     rng = np.random.default_rng(SEED + 5)
+    written = {}
 
     def write(name, n):
-        pq.write_table(pa.table({
-            "key": rng.integers(0, N_MAINT // 4, n).astype(np.int64),
-            "score": rng.random(n)}), os.path.join(src, name))
+        key = rng.integers(0, N_MAINT // 4, n).astype(np.int64)
+        score = rng.random(n)
+        written[name] = (key, score)
+        pq.write_table(pa.table({"key": key, "score": score}),
+                       os.path.join(src, name))
 
     write("part-0.parquet", N_MAINT)
     root = os.path.join(sess.conf.system_path, "bench_opt")
+    registry = telemetry.get_registry()
+    checks = []
 
     def timed(fn, *args, **kwargs):
         t0 = time.perf_counter()
         fn(*args, **kwargs)
         return time.perf_counter() - t0
 
-    out = {"create_s": timed(hs.create_index, sess.read_parquet(src),
-                             IndexConfig("bench_opt", ["key"], ["score"]))}
+    def point_check(verb, before):
+        """The newest rows of one key through the rules, against numpy."""
+        newest = sorted(written)[-1]
+        probe = int(written[newest][0][0])
+        want = np.sort(np.concatenate(
+            [score[key == probe] for key, score in written.values()]))
+        catalog = hs.indexes()
+        live = ({loc for loc, state in zip(catalog["indexLocation"],
+                                           catalog["state"])
+                 if state == "ACTIVE"} if len(catalog) else set())
+        moved = registry.counter("cache.invalidations").value - before
+        check(moved > 0 or verb in ("create", "restore"),
+              f"maintenance {verb}: no cache invalidation")
+        sess.enable_hyperspace()
+        roots = []
+        for min_rows in (None, "0"):
+            if min_rows is not None:
+                sess.conf.set(
+                    "spark.hyperspace.execution.min.device.rows", min_rows)
+            frame = (sess.read_parquet(src)
+                     .filter(col("key") == lit(probe)).select("score"))
+            roots = [r for leaf in sess.optimize(frame.plan)
+                     .collect_leaves() for r in leaf.root_paths]
+            got = np.sort(frame.collect().column("score").to_numpy())
+            check(np.array_equal(got, want),
+                  f"maintenance {verb}: {len(got)} rows, want {len(want)}")
+        sess.conf.unset("spark.hyperspace.execution.min.device.rows")
+        index_roots = [r for r in roots if "v__=" in r]
+        check(all(r.rstrip("/") in live for r in index_roots),
+              f"maintenance {verb}: read {index_roots}, newest {live}")
+        checks.append({"verb": verb, "rows": len(want),
+                       "index": bool(index_roots),
+                       "invalidations": moved})
+
+    def verb(name, fn, *args, **kwargs):
+        before = registry.counter("cache.invalidations").value
+        seconds = timed(fn, *args, **kwargs)
+        point_check(name, before)
+        return seconds
+
+    out = {"create_s": verb("create", hs.create_index,
+                            sess.read_parquet(src),
+                            IndexConfig("bench_opt", ["key"], ["score"]))}
     inc, opt = [], []
     for i in range(3):
         write(f"part-extra{i}.parquet", N_MAINT_APPEND)
-        inc.append(timed(hs.refresh_index, "bench_opt", mode="incremental"))
-        opt.append(timed(hs.optimize_index, "bench_opt"))
-        lane = telemetry.get_registry().last_action_report()["detail"]["lane"]
+        inc.append(verb("incremental refresh", hs.refresh_index,
+                        "bench_opt", mode="incremental"))
+        opt.append(verb("optimize", hs.optimize_index, "bench_opt"))
+        lane = registry.last_action_report()["detail"]["lane"]
         check(lane == "merge", f"optimize {i} took the {lane} lane")
-    full = [timed(hs.refresh_index, "bench_opt", mode="full")
+    full = [verb("full refresh", hs.refresh_index, "bench_opt", mode="full")
             for _ in range(2)]
     # v__=0 create; v__=1..6 three (incremental, optimize) rounds;
     # v__=7, v__=8 the full refreshes over the same source.
@@ -723,22 +930,30 @@ def phase_maintenance(hs, sess, work):
     out["composite_incremental_s"] = timed(
         hs.refresh_index, "bench_opt2", mode="incremental")
     out["optimize_device_s"] = timed(hs.optimize_index, "bench_opt2")
-    lane = telemetry.get_registry().last_action_report()["detail"]["lane"]
+    lane = registry.last_action_report()["detail"]["lane"]
     check(lane == "device", f"the composite optimize took the {lane} lane")
     out["composite_full_refresh_s"] = timed(hs.refresh_index, "bench_opt2",
                                             mode="full")
     root2 = os.path.join(sess.conf.system_path, "bench_opt2")
     out["composite_byte_equal_files"] = _same_bytes(
         os.path.join(root2, "v__=2"), os.path.join(root2, "v__=3"))
+    hs.delete_index("bench_opt2")
+    hs.vacuum_index("bench_opt2")
 
-    for verb in ("delete", "restore", "delete", "vacuum"):
-        getattr(hs, f"{verb}_index")("bench_opt")
+    # bench_opt catches up with the composite rounds' append, so the
+    # restored index serves again.
+    verb("full refresh", hs.refresh_index, "bench_opt", mode="full")
+    for name in ("delete", "restore", "delete", "vacuum"):
+        verb(name, getattr(hs, f"{name}_index"), "bench_opt")
     left = ([d for d in os.listdir(root) if d.startswith("v__=")]
             if os.path.isdir(root) else [])
     check(not left, f"vacuum left version dirs of bench_opt: {left}")
     catalog = hs.indexes()
     check("bench_opt" not in list(catalog.get("name", [])),
           "bench_opt is still listed after vacuum")
+    check([c["index"] for c in checks[-4:]] == [False, True, False, False],
+          f"maintenance: lifecycle reads {checks[-4:]}")
+    out["checks"] = checks
     return out
 
 
@@ -780,7 +995,9 @@ def phase_tpch(hs, sess, work):
 
     t0 = time.perf_counter()
     paths = generate(os.path.join(work, "tpch"), scale=TPCH_SCALE)
-    out = {"generate_s": time.perf_counter() - t0,
+    generate_s = time.perf_counter() - t0
+    emit("native", **native_line(paths["orders"]))
+    out = {"generate_s": generate_s,
            "table_rows": {name: pq.ParquetFile(
                os.path.join(p, "part-0.parquet")).metadata.num_rows
                for name, p in paths.items()}}
@@ -806,11 +1023,18 @@ def phase_tpch(hs, sess, work):
 
     oracle_s = 0.0
     queries = {}
+    passes = {p: {} for p in PASSES}
     for name, (build, oracle) in QUERIES.items():
         t0 = time.perf_counter()
         expected = oracle(pdfs)
         oracle_s += time.perf_counter() - t0
         check(len(expected) > 0, f"tpch {name}: the oracle returned no rows")
+        run = pass_runner(hs, sess, passes, f"tpch {name}",
+                          lambda table, tag: same(table.to_pandas(),
+                                                  expected, tag))
+        cold_on_ms, _, _ = run("cold_on", build(dfs))
+        cold_off_ms, _, _ = run("cold_off", build(dfs))
+        off_ms, _, _ = run("warm_off", build(dfs))
 
         sess.enable_hyperspace()
         frame = build(dfs)
@@ -819,12 +1043,8 @@ def phase_tpch(hs, sess, work):
                        if leaf.index_name})
         check(read == TPCH_INDEXES_READ.get(name, []),
               f"tpch {name}: the rules-on plan reads {read}")
-        frame.collect()  # warm-up
-        runs = []
-        for _ in range(2):
-            t0 = time.perf_counter()
-            table, metrics = frame.collect(with_metrics=True)
-            runs.append(((time.perf_counter() - t0) * 1e3, table, metrics))
+        run("warm_up", frame)
+        runs = [run("warm_on", frame) for _ in range(2)]
         on_ms = statistics.median(ms for ms, _, _ in runs)
         _, table, metrics = runs[-1]
         host_ops = sorted({o.name for o in metrics.operators
@@ -834,28 +1054,62 @@ def phase_tpch(hs, sess, work):
         if name == "q1":
             check(_ipc_bytes(runs[0][1]) == _ipc_bytes(runs[1][1]),
                   "tpch q1: two rules-on runs gave different bytes")
-        same(table.to_pandas(), expected, f"tpch {name} rules on")
-
-        sess.disable_hyperspace()
-        t0 = time.perf_counter()
-        plain = build(dfs).collect()
-        off_ms = (time.perf_counter() - t0) * 1e3
-        same(plain.to_pandas(), expected, f"tpch {name} rules off")
 
         ops = sorted(operator_ms(metrics), key=lambda o: -o["self_ms"])
         line = {"name": name, "rows": table.num_rows, "on_ms": on_ms,
-                "off_ms": off_ms, "indexes": read,
+                "off_ms": off_ms, "cold_on_ms": cold_on_ms,
+                "cold_off_ms": cold_off_ms, "indexes": read,
                 "top_operators": [{"op": o["op"], "self_ms": o["self_ms"]}
                                   for o in ops[:3]]}
         emit("tpch_query", **line)
         queries[name] = line
     sess.conf.unset("spark.hyperspace.execution.min.device.rows")
-    out.update(oracle_s=oracle_s,
-               on_ms_total=sum(q["on_ms"] for q in queries.values()),
-               off_ms_total=sum(q["off_ms"] for q in queries.values()),
+    out.update(oracle_s=oracle_s, passes=passes,
+               **totals(queries, ("on_ms", "off_ms", "cold_on_ms",
+                                  "cold_off_ms")),
                slowest_on=sorted(queries,
                                  key=lambda q: -queries[q]["on_ms"])[:5])
     return out
+
+
+# The four timed passes over each TPC query (and the warm-up, which fills
+# the caches for the warm rules-on pass): cold passes start from empty
+# caches; warm passes find what the same query's previous run left.
+PASSES = ("cold_on", "cold_off", "warm_off", "warm_up", "warm_on")
+
+
+def pass_runner(hs, sess, passes, tag, same):
+    """A function that runs one frame in one pass — emptying every read
+    cache first for a cold pass, rules on or off as the pass names —
+    checks its result with `same(table, tag)` and adds the pass's `cache.*`
+    and `link.h2d.*` counter deltas to `passes`. Returns (ms, table,
+    metrics)."""
+    from hyperspace_tpu_torch.io import parquet, segcache
+
+    registry = hs.metrics_registry()
+
+    def run(pass_name, frame):
+        if pass_name.startswith("cold"):
+            parquet.clear_read_cache()
+            segcache.clear()
+        if pass_name.endswith("_off"):
+            sess.disable_hyperspace()
+        else:
+            sess.enable_hyperspace()
+        before = registry.counters_dict()
+        t0 = time.perf_counter()
+        table, metrics = frame.collect(with_metrics=True)
+        ms = (time.perf_counter() - t0) * 1e3
+        add_deltas(passes[pass_name],
+                   counter_deltas(before, registry.counters_dict()))
+        same(table, f"{tag} {pass_name}")
+        return ms, table, metrics
+
+    return run
+
+
+def totals(queries, keys):
+    return {f"{k}_total": sum(q[k] for q in queries.values()) for k in keys}
 
 
 # The covering indexes each TPC-DS rules-on plan reads (its scalar
@@ -949,46 +1203,57 @@ def phase_tpcds(hs, sess, work):
 
     oracle_s = 0.0
     queries = {}
+    passes = {p: {} for p in PASSES}
     for name, (build, oracle) in QUERIES.items():
         t0 = time.perf_counter()
         expected = oracle(pdfs)
         oracle_s += time.perf_counter() - t0
         check((len(expected) > 0) != (name in TPCDS_EMPTY_AT_SCALE),
               f"tpcds {name}: the oracle returned {len(expected)} rows")
+        run = pass_runner(hs, sess, passes, f"tpcds {name}",
+                          lambda table, tag: same(table.to_pandas(),
+                                                  expected, tag))
+        cold_on_ms, _, _ = run("cold_on", build(dfs))
+        cold_off_ms, _, _ = run("cold_off", build(dfs))
+        off_ms, _, _ = run("warm_off", build(dfs))
 
         sess.enable_hyperspace()
-        build(dfs).collect()  # warm-up
+        run("warm_up", build(dfs))
         frame = build(dfs)
         read = sorted(indexes_read(sess.optimize(frame.plan)))
         check(read == TPCDS_INDEXES_READ.get(name, []),
               f"tpcds {name}: the rules-on plan reads {read}")
-        t0 = time.perf_counter()
-        table, metrics = frame.collect(with_metrics=True)
-        on_ms = (time.perf_counter() - t0) * 1e3
+        hits0 = passes["warm_on"].get("cache.segments.hits", 0)
+        on_ms, table, metrics = run("warm_on", frame)
         host_ops = sorted({o.name for o in metrics.operators
                            if o.name in TPCDS_DEVICE_OPERATORS
                            and o.detail.get("lane") == "host"})
         check(not host_ops, f"tpcds {name}: {host_ops} ran on a host batch")
-        same(table.to_pandas(), expected, f"tpcds {name} rules on")
-
-        sess.disable_hyperspace()
-        t0 = time.perf_counter()
-        plain = build(dfs).collect()
-        off_ms = (time.perf_counter() - t0) * 1e3
-        same(plain.to_pandas(), expected, f"tpcds {name} rules off")
 
         ops = sorted(operator_ms(metrics), key=lambda o: -o["self_ms"])
         line = {"name": name, "rows": table.num_rows, "on_ms": on_ms,
-                "off_ms": off_ms, "indexes": read,
+                "off_ms": off_ms, "cold_on_ms": cold_on_ms,
+                "cold_off_ms": cold_off_ms, "indexes": read,
+                "warm_segment_hits": passes["warm_on"].get(
+                    "cache.segments.hits", 0) - hits0,
                 "top_operators": [{"op": o["op"], "self_ms": o["self_ms"]}
                                   for o in ops[:3]]}
         emit("tpcds_query", **line)
         queries[name] = line
     sess.conf.unset("spark.hyperspace.execution.min.device.rows")
-    out.update(queries=len(queries), oracle_s=oracle_s,
+    check(passes["warm_on"].get("cache.segments.hits", 0) > 0,
+          "tpcds: the warm rules-on pass hit no cached segment")
+    served = [q for q in queries if queries[q]["indexes"]]
+    out.update(queries=len(queries), oracle_s=oracle_s, passes=passes,
                phase_s=time.perf_counter() - phase_t0,
-               on_ms_total=sum(q["on_ms"] for q in queries.values()),
-               off_ms_total=sum(q["off_ms"] for q in queries.values()),
+               **totals(queries, ("on_ms", "off_ms", "cold_on_ms",
+                                  "cold_off_ms")),
+               index_served=len(served),
+               index_served_on_ms=sum(queries[q]["on_ms"] for q in served),
+               index_served_off_ms=sum(queries[q]["off_ms"]
+                                       for q in served),
+               slower_on=sum(queries[q]["on_ms"] > queries[q]["off_ms"]
+                             for q in queries),
                slowest_on=sorted(queries,
                                  key=lambda q: -queries[q]["on_ms"])[:5])
     return out
@@ -1035,6 +1300,15 @@ def main():
     emit("build_kernels", seconds=time.perf_counter() - t0,
          per_library=seconds)
 
+    from hyperspace_tpu_torch import native, telemetry
+
+    t0 = time.perf_counter()
+    check(native.get_lib() is not None,
+          "the native host library did not build or load")
+    emit("build_native", seconds=time.perf_counter() - t0,
+         library=native.library_path())
+    emit("transfer", **phase_transfer(torch.device("cuda")))
+
     rows = [phase_kernel_hash(hash_kernel),
             phase_kernel_partition(partition_kernel, hash_kernel)]
     counters = (hash_kernel.hash_lanes_to_buckets,
@@ -1064,6 +1338,8 @@ def main():
         (df, root), n = counted(counters, phase_build, hs, sess,
                                 os.path.join(work, "src"), cols)
         tally("build", n)
+        emit("build_lanes", **build_lanes(os.path.join(work, "src"),
+                                          torch.device("cuda")))
         _, n = counted(counters, phase_query, sess, df, root, cols)
         tally("query", n)
         (out, (right_df, right)), n = counted(counters, phase_join, hs,
@@ -1094,6 +1370,10 @@ def main():
     for row, count in zip(rows, launches):
         check(count > 0, f"the main path never launched {row['name']}")
         row["launches"] = count
+    unavailable = telemetry.get_registry().counter(
+        "native.unavailable").value
+    check(unavailable == 0,
+          f"{unavailable} calls fell back from the native host library")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -67,9 +67,20 @@ class CreateActionBase(Action):
     def commit_data_version(self) -> None:
         """Finalize the version dir this action wrote — the `_committed`
         marker is the build's LAST data write; until it lands the version
-        is invisible to `get_latest_version_id` and the rules."""
+        is invisible to `get_latest_version_id` and the rules. Actions
+        that carry a previous version's bucket runs forward (incremental
+        refresh) set `_touched_buckets`/`_carried_from_version` first so
+        the segment cache invalidates bucket-scoped instead of dropping
+        the whole warm set."""
         if self._data_version is not None:
-            self.data_manager.commit(self._data_version)
+            touched = getattr(self, "_touched_buckets", None)
+            carried = getattr(self, "_carried_from_version", None)
+            if touched is not None and carried is not None:
+                self.data_manager.commit(self._data_version,
+                                         touched_buckets=touched,
+                                         carried_from=carried)
+            else:
+                self.data_manager.commit(self._data_version)
 
     def _recover_stale_writer(self) -> None:
         """Lease-based crash recovery, run at the head of validate():

@@ -33,6 +33,16 @@ from hyperspace_tpu_torch.actions.refresh import RefreshAction
 from hyperspace_tpu_torch.exceptions import HyperspaceException
 
 
+def _version_of(root: str) -> Optional[int]:
+    """Committed `v__=N` parsed from a data root, or None."""
+    import re
+
+    from hyperspace_tpu_torch import constants
+    m = re.search(re.escape(constants.INDEX_VERSION_DIRECTORY_PREFIX)
+                  + r"=(\d+)$", os.path.basename(root.rstrip("/\\")))
+    return int(m.group(1)) if m else None
+
+
 def _link_or_copy(src: str, dst: str) -> None:
     from hyperspace_tpu_torch.utils import file_utils, storage
     if storage.is_url(src) or storage.is_url(dst):
@@ -194,6 +204,16 @@ class RefreshIncrementalAction(RefreshAction):
         if file_utils.exists(spec_path):
             _link_or_copy(spec_path,
                           os.path.join(out_dir, parquet.BUCKET_SPEC_FILE))
+        # Bucket-scoped invalidation channel: the commit names exactly
+        # the buckets whose bytes changed against the carried-from
+        # version; everything else is hard-linked byte-identically, so
+        # the segment cache rekeys those warm entries instead of
+        # dropping them. `touched` is the same set object the delta
+        # write below extends.
+        prev_version = _version_of(prev_root)
+        if prev_version is not None:
+            self._touched_buckets = touched
+            self._carried_from_version = prev_version
         if not appended:
             self.annotate_report(touched_buckets=sorted(touched))
             self.commit_data_version()
@@ -217,7 +237,14 @@ class RefreshIncrementalAction(RefreshAction):
             appended, names, key_names, self.num_buckets(), out_dir,
             device_of(self.conf), lineage_ids=lineage_ids,
             file_suffix=f"delta{delta_version}")
-        touched.update(parquet.bucket_of_file(f) for f in written)
+        for f in written:
+            bucket = parquet.bucket_of_file(f)
+            if bucket is None:
+                # Unparseable delta name: the bucket set is no longer
+                # provable — fall back to the full sweep.
+                self._touched_buckets = self._carried_from_version = None
+                break
+            touched.add(bucket)
         self.annotate_report(delta_files_written=len(written),
                              delta_rows=sum(parquet.file_row_counts(
                                  appended)),

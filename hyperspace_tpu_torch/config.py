@@ -118,5 +118,76 @@ class HyperspaceConf:
             constants.INDEX_CACHE_EXPIRY_DURATION_SECONDS,
             constants.INDEX_CACHE_EXPIRY_DURATION_SECONDS_DEFAULT)
 
+    @property
+    def read_cache_bytes(self):
+        """Host decoded-batch cache budget; None = env/process default.
+        The cache itself is PROCESS-wide — a session that sets this
+        governs the shared cache while its queries run, so sessions
+        sharing a process should agree on it."""
+        value = self.get(constants.READ_CACHE_BYTES_KEY)
+        return int(value) if value is not None else None
+
+    @property
+    def device_cache_bytes(self):
+        """Legacy spelling of the device segment-cache budget; kept as
+        the fallback key for `segment_cache_bytes`."""
+        value = self.get(constants.DEVICE_CACHE_BYTES_KEY)
+        return int(value) if value is not None else None
+
+    @property
+    def segment_cache_bytes(self):
+        """Device segment-cache budget (`io/segcache.py`); None = the
+        legacy `cache.device.bytes` key, then the env/process default.
+        Competes with join/sort working sets for device memory — lower
+        it (or 0) when large queries run out of memory; 0 releases
+        already-resident segments. Process-wide cache, same caveat as
+        read_cache_bytes."""
+        value = self.get(constants.SEGMENT_CACHE_BYTES_KEY)
+        if value is not None:
+            return int(value)
+        return self.device_cache_bytes
+
+    @property
+    def segment_cache_host_bytes(self) -> int:
+        """Host-RAM tier budget of the tiered segment cache
+        (`io/segcache.py`): device-tier evictions demote into host
+        memory up to this many bytes instead of dropping, and a later
+        read re-promotes through the TransferEngine fill lane (H2D
+        paid, parquet decode skipped). 0 (default) disables the tier."""
+        return self.get_int(constants.SEGMENT_CACHE_HOST_BYTES_KEY,
+                            constants.SEGMENT_CACHE_HOST_BYTES_DEFAULT)
+
+    @property
+    def segment_cache_pin_indexes(self) -> str:
+        """Comma-separated index names whose cached segments are never
+        evicted by byte pressure (invalidation still drops them)."""
+        return self.get(constants.SEGMENT_CACHE_PIN_INDEXES, "") or ""
+
+    @property
+    def io_transfer_chunk_bytes(self) -> int:
+        """Chunk granularity of pipelined H2D stagings
+        (`io/transfer.py`)."""
+        return self.get_int(constants.IO_TRANSFER_CHUNK_BYTES,
+                            constants.IO_TRANSFER_CHUNK_BYTES_DEFAULT)
+
+    @property
+    def io_transfer_inflight_bytes(self) -> int:
+        """Bound on bytes in flight across all outstanding puts."""
+        return self.get_int(constants.IO_TRANSFER_INFLIGHT_BYTES,
+                            constants.IO_TRANSFER_INFLIGHT_BYTES_DEFAULT)
+
+    @property
+    def io_transfer_threads(self) -> int:
+        """Staging-pool width (decode/convert overlap with the link)."""
+        return self.get_int(constants.IO_TRANSFER_THREADS,
+                            constants.IO_TRANSFER_THREADS_DEFAULT)
+
+    @property
+    def io_transfer_acquire_timeout_ms(self) -> int:
+        """Bound on a put's wait for in-flight-window headroom; <= 0
+        waits forever."""
+        return self.get_int(constants.IO_TRANSFER_ACQUIRE_TIMEOUT_MS,
+                            constants.IO_TRANSFER_ACQUIRE_TIMEOUT_MS_DEFAULT)
+
     def copy(self) -> "HyperspaceConf":
         return HyperspaceConf(dict(self._conf))

@@ -21,6 +21,34 @@ INDEX_CACHE_EXPIRY_DURATION_SECONDS = (
     "spark.hyperspace.index.cache.expiryDurationInSeconds")
 INDEX_CACHE_EXPIRY_DURATION_SECONDS_DEFAULT = 300
 
+# Decoded-batch cache budgets (no reference analog — Spark's block manager
+# owns executor memory there). Session-conf keys; when unset, the
+# HYPERSPACE_READ_CACHE_BYTES / HYPERSPACE_DEVICE_CACHE_BYTES env vars
+# (read at `io/parquet.py` import) provide the process-wide defaults.
+# The device budget shares device memory with join/sort working sets —
+# size it against the largest query, not the card.
+READ_CACHE_BYTES_KEY = "spark.hyperspace.cache.read.bytes"
+DEVICE_CACHE_BYTES_KEY = "spark.hyperspace.cache.device.bytes"
+
+# Device segment cache (`io/segcache.py`): byte budget for
+# device-resident index segments (falls back to the legacy
+# `cache.device.bytes` key, then the HYPERSPACE_SEGMENT_CACHE_BYTES /
+# HYPERSPACE_DEVICE_CACHE_BYTES env defaults), and a comma-separated list
+# of index names whose segments are PINNED — never evicted by byte
+# pressure (invalidation on refresh/optimize/vacuum still drops them).
+SEGMENT_CACHE_BYTES_KEY = "spark.hyperspace.cache.segments.bytes"
+SEGMENT_CACHE_PIN_INDEXES = "spark.hyperspace.cache.segments.pin.indexes"
+
+# Tiered segment cache: host-RAM tier below the device tier
+# (`io/segcache.py`). When > 0, a segment evicted from the device tier by
+# byte pressure is DEMOTED into a host-resident copy (decoded columns
+# fetched D2H once) instead of dropped outright, up to this many host
+# bytes. A later read of a demoted key re-promotes through the
+# TransferEngine fill lane — H2D paid, parquet decode skipped. 0 (the
+# default) disables the tier. Invalidation sweeps both tiers.
+SEGMENT_CACHE_HOST_BYTES_KEY = "spark.hyperspace.cache.segments.host.bytes"
+SEGMENT_CACHE_HOST_BYTES_DEFAULT = 0
+
 # Object-store OCC: backends with no create precondition (neither GCS
 # generation match nor S3 conditional put nor atomic exclusive create)
 # make write_log RAISE, because check-then-create corrupts the op log
@@ -40,6 +68,27 @@ IO_RETRY_BASE_MS = "spark.hyperspace.io.retry.base.ms"
 IO_RETRY_BASE_MS_DEFAULT = 20
 IO_RETRY_MAX_MS = "spark.hyperspace.io.retry.max.ms"
 IO_RETRY_MAX_MS_DEFAULT = 2000
+
+# Pipelined transfer engine (`io/transfer.py`, THE host<->device link
+# seam): chunk granularity of large H2D stagings, the bounded in-flight
+# byte window across all outstanding puts, and the staging-thread pool
+# width (decode/convert of chunk i+1 overlaps chunk i's transfer).
+# Tune chunk.bytes against the link: small enough that several chunks
+# pipeline, large enough that the per-copy launch latency amortizes.
+IO_TRANSFER_CHUNK_BYTES = "spark.hyperspace.io.transfer.chunk.bytes"
+IO_TRANSFER_CHUNK_BYTES_DEFAULT = 4 * 1024 * 1024
+IO_TRANSFER_INFLIGHT_BYTES = "spark.hyperspace.io.transfer.inflight.bytes"
+IO_TRANSFER_INFLIGHT_BYTES_DEFAULT = 64 * 1024 * 1024
+IO_TRANSFER_THREADS = "spark.hyperspace.io.transfer.threads"
+IO_TRANSFER_THREADS_DEFAULT = 2
+# Bound on how long a put may wait for in-flight-window headroom. A copy
+# that never completes would otherwise block every later caller forever;
+# past the timeout the waiter raises a TYPED transient error
+# (`TransferAcquireTimeoutError`, a TimeoutError) and counts
+# `io.transfer.acquire_timeouts`. <= 0 disables the bound.
+IO_TRANSFER_ACQUIRE_TIMEOUT_MS = \
+    "spark.hyperspace.io.transfer.acquire.timeout.ms"
+IO_TRANSFER_ACQUIRE_TIMEOUT_MS_DEFAULT = 30_000
 
 # Crash recovery lease: a maintenance action that finds the op log's
 # latest entry in a TRANSIENT state (CREATING/REFRESHING/...) treats the

@@ -156,8 +156,12 @@ class ScanExec(PhysicalNode):
         scanned vs total, buckets scanned vs total."""
         if telemetry.current() is None:
             return
+        from hyperspace_tpu_torch.plan import footprint
         detail = {"lane": "host" if host else "device",
                   "files_scanned": len(files),
+                  # Raw on-disk bytes behind this read, through the
+                  # stamp-validated size cache (one cached stat a file).
+                  "bytes_scanned": footprint.file_sizes_total(files),
                   "roots": list(self.scan.root_paths)}
         spec = self.scan.bucket_spec
         if spec is not None:
@@ -247,24 +251,48 @@ class ScanExec(PhysicalNode):
         return self._read(files, sum(parquet.file_row_counts(files)),
                           files_total)
 
-    def _read(self, files: List[str], rows: int, files_total: int):
+    def _budget(self, device: bool):
+        """Session-conf cache budget for this scan's lane (None = the
+        process-wide env default). The device lane is the segment cache
+        (`spark.hyperspace.cache.segments.bytes`), the host lane the
+        decoded-batch cache (`spark.hyperspace.cache.read.bytes`)."""
+        if self.conf is None:
+            return None
+        return (self.conf.segment_cache_bytes if device
+                else self.conf.read_cache_bytes)
+
+    def _read_device(self, files: List[str],
+                     bucketed: bool = False) -> columnar.ColumnBatch:
+        """Device-lane read THROUGH the segment cache: a warm hit is
+        link-free (no parquet decode, no H2D). Rule-selected index scans
+        key by (index root, committed version, bucket selector);
+        unversioned scans fall back to stamp validation inside the
+        cache."""
+        from hyperspace_tpu_torch.io import segcache
+        ref = segcache.segment_ref_for_scan(
+            self.scan, allowed_buckets=self.allowed_buckets,
+            bucketed=bucketed)
+        return segcache.read_segment(files, self.columns, self.out_schema,
+                                     ref=ref, conf=self.conf,
+                                     budget=self._budget(device=True))
+
+    def _read(self, files: List[str], rows: int, files_total: int,
+              bucketed: bool = False):
         """Read `files` (holding `rows` rows) on the adaptive lane: small
         reads (e.g. a pruned point-filter bucket) stay in host memory — a
-        device round-trip would dwarf the work; larger ones decode with
-        pyarrow on the host and take one H2D copy per column onto the
-        session's device."""
+        device round-trip would dwarf the work — and come through the
+        stamped decoded-batch cache; larger ones come through the device
+        segment cache onto the session's device."""
         from hyperspace_tpu_torch.constants import MIN_DEVICE_ROWS_DEFAULT
         min_dev = (self.conf.min_device_rows if self.conf is not None
                    else MIN_DEVICE_ROWS_DEFAULT)
         host = rows < min_dev
         self._annotate_read(files, host, files_total)
         if host:
-            return parquet.read_host_batch(files, self.columns,
-                                           self.out_schema)
-        from hyperspace_tpu_torch._torch_config import device_of
-        table = parquet.read_table(files, columns=self.columns)
-        return columnar.from_arrow(table, self.out_schema,
-                                   device=device_of(self.conf))
+            return parquet.read_host_batch(
+                files, self.columns, self.out_schema,
+                budget=self._budget(device=False))
+        return self._read_device(files, bucketed=bucketed)
 
     def execute_bucketed(self, num_buckets: int):
         return self._guard_index_read(
@@ -290,7 +318,8 @@ class ScanExec(PhysicalNode):
         files = [f for _, f in ordered]
         for (b, _), c in zip(ordered, parquet.file_row_counts(files)):
             lengths[b] += c
-        return self._read(files, int(lengths.sum()), files_total), lengths
+        return (self._read(files, int(lengths.sum()), files_total,
+                           bucketed=True), lengths)
 
 
 class FilterExec(PhysicalNode):

@@ -33,6 +33,10 @@ class HyperspaceSession:
         if device is not None or not self.conf.contains(DEVICE):
             self.conf.set(DEVICE, str(resolve_device(device)))
         self.device = device_of(self.conf)
+        # Session knobs -> the process-wide pipelined transfer engine
+        # (io.transfer.{chunk,inflight,threads,acquire.timeout}).
+        from hyperspace_tpu_torch.io import transfer
+        transfer.configure(self.conf)
         self._rules: List = []
         self._hyperspace_enabled = False
         self._last_query_metrics = None

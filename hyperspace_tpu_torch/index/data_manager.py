@@ -56,8 +56,14 @@ class IndexDataManager(ABC):
         ids = self.all_version_ids()
         return (max(ids) + 1) if ids else 0
 
-    def commit(self, version_id: int) -> None:
-        """Finalize a fully-written version (no-op for fakes)."""
+    def commit(self, version_id: int, touched_buckets=None,
+               carried_from=None) -> None:
+        """Finalize a fully-written version (no-op for fakes).
+        `touched_buckets`/`carried_from` is the bucket-scoped
+        invalidation channel: an incremental refresh that carried the
+        previous version's runs forward names exactly the bucket ids it
+        rewrote, so the segment cache keeps (rekeys) warm entries of
+        every other bucket instead of dropping the whole set."""
 
     def is_committed(self, version_id: int) -> bool:
         return True
@@ -99,15 +105,31 @@ class IndexDataManagerImpl(IndexDataManager):
         return os.path.join(self.get_path(version_id),
                             constants.INDEX_DATA_COMMIT_MARKER)
 
-    def commit(self, version_id: int) -> None:
+    def commit(self, version_id: int, touched_buckets=None,
+               carried_from=None) -> None:
         """Write the `_committed` marker — the LAST write of a build; the
-        version is served only after this lands."""
+        version is served only after this lands. Committing is also THE
+        cache-invalidation event for the version bump: every
+        data-writing action (create/refresh/incremental/optimize)
+        funnels through here, so the device segment cache and the
+        stamped host caches learn about new bytes at exactly the
+        boundary where they become servable. An incremental refresh
+        passes `touched_buckets` + `carried_from` so the cache
+        invalidates bucket-scoped."""
         file_utils.create_file(
             self._marker_path(version_id),
             json.dumps({"committedAtMs": int(time.time() * 1000)}))
+        from hyperspace_tpu_torch.io import segcache
+        segcache.on_version_committed(self.index_path, version_id,
+                                      touched_buckets=touched_buckets,
+                                      carried_from=carried_from)
 
     def is_committed(self, version_id: int) -> bool:
         return file_utils.exists(self._marker_path(version_id))
 
     def delete(self, version_id: int) -> None:
         file_utils.delete(self.get_path(version_id))
+        # Vacuum's hard delete: the version's bytes are gone from disk,
+        # so its segments must leave the device (and the host caches).
+        from hyperspace_tpu_torch.io import segcache
+        segcache.on_version_deleted(self.index_path, version_id)

@@ -158,6 +158,15 @@ class IndexLogManagerImpl(IndexLogManager):
         retry.call(lambda: file_utils.atomic_publish(stable_path, contents),
                    operation=f"log.latest_stable:{stable_path}",
                    policy=retry.policy_for(self.conf))
+        # Index-FSM invalidation hook for the metadata-only terminal
+        # transitions: publishing a DELETED/DOESNOTEXIST stable state
+        # means the rules will not select this index again — its device
+        # segments are released here. (Data-version bumps invalidate at
+        # `IndexDataManager.commit`; this covers delete/vacuum-end.)
+        if entry.state in (constants.States.DELETED,
+                           constants.States.DOESNOTEXIST):
+            from hyperspace_tpu_torch.io import segcache
+            segcache.on_index_dropped(self.index_path)
         return True
 
     def delete_latest_stable_log(self) -> bool:

@@ -6,24 +6,31 @@ Reference equivalent: `CreateActionBase.write` =
 distributed JVM shuffle + per-bucket sort + parquet encode.
 
 Pipeline on one device:
-1. decode the source parquet (host, pyarrow);
-2. stage the KEY columns on the device (one H2D copy per lane);
+1. decode the source parquet (host, pyarrow): the payload columns on a
+   background thread, the key columns on the calling thread;
+2. stage the KEY columns on the device through the transfer engine
+   (`io/transfer.py`: pinned, chunked, asynchronous copies);
 3. bucket ids from the hand-written hash kernel, then ONE stable
    (bucket, *keys) sort — this both groups rows by bucket and sorts within
    buckets (`ops/build.py`);
 4. bucket boundaries via two searchsorted calls; the int64 permutation
-   crosses back to the host;
-5. the host applies the permutation to the Arrow table and writes one
-   parquet file per bucket.
+   crosses back to the host in pieces cut at bucket boundaries, every
+   piece's copy issued up front;
+5. the host applies each piece of the permutation to the Arrow table, and
+   one writer thread encodes one parquet file per bucket while the next
+   piece is fetched and gathered.
 
-Each phase's wall seconds accumulate in the process registry as
-`build.phase.<decode|h2d|bucket_sort|d2h|write>_s` (device phases end in
-a synchronize, so the split is honest at the cost of no overlap).
+Each phase's wall seconds on the calling thread accumulate in the process
+registry as `build.phase.<decode|h2d|bucket_sort|d2h|write>_s` (device
+phases end in a synchronize; `decode` counts the key decode plus the wait
+for the payload thread, `write` the gathers plus the waits for the
+writer).
 """
 
 from __future__ import annotations
 
 import os
+import threading
 import time
 from contextlib import contextmanager
 from typing import List, Optional, Sequence
@@ -52,33 +59,130 @@ def _phase(name: str, device: Optional[torch.device] = None):
         time.perf_counter() - t0)
 
 
+def _bucket_pieces(starts, ends, count: int):
+    """Up to `count` [b_lo, b_hi) bucket ranges of about equal rows,
+    covering every bucket in order. A piece always ends at a bucket
+    boundary, so no bucket is ever split between two pieces."""
+    n_buckets = len(ends)
+    total = int(ends[-1]) if n_buckets else 0
+    cuts = [0]
+    for k in range(1, count):
+        b = int(np.searchsorted(ends, total * k // count, side="left")) + 1
+        if cuts[-1] < b < n_buckets:
+            cuts.append(b)
+    cuts.append(n_buckets)
+    return list(zip(cuts[:-1], cuts[1:]))
+
+
 def _write_sorted_runs(table, perm, starts, ends, path: str,
                        file_suffix: Optional[str]) -> List[str]:
     """Apply the (bucket, *keys) sort permutation to the host table and
     write one file per non-empty bucket. `perm`, `starts` and `ends` are
-    numpy arrays or tensors, which cross to the host here."""
+    numpy arrays or tensors.
+
+    A device permutation crosses in up to `d2h_chunk_count` pieces cut at
+    bucket boundaries, and every piece's copy is issued up front
+    (transfer-engine prefetch), so piece i+1 is in flight while piece i
+    is gathered (Arrow `take`). Each bucket's parquet encode runs on the
+    single writer thread while the next piece is fetched and gathered
+    (one piece of write depth, so write order stays deterministic).
+    Cutting at bucket boundaries keeps the layout of one file per
+    bucket."""
     import pyarrow as pa
 
+    from hyperspace_tpu_torch.io import transfer
     from hyperspace_tpu_torch.utils import file_utils
 
-    def host(arr):
-        return (arr.cpu().numpy() if isinstance(arr, torch.Tensor)
-                else np.asarray(arr))
-
+    engine = transfer.get_engine()
     with _phase("d2h"):
-        perm, starts, ends = host(perm), host(starts), host(ends)
+        starts, ends = engine.fetch(starts), engine.fetch(ends)
+    count = 1
+    if isinstance(perm, torch.Tensor):
+        count = engine.d2h_chunk_count(perm.numel() * perm.element_size())
+    pieces = _bucket_pieces(starts, ends, count)
+    views = [perm[int(starts[lo]):int(ends[hi - 1])] for lo, hi in pieces]
+    engine.prefetch(*views)
     written: List[str] = []
     file_utils.create_directory(path)
-    with _phase("write"):
-        sorted_table = table.take(pa.array(perm))
-        for b in range(len(starts)):
-            s, e = int(starts[b]), int(ends[b])
-            if e <= s:
-                continue  # empty bucket -> no file (Spark parity)
-            out = os.path.join(path, parquet.bucket_file_name(b, file_suffix))
-            parquet.write_table(sorted_table.slice(s, e - s), out)
-            written.append(out)
+    pending: List = []  # the last piece's in-flight writes
+
+    def drain():
+        for fut in pending:
+            fut.result()
+        pending.clear()
+
+    t0 = time.perf_counter()
+    fetch_s = 0.0
+    try:
+        for (lo, hi), view in zip(pieces, views):
+            f0 = time.perf_counter()
+            piece = engine.fetch(view)
+            fetch_s += time.perf_counter() - f0
+            if not len(piece):
+                continue
+            piece_table = table.take(pa.array(piece))
+            offset = int(starts[lo])
+            # The previous piece's encodes land before this piece's are
+            # queued: single-writer FIFO keeps the write order serial.
+            drain()
+            for b in range(lo, hi):
+                s, e = int(starts[b]), int(ends[b])
+                if e <= s:
+                    continue  # empty bucket -> no file (Spark parity)
+                out = os.path.join(path,
+                                   parquet.bucket_file_name(b, file_suffix))
+                pending.append(_writer_pool().submit(
+                    parquet.write_table,
+                    piece_table.slice(s - offset, e - s), out))
+                written.append(out)
+    finally:
+        drain()
+        registry = _registry()
+        registry.counter("build.phase.d2h_s").inc(fetch_s)
+        registry.counter("build.phase.write_s").inc(
+            time.perf_counter() - t0 - fetch_s)
     return written
+
+
+def _registry():
+    from hyperspace_tpu_torch import telemetry
+    return telemetry.get_registry()
+
+
+# Single-worker writer behind `_write_sorted_runs`: ONE lane keeps file
+# writes in deterministic submission order while still overlapping a
+# piece's parquet encode with the next piece's permutation fetch + Arrow
+# gather. Lazy module-level pool — a per-build executor would churn a
+# thread per maintenance action.
+_writer = None
+_writer_lock = threading.Lock()
+
+
+def _writer_pool():
+    global _writer
+    if _writer is None:
+        with _writer_lock:
+            if _writer is None:
+                from concurrent.futures import ThreadPoolExecutor
+                _writer = ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="hs-bucket-writer")
+    return _writer
+
+
+def shutdown_writer_pool(wait: bool = True) -> None:
+    """Drain + stop the single-lane bucket writer (idempotent, lazily
+    re-created; atexit hook — a queued parquet encode must land before
+    interpreter teardown)."""
+    global _writer
+    with _writer_lock:
+        pool, _writer = _writer, None
+    if pool is not None:
+        pool.shutdown(wait=wait)
+
+
+import atexit as _atexit  # noqa: E402
+
+_atexit.register(shutdown_writer_pool)
 
 
 # Below this row count the build permutation is computed on the host
@@ -88,25 +192,38 @@ def _write_sorted_runs(table, perm, starts, ends, path: str,
 BUILD_MIN_DEVICE_ROWS = 1_000_000
 
 
-def build_lane(rows: int) -> str:
+def build_lane(rows: int, device: Optional[torch.device] = None) -> str:
     """Which permutation engine a HOST-resident build of `rows` rows
-    takes: "host-lexsort" (small build) or "device". The JAX package also
-    has a "native-host" lane (its C++ radix library); that library is not
-    part of this package, so every build of BUILD_MIN_DEVICE_ROWS rows or
-    more takes the device — the branch the JAX package takes when its
-    native library is absent."""
+    takes for a session on `device`: "host-lexsort" (a small build, or no
+    device and no native library), "native-host" (the C++ radix sort of
+    `hyperspace_tpu_torch/native`, when the session's device is the CPU
+    or absent and the library loads) or "device" (the hash kernel and the
+    torch sort on the session's device). The JAX package routes every
+    build of 1M to 2^31 rows to its native lane once its library loads —
+    a choice made for a TPU behind a slow link; on a CUDA card the device
+    lane keeps the build (`chip_smoke.py` times both permutations). Above
+    2^31 rows the native lane's int32 permutation would wrap."""
+    from hyperspace_tpu_torch import native
+
     if rows < BUILD_MIN_DEVICE_ROWS:
         return "host-lexsort"
-    return "device"
+    on_card = device is not None and torch.device(device).type == "cuda"
+    if not on_card and rows < 1 << 31 and native.get_lib() is not None:
+        return "native-host"
+    return "host-lexsort" if device is None else "device"
 
 
-def _host_lane_preferred(rows: int) -> bool:
-    return build_lane(rows) != "device"
+def _host_lane_preferred(rows: int,
+                         device: Optional[torch.device] = None) -> bool:
+    return build_lane(rows, device) != "device"
 
 
 def _host_build_permutation(table, names: Sequence[str], num_buckets: int):
     """Host (bucket, *keys) stable sort permutation + bucket boundaries,
-    mirroring the device layout semantics with numpy's lexsort."""
+    mirroring the device layout semantics: the native C++ radix sort when
+    the library loads (`native.bucket_key_sort_perm`), numpy's lexsort
+    otherwise — the same permutation either way."""
+    from hyperspace_tpu_torch import native
     from hyperspace_tpu_torch.ops.host_hash import (host_column_hash_lanes,
                                                     host_flat_hash32)
     from hyperspace_tpu_torch.ops.keys import host_column_sort_lanes
@@ -120,6 +237,9 @@ def _host_build_permutation(table, names: Sequence[str], num_buckets: int):
     sort_lanes: List = []
     for name in names:
         sort_lanes.extend(host_column_sort_lanes(batch.column(name)))
+    nat = native.bucket_key_sort_perm(bucket, num_buckets, sort_lanes)
+    if nat is not None:
+        return nat
     perm = np.lexsort(tuple(reversed([bucket] + sort_lanes)))
     sorted_bucket = bucket[perm]
     starts = np.searchsorted(sorted_bucket, np.arange(num_buckets), "left")
@@ -133,9 +253,13 @@ def _stage_key_tree(table, names: Sequence[str], device: torch.device):
     null-free int64 column whose values fit uint32 (host range check)
     ships HALF the bytes as a single `lo32` lane (its uint32 bit pattern
     in an int32 tensor) — hash identity and sort order are unchanged
-    (`ops/build.py`)."""
+    (`ops/build.py`). Every copy rides the transfer engine: chunked, cast
+    into reused pinned staging buffers on the card."""
     import pyarrow as pa
 
+    from hyperspace_tpu_torch.io import transfer
+
+    engine = transfer.get_engine()
     tree = {}
     wide = []
     for name in names:
@@ -145,8 +269,9 @@ def _stage_key_tree(table, names: Sequence[str], device: torch.device):
         if pa.types.is_int64(chunk.type) and chunk.null_count == 0:
             vals = chunk.to_numpy(zero_copy_only=False)
             if len(vals) and vals.min() >= 0 and vals.max() < 1 << 32:
-                lo = vals.astype(np.uint32).view(np.int32)
-                tree[name] = {"lo32": torch.from_numpy(lo).to(device)}
+                # int64 -> int32 wraps: the uint32 bit pattern.
+                tree[name] = {"lo32": engine.put(
+                    transfer.HostCast(vals, np.int32), device)}
                 continue
         wide.append(name)
     if wide:
@@ -177,7 +302,7 @@ def write_bucketed_table(table, indexed_columns: Sequence[str],
         raise HyperspaceException(
             f"Column not found in table: {', '.join(missing)}")
     names = [by_lower[c.lower()] for c in indexed_columns]
-    if device is None or _host_lane_preferred(table.num_rows):
+    if device is None or _host_lane_preferred(table.num_rows, device):
         perm, starts, ends = _host_build_permutation(table, names,
                                                      num_buckets)
     else:
@@ -196,15 +321,63 @@ def write_bucketed_from_files(files: Sequence[str],
                               lineage_ids=None,
                               file_suffix: Optional[str] = None
                               ) -> List[str]:
-    """Build straight from parquet files (the plain-scan create path):
-    decode the indexed and included columns once, then bucket, sort and
-    write as `write_bucketed_table` does."""
+    """Build straight from parquet files (the plain-scan create path).
+    On the device lane the build is PIPELINED: the payload-column decode
+    starts on a background thread first, then the key columns decode,
+    cross to the device and sort, so the payload decode overlaps the key
+    decode, the key H2D and the device sort; `_write_sorted_runs` then
+    overlaps the permutation D2H, the Arrow gather and the parquet
+    encode. The host lanes read every column at once."""
+    import pyarrow as pa
+
+    from hyperspace_tpu_torch.ops.build import permutation_from_tree
+
+    n = sum(parquet.file_row_counts(files))  # footers only, no decode
+    if device is None or _host_lane_preferred(n, device):
+        with _phase("decode"):
+            table = parquet.read_table(files, columns=list(column_names))
+            if lineage_ids is not None:
+                table = append_lineage_column(table, files, lineage_ids)
+        return write_bucketed_table(table, list(key_names), num_buckets,
+                                    path, file_suffix=file_suffix,
+                                    device=device)
+    payload_names = [c for c in column_names if c not in key_names]
+    payload: dict = {}
+    payload_thread = None
+    if payload_names:
+        # pyarrow releases the GIL for the column decode.
+        def _decode_payload():
+            try:
+                payload["table"] = parquet.read_table(
+                    files, columns=payload_names)
+            except BaseException as exc:  # surfaces at the join below
+                payload["error"] = exc
+
+        payload_thread = threading.Thread(target=_decode_payload,
+                                          name="hs-payload-decode",
+                                          daemon=True)
+        payload_thread.start()
     with _phase("decode"):
-        table = parquet.read_table(files, columns=list(column_names))
+        key_table = parquet.read_table(files, columns=list(key_names))
+    with _phase("h2d", device):
+        tree = _stage_key_tree(key_table, key_names, device)
+    with _phase("bucket_sort", device):
+        perm, starts, ends = permutation_from_tree(tree, key_names,
+                                                   num_buckets)
+    with _phase("decode"):
+        if payload_thread is not None:
+            payload_thread.join()
+            if "error" in payload:
+                raise payload["error"]
+            ptable = payload["table"]
+            table = pa.table({c: (key_table.column(c) if c in key_names
+                                  else ptable.column(c))
+                              for c in column_names})
+        else:
+            table = key_table.select(list(column_names))
         if lineage_ids is not None:
             table = append_lineage_column(table, files, lineage_ids)
-    return write_bucketed_table(table, list(key_names), num_buckets, path,
-                                file_suffix=file_suffix, device=device)
+    return _write_sorted_runs(table, perm, starts, ends, path, file_suffix)
 
 
 def write_bucketed_batch(batch: columnar.ColumnBatch,
@@ -349,13 +522,15 @@ def compact_index(prev_entry, out_path: str,
     """Merge-compact the current data version's runs (base + incremental
     delta runs living side by side in one `v__=N` dir) into one
     fully-sorted file per bucket at `out_path` (OptimizeAction's op).
-    Returns (files written, lane): "merge", "host-lexsort" or "device".
+    Returns (files written, lane): "merge", "host-lexsort",
+    "native-host" or "device" (`build_lane`).
 
     The permutation comes from the host merge fast path when the key
     qualifies, else from one stable (bucket, *keys) sort over every
-    bucket at once — on `device` at or above BUILD_MIN_DEVICE_ROWS rows,
-    with a host lexsort below; the host streams the permuted payload out
-    per bucket.
+    bucket at once — on the lane `build_lane` names: a CUDA `device` at
+    or above BUILD_MIN_DEVICE_ROWS rows, the native radix sort on a CPU
+    session, numpy below; the host streams the permuted payload out per
+    bucket.
     """
     import re
 
@@ -395,8 +570,8 @@ def compact_index(prev_entry, out_path: str,
     if merge_perm is not None:
         lane = "merge"
         chunks, starts, ends = merge_perm
-    elif device is None or _host_lane_preferred(table.num_rows):
-        lane = "host-lexsort"
+    elif device is None or _host_lane_preferred(table.num_rows, device):
+        lane = build_lane(table.num_rows, device)
         with _phase("bucket_sort"):
             key_batch = columnar.from_arrow(table.select(names))
             chunks, starts, ends = host_bucket_sort_permutation(

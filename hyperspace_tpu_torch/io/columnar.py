@@ -40,8 +40,22 @@ HOST_NP_DTYPES = {**_NUMERIC_NP, "string": np.int32}
 
 def _string_hash64(values: np.ndarray) -> np.ndarray:
     """FNV-1a 64-bit over the UTF-8 bytes of each value (host side, once
-    per dictionary entry — O(dictionary), not O(rows)). Must equal the
-    JAX package's hashes bit for bit: the bucket layout depends on them."""
+    per dictionary entry — O(dictionary), not O(rows)). Uses the native
+    C++ batch hash when the library loads (`hyperspace_tpu_torch/native`);
+    the Python loop below is the reference implementation and fallback.
+    Both must equal the JAX package's hashes bit for bit: the bucket
+    layout depends on them."""
+    if len(values) >= 64:
+        from hyperspace_tpu_torch import native
+        hashed = native.string_hash64(values)
+        if hashed is not None:
+            return hashed
+    return string_hash64_python(values)
+
+
+def string_hash64_python(values: np.ndarray) -> np.ndarray:
+    """The pure-Python FNV-1a 64 loop: `_string_hash64`'s reference
+    implementation and its fallback when the native library is absent."""
     out = np.empty(len(values), dtype=np.uint64)
     for i, v in enumerate(values):
         h = 0xCBF29CE484222325
@@ -196,14 +210,20 @@ def _encode_strings_arrow(arr):
     rank[sort_idx] = np.arange(len(raw_dict), dtype=np.int32)
     codes = rank[indices]
     sorted_dict = raw_dict.take(pa.array(sort_idx))
+    from hyperspace_tpu_torch import native
+    hashes = native.arrow_string_hash64(sorted_dict)
     dictionary = np.asarray(sorted_dict.to_numpy(zero_copy_only=False),
                             dtype=str)
-    return codes, dictionary, _string_hash64(dictionary), validity
+    if hashes is None:
+        hashes = _string_hash64(dictionary)
+    return codes, dictionary, hashes, validity
 
 
 def _decode_numeric(arr, f: SchemaField):
-    """Decode one non-string Arrow column to its host values + null mask.
-    Returns (np_vals in the logical dtype's numpy type, mask|None)."""
+    """Decode one non-string Arrow column to its RAW host values + null
+    mask (no cast to the logical dtype's numpy type yet — on the device
+    lane the cast is the step the transfer engine performs into its
+    staging buffers). Returns (np_vals, np_dtype, mask|None)."""
     np_dtype = _NUMERIC_NP.get(f.dtype)
     if np_dtype is None:
         raise HyperspaceException(f"Unsupported dtype: {f.dtype}")
@@ -218,29 +238,78 @@ def _decode_numeric(arr, f: SchemaField):
     if chunk.null_count > 0:
         mask = ~np.asarray(chunk.is_null())
         np_vals = np.where(mask, np.nan_to_num(np_vals), 0)
-    return np.asarray(np_vals).astype(np_dtype, copy=False), mask
+    return np.asarray(np_vals), np_dtype, mask
+
+
+def _decode_device_column(arr, f: SchemaField) -> dict:
+    """Transfer-engine job body for one column (runs on the staging
+    pool): decode to host form and name what must be placed. ndarray /
+    HostCast values cross the link; Host(...) values stay host."""
+    from hyperspace_tpu_torch.io import transfer
+
+    if f.dtype == "string":
+        codes, dictionary, hashes, validity = _encode_strings_arrow(arr)
+        hi, lo = _split_hashes(hashes)
+        return {"data": codes, "validity": validity,
+                "dictionary": transfer.Host(dictionary),
+                "hash_hi": transfer.HostCast(hi, np.int64),
+                "hash_lo": transfer.HostCast(lo, np.int64)}
+    np_vals, np_dtype, mask = _decode_numeric(arr, f)
+    data = (np.ascontiguousarray(np_vals) if np_vals.dtype == np_dtype
+            else transfer.HostCast(np_vals, np_dtype))
+    return {"data": data, "validity": mask}
+
+
+def _placed_column(f: SchemaField, entry: dict,
+                   dictionary=None) -> DeviceColumn:
+    """One DeviceColumn from a `put_group` result."""
+    hashes = None
+    if "hash_hi" in entry:
+        hashes = (entry["hash_hi"], entry["hash_lo"])
+    return DeviceColumn(data=entry["data"], dtype=f.dtype,
+                        validity=entry.get("validity"),
+                        dictionary=entry.get("dictionary", dictionary),
+                        dict_hashes=hashes)
 
 
 def from_arrow(table, schema: Optional[Schema] = None,
-               device: Optional[torch.device] = None) -> ColumnBatch:
+               device: Optional[torch.device] = None,
+               transfer_tag: Optional[str] = None) -> ColumnBatch:
     """Arrow table -> ColumnBatch. Nulls become validity masks with
     sentinel-filled payloads (0 / empty string). `device=None` keeps the
-    columns in host memory (numpy) for the adaptive host lane; a device
-    places every column (and the string value hashes) there."""
+    columns in host memory (numpy) for the adaptive host lane.
+
+    A device path is THE scan-side H2D site and runs STREAMED through
+    the pipelined transfer engine (`io/transfer.py`): column decodes run
+    on the staging pool while earlier columns' copies are in flight,
+    large columns ship as byte-budgeted chunks cast into reused staging
+    buffers, and the whole batch lands as one chunk-counted transfer
+    record in the link telemetry (`transfer_tag` names the lane, e.g.
+    the segment cache's "fill")."""
     if schema is None:
         schema = Schema.from_arrow(table.schema)
+    if device is not None:
+        from functools import partial
+
+        from hyperspace_tpu_torch.io import transfer
+
+        jobs = [partial(_decode_device_column, table.column(f.name), f)
+                for f in schema.fields]
+        placed = transfer.get_engine().put_group(jobs, device=device,
+                                                 tag=transfer_tag)
+        return ColumnBatch(schema, {
+            f.name: _placed_column(f, entry)
+            for f, entry in zip(schema.fields, placed)})
     columns: Dict[str, DeviceColumn] = {}
     for f in schema.fields:
         arr = table.column(f.name)
         if f.dtype == "string":
             codes, dictionary, hashes, validity = _encode_strings_arrow(arr)
-            data, hashes = np.asarray(codes), _split_hashes(hashes, device)
+            data, hashes = np.asarray(codes), _split_hashes(hashes)
         else:
-            data, validity = _decode_numeric(arr, f)
+            np_vals, np_dtype, validity = _decode_numeric(arr, f)
+            data = np_vals.astype(np_dtype, copy=False)
             hashes = dictionary = None
-        if device is not None:
-            data, validity = (_to_device(data, device),
-                              _to_device(validity, device))
         columns[f.name] = DeviceColumn(data=data, dtype=f.dtype,
                                        validity=validity,
                                        dictionary=dictionary,
@@ -254,17 +323,34 @@ def _to_numpy(arr) -> Optional[np.ndarray]:
     return arr.cpu().numpy()
 
 
+def _fetch_columns(batch: ColumnBatch):
+    """(data, validity) numpy pairs for every column, name-keyed. Device
+    arrays cross through the transfer engine: every column's copy is
+    issued asynchronously first (prefetch), so the per-column fetches
+    overlap on the link and land in the d2h telemetry."""
+    from hyperspace_tpu_torch.io import transfer
+
+    engine = transfer.get_engine()
+    for col in batch.columns.values():
+        engine.prefetch(col.data, *((col.validity,)
+                                    if col.validity is not None else ()))
+    return {name: (engine.fetch(col.data),
+                   engine.fetch(col.validity)
+                   if col.validity is not None else None)
+            for name, col in batch.columns.items()}
+
+
 def to_arrow(batch: ColumnBatch):
     """ColumnBatch -> Arrow table (decodes dictionary codes); device
-    columns cross to the host here."""
+    columns cross to the host here, through the transfer engine."""
     import pyarrow as pa
 
+    fetched = _fetch_columns(batch)
     arrays = []
     names = []
     for f in batch.schema.fields:
         col = batch.columns[f.name]
-        data = _to_numpy(col.data)
-        validity = _to_numpy(col.validity)
+        data, validity = fetched[f.name]
         mask = ~validity if validity is not None else None
         if col.is_string:
             arr = pa.array(col.dictionary[data], type=pa.string(), mask=mask)
@@ -278,40 +364,75 @@ def to_arrow(batch: ColumnBatch):
     return pa.table(dict(zip(names, arrays)))
 
 
+def _owned_host(arr: np.ndarray) -> np.ndarray:
+    """An OWNING host copy of a fetched array: a CPU tensor's array is a
+    view of the tensor's memory, and a demoted cache entry built from
+    views would keep the "evicted" storage alive. An array that already
+    owns its memory passes through uncopied."""
+    return np.array(arr, copy=True) if arr.base is not None else arr
+
+
 def batch_to_host(batch: ColumnBatch) -> ColumnBatch:
     """Device ColumnBatch -> fully host-resident copy (numpy payloads,
-    numpy uint32 dict hashes); host columns pass through."""
+    numpy uint32 dict hashes) — the segment cache's DEMOTION form:
+    everything needed to rebuild the device batch WITHOUT re-reading or
+    re-decoding parquet, at the cost of one D2H fetch per column now and
+    one H2D copy at re-promotion. Fetches ride the transfer engine (d2h
+    telemetry); host columns pass through. Every payload OWNS its
+    memory (`_owned_host`)."""
+    fetched = _fetch_columns(batch)
     out: Dict[str, DeviceColumn] = {}
     for name, col in batch.columns.items():
-        hashes = col.dict_hashes
-        if hashes is not None and not col.is_host:
-            hashes = (_to_numpy(hashes[0]).astype(np.uint32),
-                      _to_numpy(hashes[1]).astype(np.uint32))
-        out[name] = DeviceColumn(data=_to_numpy(col.data), dtype=col.dtype,
-                                 validity=_to_numpy(col.validity),
-                                 dictionary=col.dictionary,
-                                 dict_hashes=hashes)
-    return ColumnBatch(batch.schema, out)
-
-
-def host_batch_to_device(batch: ColumnBatch,
-                         device: torch.device) -> ColumnBatch:
-    """Host ColumnBatch -> a batch on `device` (one H2D copy per array);
-    the parquet decode is not repeated."""
-    out: Dict[str, DeviceColumn] = {}
-    for name, col in batch.columns.items():
-        if not col.is_host:
+        if col.is_host:
             out[name] = col
             continue
-        hashes = None
-        if col.dict_hashes is not None:
-            hashes = tuple(_to_device(np.asarray(h).astype(np.int64), device)
-                           for h in col.dict_hashes)
+        data, validity = fetched[name]
+        hashes = col.dict_hashes
+        if hashes is not None:
+            hashes = (_to_numpy(hashes[0]).astype(np.uint32),
+                      _to_numpy(hashes[1]).astype(np.uint32))
         out[name] = DeviceColumn(
-            data=_to_device(col.data, device), dtype=col.dtype,
-            validity=_to_device(col.validity, device),
+            data=_owned_host(data), dtype=col.dtype,
+            validity=(_owned_host(validity) if validity is not None
+                      else None),
             dictionary=col.dictionary, dict_hashes=hashes)
     return ColumnBatch(batch.schema, out)
+
+
+def host_batch_to_device(batch: ColumnBatch, device: torch.device,
+                         transfer_tag: Optional[str] = None
+                         ) -> ColumnBatch:
+    """Host ColumnBatch -> a batch on `device` through the pipelined
+    transfer engine — also the segment cache's RE-PROMOTION of a demoted
+    entry: H2D paid, parquet decode skipped. `transfer_tag` rides the
+    same lane accounting as fills (`tag="fill"` lands in
+    `transfer.fill.*`). Device columns pass through."""
+    from hyperspace_tpu_torch.io import transfer
+
+    def job(col: DeviceColumn):
+        def run() -> dict:
+            produced = {"data": np.asarray(col.data)}
+            if col.validity is not None:
+                produced["validity"] = np.asarray(col.validity)
+            if col.dict_hashes is not None:
+                produced["hash_hi"] = transfer.HostCast(
+                    np.asarray(col.dict_hashes[0]), np.int64)
+                produced["hash_lo"] = transfer.HostCast(
+                    np.asarray(col.dict_hashes[1]), np.int64)
+            return produced
+        return run
+
+    fields = [f for f in batch.schema.fields
+              if batch.columns[f.name].is_host]
+    placed = transfer.get_engine().put_group(
+        [job(batch.columns[f.name]) for f in fields], device=device,
+        tag=transfer_tag)
+    out = dict(batch.columns)
+    for f, entry in zip(fields, placed):
+        out[f.name] = _placed_column(f, entry,
+                                     batch.columns[f.name].dictionary)
+    return ColumnBatch(batch.schema, {f.name: out[f.name]
+                                      for f in batch.schema.fields})
 
 
 def _merged_dictionary(dictionaries, device: Optional[torch.device]):

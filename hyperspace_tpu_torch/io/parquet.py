@@ -14,7 +14,9 @@ from __future__ import annotations
 import json
 import os
 import re
+import stat
 import threading
+from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence
 
 from hyperspace_tpu_torch.exceptions import HyperspaceException
@@ -68,6 +70,20 @@ def _read_one(path: str, cols):
     return retry.call(read, operation=f"parquet.read:{path}")
 
 
+# Decoded-read cache: query trees that reference the same relation more
+# than once (q64 joins a year-over-year aggregate to itself, so every
+# underlying index is read twice) would otherwise re-decode identical
+# parquet bytes. Entries are keyed on (files, columns) and VALIDATED by
+# each file's (size, mtime) captured at read time — a refreshed or
+# rewritten file misses. LRU-bounded by decoded bytes.
+READ_CACHE_BYTES = int(os.environ.get(
+    "HYPERSPACE_READ_CACHE_BYTES", 256 * 1024 * 1024))
+_read_cache: "OrderedDict" = OrderedDict()
+# The bucketed join reads its two sides concurrently; all cache map
+# mutations (touch, insert, evict) take this lock. File reads and decode
+# run outside it.
+_read_cache_lock = threading.Lock()
+
 # ONE shared IO executor for concurrent per-file reads and footer
 # fetches (lazily created): the previous per-call
 # ThreadPoolExecutor(8) spun up and tore down 8 threads on EVERY
@@ -107,44 +123,269 @@ import atexit as _atexit  # noqa: E402
 _atexit.register(shutdown_io_executor)
 
 
+def _file_stamp(path: str):
+    """(size, mtime) of a FILE, or None when the path is a directory or
+    the backend exposes no modification time — both must disable caching
+    (a directory's own stamp does not change when a member file is
+    rewritten in place; without mtime a same-size rewrite would collide)."""
+    if storage.is_url(path):
+        fs, real = storage.get_fs(path)
+        info = fs.info(real)
+        if (info.get("type") == "directory") or fs.isdir(real):
+            return None
+        mtime = (info.get("mtime") or info.get("updated")
+                 or info.get("last_modified") or info.get("LastModified")
+                 or info.get("created"))
+        if not mtime:
+            return None
+        return (info.get("size", 0) or 0, str(mtime))
+    st = os.stat(path)
+    if stat.S_ISDIR(st.st_mode):
+        return None
+    return (st.st_size, st.st_mtime_ns)
+
+
+def _stamps(paths: Sequence[str]):
+    """Tuple of per-file stamps, or None when any file is unstampable
+    (directory, no mtime, stat failure) — which disables caching."""
+    try:
+        stamps = tuple(_file_stamp(p) for p in paths)
+    except OSError:
+        return None
+    return None if any(st is None for st in stamps) else stamps
+
+
+def clear_read_cache() -> None:
+    """Empty every decoded-read cache: the Arrow read cache, the footer
+    counts, the host-batch cache and the device segment cache (the cold
+    state a benchmark or test starts from)."""
+    with _read_cache_lock:
+        _read_cache.clear()
+    _count_cache.clear()
+    clear_batch_cache()
+    clear_device_cache()
+
+
+def invalidate_paths(prefix: str) -> None:
+    """Drop every host-cache entry (read / decoded-batch / footer-count)
+    whose key touches a path under `prefix` — the index-FSM
+    invalidation hook (`io/segcache.py`). Stamp validation alone cannot
+    close the mid-commit window: a racing query can stat, validate, and
+    serve bytes the committing action is replacing; an explicit sweep
+    at the commit boundary can."""
+    prefix = prefix.rstrip("/\\")
+
+    def under(path: str) -> bool:
+        return path == prefix or path.startswith(prefix + "/") \
+            or path.startswith(prefix + os.sep)
+
+    with _read_cache_lock:
+        for key in [k for k in _read_cache if any(under(p)
+                                                  for p in k[0])]:
+            del _read_cache[key]
+    with _batch_cache_lock:
+        for key in [k for k in _batch_cache if any(under(p)
+                                                   for p in k[0])]:
+            del _batch_cache[key]
+    for path in [p for p in list(_count_cache) if under(p)]:
+        _count_cache.pop(path, None)
+
+
 def read_table(paths: Sequence[str], columns: Optional[Sequence[str]] = None):
     """Read one or more parquet files/dirs into a single Arrow table, in
     path order. Files are read concurrently (pyarrow releases the GIL);
     order is preserved by the map. `scheme://` paths read through their
-    fsspec filesystem."""
+    fsspec filesystem. Results are served from the stamped read cache
+    when every file is unchanged."""
     import pyarrow as pa
+
+    from hyperspace_tpu_torch.telemetry import memory as _mem
 
     if not paths:
         raise HyperspaceException("No parquet inputs to read.")
     cols = list(columns) if columns else None
+    key = (tuple(paths), tuple(cols) if cols else None)
+    stamps = _stamps(paths)
+    if stamps is not None and READ_CACHE_BYTES > 0:
+        with _read_cache_lock:
+            hit = _read_cache.get(key)
+            if hit is not None and hit[0] == stamps:
+                _read_cache.move_to_end(key)  # LRU touch
+                _mem.cache_hit("parquet_read")
+                return hit[1]
+    _mem.cache_miss("parquet_read")
+
     if len(paths) == 1:
-        return _read_one(paths[0], cols)
-    tables = list(io_executor().map(lambda p: _read_one(p, cols), paths))
-    return pa.concat_tables(tables, promote_options="default")
+        table = _read_one(paths[0], cols)
+    else:
+        tables = list(io_executor().map(lambda p: _read_one(p, cols),
+                                        paths))
+        table = pa.concat_tables(tables, promote_options="default")
+
+    if stamps is not None and READ_CACHE_BYTES > 0:
+        # Re-stat after the read: a file rewritten DURING the read would
+        # otherwise cache new (or torn, for multi-file concat) bytes under
+        # the old stamp, and the stale entry would keep validating until
+        # the file changed again. Insert only when nothing moved.
+        if _stamps(paths) != stamps:
+            return table
+        with _read_cache_lock:
+            _read_cache[key] = (stamps, table)
+            total = sum(t.nbytes for _, t in _read_cache.values())
+            evictions = 0
+            while total > READ_CACHE_BYTES and len(_read_cache) > 1:
+                _, (_, evicted) = _read_cache.popitem(last=False)
+                total -= evicted.nbytes
+                evictions += 1
+            entries = len(_read_cache)
+        _mem.cache_eviction("parquet_read", evictions)
+        _mem.cache_stats("parquet_read", total, entries)
+    return table
+
+
+_count_cache: dict = {}
 
 
 def file_row_counts(paths: Sequence[str]) -> List[int]:
-    """Per-file row counts from parquet footers (no data read)."""
+    """Per-file row counts from parquet footers (no data read); stamped
+    per-file cache (index data files are immutable, and the bucketed read
+    path asks for the same footers on every warm query)."""
     import pyarrow.parquet as pq
 
     def meta_rows(p):
+        try:
+            stamp = _file_stamp(p)
+        except OSError:
+            stamp = None
+        if stamp is not None:
+            hit = _count_cache.get(p)
+            if hit is not None and hit[0] == stamp:
+                return hit[1]
         if storage.is_url(p):
             fs, real = storage.get_fs(p)
             with fs.open(real, "rb") as f:
-                return pq.read_metadata(f).num_rows
-        return pq.read_metadata(p).num_rows
+                rows = pq.read_metadata(f).num_rows
+        else:
+            rows = pq.read_metadata(p).num_rows
+        if stamp is not None:
+            if len(_count_cache) > 65536:
+                _count_cache.clear()
+            _count_cache[p] = (stamp, rows)
+        return rows
 
     if len(paths) <= 1:
         return [meta_rows(p) for p in paths]
     return list(io_executor().map(meta_rows, paths))
 
 
-def read_host_batch(paths: Sequence[str],
-                    columns: Optional[Sequence[str]], schema):
-    """Read parquet files into a HOST-lane ColumnBatch (numpy columns)."""
-    from hyperspace_tpu_torch.io import columnar
+# Decoded host-batch cache: the read cache (above) keeps Arrow bytes, but
+# a warm query still re-derives numpy-backed ColumnBatches from them every
+# execution. Batches are immutable downstream (every operator gathers
+# into new arrays and no operator writes into a column it did not
+# allocate), and the numpy columns mostly alias the cached Arrow buffers,
+# so caching the decoded form costs little extra memory. Same stamp
+# validation as the read cache.
+_batch_cache: "OrderedDict" = OrderedDict()
+_batch_cache_lock = threading.Lock()
 
-    return columnar.from_arrow(read_table(paths, columns=columns), schema)
+
+def clear_batch_cache() -> None:
+    with _batch_cache_lock:
+        _batch_cache.clear()
+
+
+def _stamped_batch_read(paths: Sequence[str],
+                        columns: Optional[Sequence[str]], schema,
+                        cache: "OrderedDict", lock, budget: int):
+    """Stamped-LRU read for the HOST decoded-batch cache: get with
+    stamp validation, decode on miss, insert with re-stat (a file
+    rewritten during the read must not cache under the old stamp),
+    evict LRU entries until within budget. Hit/miss/eviction/bytes-held
+    series land as `cache.host_batch.*`. (The DEVICE lane lives in
+    `io/segcache.py` — version-keyed residency, single-flight fills,
+    index-FSM invalidation.)"""
+    from hyperspace_tpu_torch.io import columnar
+    from hyperspace_tpu_torch.telemetry import memory as _mem
+
+    name = "host_batch"
+    key = (tuple(paths), tuple(columns) if columns is not None else None,
+           schema.to_json() if schema is not None else None)
+    # Enforce the effective budget on ENTRY, not only on insert: a budget
+    # lowered mid-session must release already-resident batches, and
+    # budget 0 must empty the cache.
+    with lock:
+        evictions = 0
+        if budget <= 0:
+            evictions = len(cache)
+            cache.clear()
+            total = 0
+        else:
+            total = sum(b for _, _, b in cache.values())
+            while total > budget and cache:
+                _, (_, _, evicted) = cache.popitem(last=False)
+                total -= evicted
+                evictions += 1
+        entries = len(cache)
+    _mem.cache_eviction(name, evictions)
+    _mem.cache_stats(name, total, entries)
+    stamps = _stamps(paths)
+    if stamps is not None and budget > 0:
+        with lock:
+            hit = cache.get(key)
+            if hit is not None and hit[0] == stamps:
+                cache.move_to_end(key)
+                _mem.cache_hit(name)
+                return hit[1]
+            if hit is not None:
+                del cache[key]
+    _mem.cache_miss(name)
+    table = read_table(paths, columns=columns)
+    batch = columnar.from_arrow(table, schema)
+    if stamps is not None and budget > 0:
+        if _stamps(paths) != stamps:
+            return batch
+        nbytes = _batch_nbytes(batch)
+        if nbytes <= budget:
+            with lock:
+                cache[key] = (stamps, batch, nbytes)
+                total = sum(b for _, _, b in cache.values())
+                evictions = 0
+                while total > budget and len(cache) > 1:
+                    _, (_, _, evicted) = cache.popitem(last=False)
+                    total -= evicted
+                    evictions += 1
+                entries = len(cache)
+            _mem.cache_eviction(name, evictions)
+            _mem.cache_stats(name, total, entries)
+    return batch
+
+
+def read_host_batch(paths: Sequence[str],
+                    columns: Optional[Sequence[str]], schema,
+                    budget: Optional[int] = None):
+    """Read parquet files into a HOST-lane ColumnBatch (numpy columns)
+    through the stamped decoded-batch cache. `budget` (session conf)
+    overrides the env-default cache bound."""
+    return _stamped_batch_read(paths, columns, schema, _batch_cache,
+                               _batch_cache_lock,
+                               READ_CACHE_BYTES if budget is None else budget)
+
+
+def clear_device_cache() -> None:
+    """Empty the device segment cache (`io/segcache.py`)."""
+    from hyperspace_tpu_torch.io import segcache
+    segcache.clear()
+
+
+def _batch_nbytes(batch) -> int:
+    """Approximate resident bytes of a host batch (column payloads +
+    validity; dictionaries are shared and small)."""
+    total = 0
+    for col in batch.columns.values():
+        total += getattr(col.data, "nbytes", 0)
+        if col.validity is not None:
+            total += getattr(col.validity, "nbytes", 0)
+    return total
 
 
 def write_table(table, path: str) -> None:

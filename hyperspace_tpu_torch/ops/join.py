@@ -519,6 +519,18 @@ def host_join_indices(left: ColumnBatch, right: ColumnBatch,
     return li, ri
 
 
+def _unsorted_within(key: np.ndarray, bounds: np.ndarray) -> bool:
+    """True when `key` is not ascending inside some bucket of the
+    cumulative `bounds`."""
+    if len(key) <= 1:
+        return False
+    in_bucket = np.ones(len(key) - 1, dtype=bool)
+    boundary = bounds[1:-1]
+    boundary = boundary[(boundary > 0) & (boundary < len(key))]
+    in_bucket[boundary - 1] = False
+    return not (key[1:][in_bucket] >= key[:-1][in_bucket]).all()
+
+
 def host_bucketed_join_indices(left: ColumnBatch, right: ColumnBatch,
                                l_lengths, r_lengths,
                                left_keys: Sequence[str],
@@ -545,16 +557,28 @@ def host_bucketed_join_indices(left: ColumnBatch, right: ColumnBatch,
     # or a multi-run bucket is not): one vectorized check, repaired with a
     # per-bucket stable sort.
     r_perm = None
-    if len(rkey) > 1:
-        in_bucket = np.ones(len(rkey) - 1, dtype=bool)
-        boundary = rb[1:-1]
-        boundary = boundary[(boundary > 0) & (boundary < len(rkey))]
-        in_bucket[boundary - 1] = False
-        if not (rkey[1:][in_bucket] >= rkey[:-1][in_bucket]).all():
-            bucket_of = np.searchsorted(rb[1:], np.arange(len(rkey)),
-                                        side="right")
-            r_perm = np.lexsort((rkey, bucket_of)).astype(np.int64)
-            rkey = rkey[r_perm]
+    if _unsorted_within(rkey, rb):
+        bucket_of = np.searchsorted(rb[1:], np.arange(len(rkey)),
+                                    side="right")
+        r_perm = np.lexsort((rkey, bucket_of)).astype(np.int64)
+        rkey = rkey[r_perm]
+
+    # Native lane: a multithreaded C++ per-bucket merge join emits the
+    # (li, ri) pairs directly — no searchsorted pass, no numpy expansion.
+    # It needs the LEFT side sorted within buckets too (the index
+    # layout's guarantee; repaired above only for the right), so check
+    # and fall through when it is not.
+    if (lkey.dtype == np.int64 and rkey.dtype == np.int64
+            and not _unsorted_within(lkey, lb)):
+        from hyperspace_tpu_torch import native
+        pairs = native.bucketed_merge_join_i64(
+            lkey, rkey, lb, rb, left_outer=(how == "left_outer"))
+        if pairs is not None:
+            li, ri = pairs
+            if r_perm is not None and len(ri):
+                ri = np.where(ri >= 0, r_perm[np.clip(ri, 0, None)],
+                              -1).astype(np.int32)
+            return li, ri
 
     lo = np.empty(len(lkey), dtype=np.int64)
     hi = np.empty(len(lkey), dtype=np.int64)

@@ -22,7 +22,7 @@ same lanes, so hashing and sorting share one decomposition.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -106,12 +106,30 @@ def staged_sort(operands: Sequence[torch.Tensor]
 
 
 def host_dense_group_ids(keys) -> Tuple[np.ndarray, np.ndarray]:
-    """Stable dense group encoding on the host: a stable `np.lexsort`
-    over the key arrays (primary key first), then adjacent-difference ids
-    in sorted order. Returns (perm, sorted_group_ids); original-order ids
-    are `out[perm] = sorted_group_ids`."""
+    """Stable dense group encoding on the host: a stable sort over the
+    key arrays (primary key first), then adjacent-difference ids in
+    sorted order. Returns (perm, sorted_group_ids); original-order ids
+    are `out[perm] = sorted_group_ids`. The permutation comes from the
+    native radix lane when the keys decompose to packable lanes, else
+    `np.lexsort`. Both are stable and agree for int/bool/string keys;
+    float keys only agree up to NaN placement (the native lane orders by
+    the normalized total-order bits, np.lexsort puts every NaN last), as
+    in the JAX package. Group CONTENT is the same either way."""
     keys = [np.asarray(k) for k in keys]
-    perm = np.lexsort(tuple(reversed(keys)))
+    perm = None
+    n = len(keys[0]) if keys else 0
+    if keys and n:
+        from hyperspace_tpu_torch import native
+        lanes: Optional[List] = []
+        for k in keys:
+            if k.dtype == np.object_ or k.dtype.kind == "U":
+                lanes = None
+                break
+            lanes.extend(host_key_lanes(k))
+        if lanes is not None:
+            perm = native.key_sort_perm(n, lanes)
+    if perm is None:
+        perm = np.lexsort(tuple(reversed(keys)))
     n = len(perm)
     differs = np.zeros(n, dtype=np.int32)
     for k in keys:

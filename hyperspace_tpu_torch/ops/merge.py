@@ -117,9 +117,11 @@ def host_merge_runs_permutation(key: np.ndarray, run_bounds):
 
 def host_bucket_sort_permutation(key_batch, sort_columns: Sequence[str],
                                  lengths: np.ndarray):
-    """Host twin of `bucket_sort_permutation`: a stable `np.lexsort` keyed
-    (bucket, *sort lanes). (The JAX package first tries its native C++
-    radix library here; that library is not part of this package.)"""
+    """Host twin of `bucket_sort_permutation`: a stable sort keyed
+    (bucket, *sort lanes) — the native C++ radix lane when the library
+    loads (`native.bucket_key_sort_perm`), `np.lexsort` otherwise."""
+    from hyperspace_tpu_torch import native
+
     lengths = np.asarray(lengths, dtype=np.int64)
     bucket_of_row = np.repeat(np.arange(len(lengths), dtype=np.int32),
                               lengths)
@@ -127,6 +129,12 @@ def host_bucket_sort_permutation(key_batch, sort_columns: Sequence[str],
     for name in sort_columns:
         sort_lanes.extend(keymod.host_column_sort_lanes(
             key_batch.column(name)))
-    perm = np.lexsort(tuple(reversed([bucket_of_row] + sort_lanes)))
     starts, ends = _bounds(lengths)
+    nat = native.bucket_key_sort_perm(bucket_of_row, len(lengths),
+                                      sort_lanes)
+    if nat is not None:
+        # Only the permutation is consumed: bounds from `lengths` agree
+        # with the sort's by construction.
+        return [nat[0]], starts, ends
+    perm = np.lexsort(tuple(reversed([bucket_of_row] + sort_lanes)))
     return [perm.astype(np.int64)], starts, ends

@@ -70,11 +70,17 @@ def _key_operands(batch: ColumnBatch, by: Sequence[str]) -> List:
 
 def sort_permutation(batch: ColumnBatch, by: Sequence[str]):
     """Stable lexicographic sort permutation by `by` columns. Host-lane
-    batches sort with `np.lexsort` (stable) — no device round-trip — and
-    return a numpy int32 permutation; device batches a tensor of row
-    indices."""
+    batches sort on the host — the native radix lane, else `np.lexsort`
+    (both stable, the same permutation) — and return a numpy int32
+    permutation; device batches a tensor of row indices."""
     operands = _key_operands(batch, by)
     if batch.is_host:
+        # Native radix lane first (the C++ kernel is stable over packed
+        # u64 words, like lexsort).
+        from hyperspace_tpu_torch import native
+        perm = native.key_sort_perm(batch.num_rows, operands)
+        if perm is not None:
+            return perm
         # np.lexsort's primary key is the LAST operand.
         return np.lexsort(tuple(reversed(operands))).astype(np.int32)
     from hyperspace_tpu_torch.ops.keys import lexsort_permutation

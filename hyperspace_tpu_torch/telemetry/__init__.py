@@ -25,11 +25,13 @@ recent one; `to_json()` / `format_tree()` render reports.
 
 Process-wide observability rides in sibling modules re-exported here:
 `registry` (named counters/gauges/log-bucketed histograms aggregating
-across queries and sessions; Prometheus text dump) and `trace` (span
+across queries and sessions; Prometheus text dump), `trace` (span
 tracer with Chrome trace-event / Perfetto export — `enable_tracing()`
-then `export_trace(path)`). The JAX package's profiler, memory
-accountant, compile instrumentation, flight recorder, deadlines, tenants
-and ops server are not part of this package yet (`ROADMAP.md`).
+then `export_trace(path)` — and the host<->device link counters) and
+`memory` (the device-memory accountant and the `cache.<name>.*`
+series). The JAX package's profiler, compile instrumentation, flight
+recorder, deadlines, tenants and ops server are not part of this
+package yet (`ROADMAP.md`).
 """
 
 from __future__ import annotations
@@ -46,14 +48,21 @@ from hyperspace_tpu_torch.telemetry.registry import (MetricsRegistry,
                                                      get_registry)
 from hyperspace_tpu_torch.telemetry.trace import (Tracer, disable_tracing,
                                                   enable_tracing,
-                                                  export_trace, span, tracer,
-                                                  tracing_enabled)
+                                                  export_trace,
+                                                  link_transfer,
+                                                  record_link_transfer, span,
+                                                  tracer, tracing_enabled)
+from hyperspace_tpu_torch.telemetry import memory  # noqa: F401
+from hyperspace_tpu_torch.telemetry.memory import (DeviceMemoryAccountant,
+                                                   get_accountant)
 
 __all__ = [
     "QueryMetrics", "OperatorRecord", "current", "recording", "event",
     "annotate", "add_seconds", "add_count", "MetricsRegistry",
     "get_registry", "Tracer", "enable_tracing", "disable_tracing",
-    "tracing_enabled", "tracer", "span", "export_trace",
+    "tracing_enabled", "tracer", "span", "link_transfer",
+    "record_link_transfer", "export_trace", "memory",
+    "DeviceMemoryAccountant", "get_accountant",
 ]
 
 
@@ -172,6 +181,10 @@ class QueryMetrics:
         self.operators: List[OperatorRecord] = []
         self.events: List[dict] = []
         self.counters: Dict[str, float] = {}
+        # Device-memory watermarks observed while this query ran
+        # (`telemetry/memory.py` samples at link transfers).
+        self.peak_hbm_bytes = 0
+        self.peak_hbm_per_device: Dict[str, int] = {}
         self._lock = threading.Lock()
         self._ids = itertools.count()
         self._tls = threading.local()
@@ -232,6 +245,16 @@ class QueryMetrics:
     def add_count(self, counter: str, n: int = 1) -> None:
         with self._lock:
             self.counters[counter] = self.counters.get(counter, 0) + n
+
+    def observe_hbm(self, live: Dict[str, int]) -> None:
+        """Fold one memory sample ({device: bytes in use}) into this
+        query's peak watermarks."""
+        with self._lock:
+            for dev, in_use in live.items():
+                if in_use > self.peak_hbm_per_device.get(dev, 0):
+                    self.peak_hbm_per_device[dev] = in_use
+            self.peak_hbm_bytes = max(self.peak_hbm_bytes,
+                                      sum(live.values()))
 
     def finish(self) -> "QueryMetrics":
         self.wall_s = time.perf_counter() - self._t0

@@ -1,0 +1,241 @@
+"""Device-memory accountant + byte-aware cache instrumentation.
+
+- **Device memory**: per-device live/peak bytes, sampled at every
+  instrumented H2D/D2H link transfer. On a CUDA card the numbers come
+  from the caching allocator (`torch.cuda.memory_stats(device)`:
+  `allocated_bytes.all.current` and `.peak`); where no CUDA device is
+  visible — the CPU tests — an accounting fallback sums the storages of
+  the live torch tensors per device. Samples land as registry gauges
+  (`memory.<dev>.bytes_in_use` / `.peak_bytes`), per-query peak
+  watermarks on the active `QueryMetrics` (`peak_hbm_bytes` +
+  per-device), and — when tracing — Chrome counter-track events, one
+  track per device.
+
+- **Caches**: every cache in the package reports
+  `cache.<name>.{hits,misses,evictions}` counters and
+  `cache.<name>.{bytes_held,entries}` gauges through the helpers here
+  (the parquet read / host-batch / footer-count caches and the device
+  segment cache), so cache thrash is a scrape-able series instead of a
+  guess.
+
+Sampling discipline: `maybe_sample()` is a no-op unless a per-query
+recorder is active or tracing is enabled, and throttles to
+`SAMPLE_MIN_INTERVAL_S` between allocator reads (`FALLBACK_MIN_INTERVAL_S`
+between live-tensor walks) so sampling cannot dominate a tight loop;
+`sample(force=True)` bypasses the throttle.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Dict, Optional, Tuple
+
+from hyperspace_tpu_torch.telemetry import registry as _registry
+
+__all__ = ["DeviceMemoryAccountant", "get_accountant", "maybe_sample",
+           "sample", "snapshot", "artifact_section", "cache_hit",
+           "cache_miss", "cache_eviction", "cache_stats"]
+
+# Minimum seconds between throttled samples; the live-tensor fallback
+# walks every object the garbage collector tracks (tens of ms in a large
+# process), so its throttled samples are a second apart.
+SAMPLE_MIN_INTERVAL_S = 0.01
+FALLBACK_MIN_INTERVAL_S = 1.0
+
+
+def _stats_sample() -> Optional[Dict[str, Tuple[int, int]]]:
+    """{device: (bytes_in_use, peak_bytes)} from the CUDA caching
+    allocator, or None when no CUDA device is visible."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return None
+    out: Dict[str, Tuple[int, int]] = {}
+    for i in range(torch.cuda.device_count()):
+        st = torch.cuda.memory_stats(i)
+        in_use = int(st.get("allocated_bytes.all.current", 0))
+        out[f"cuda:{i}"] = (in_use,
+                            int(st.get("allocated_bytes.all.peak", in_use)))
+    return out or None
+
+
+def _live_tensors_sample() -> Dict[str, Tuple[int, int]]:
+    """Accounting fallback: the bytes of every live tensor storage per
+    device, each storage counted once however many views share it. Peak
+    is tracked by the accountant, not the walk."""
+    import gc
+
+    import torch
+
+    seen = set()
+    live: Dict[str, int] = {}
+    for obj in gc.get_objects():
+        # issubclass on the type: an isinstance check would run instance
+        # hooks of arbitrary tracked objects.
+        if not issubclass(type(obj), torch.Tensor):
+            continue
+        try:
+            storage = obj.untyped_storage()
+            key = (str(obj.device), storage.data_ptr())
+            nbytes = int(storage.nbytes())
+        except (RuntimeError, NotImplementedError):
+            continue
+        if key in seen:
+            continue
+        seen.add(key)
+        live[key[0]] = live.get(key[0], 0) + nbytes
+    return {label: (b, b) for label, b in live.items()}
+
+
+class DeviceMemoryAccountant:
+    """Tracks per-device live and peak bytes for the process, and
+    attributes per-query peak watermarks to the active recorder."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._last_sample_t = 0.0
+        self.live: Dict[str, int] = {}
+        self.peak: Dict[str, int] = {}
+        self.backend: Optional[str] = None  # "memory_stats"|"live_tensors"
+        self.samples = 0
+
+    def sample(self, force: bool = True) -> Optional[Dict[str, int]]:
+        """Take one sample: update gauges, process peaks, the active
+        recorder's watermarks, and (when tracing) the per-device counter
+        tracks. Returns {device: bytes_in_use} or None when throttled."""
+        now = time.monotonic()
+        with self._lock:
+            interval = (SAMPLE_MIN_INTERVAL_S
+                        if self.backend != "live_tensors"
+                        else FALLBACK_MIN_INTERVAL_S)
+            if not force and now - self._last_sample_t < interval:
+                return None
+            self._last_sample_t = now
+        per_dev = _stats_sample()
+        if per_dev is not None:
+            backend = "memory_stats"
+        else:
+            per_dev = _live_tensors_sample()
+            backend = "live_tensors"
+        reg = _registry.get_registry()
+        live: Dict[str, int] = {}
+        with self._lock:
+            self.backend = backend
+            self.samples += 1
+            for dev, (in_use, dev_peak) in per_dev.items():
+                self.live[dev] = in_use
+                self.peak[dev] = max(self.peak.get(dev, 0), dev_peak,
+                                     in_use)
+                live[dev] = in_use
+            peaks = dict(self.peak)
+        for dev, in_use in live.items():
+            reg.gauge(f"memory.{dev}.bytes_in_use").set(in_use)
+            reg.gauge(f"memory.{dev}.peak_bytes").set(peaks[dev])
+        from hyperspace_tpu_torch import telemetry
+        rec = telemetry.current()
+        if rec is not None:
+            rec.observe_hbm(live)
+        tracer = telemetry.tracer()
+        if tracer is not None:
+            for dev, in_use in live.items():
+                tracer.counter(f"Memory {dev}", {"bytes_in_use": in_use})
+        return live
+
+    def maybe_sample(self) -> None:
+        """Throttled sample, and only when someone is listening (active
+        recorder or tracer)."""
+        from hyperspace_tpu_torch import telemetry
+        if telemetry.current() is None and telemetry.tracer() is None:
+            return
+        self.sample(force=False)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {
+                "backend": self.backend,
+                "samples": self.samples,
+                "devices": {dev: {"bytes_in_use": self.live.get(dev, 0),
+                                  "peak_bytes": peak}
+                            for dev, peak in sorted(self.peak.items())},
+                "peak_hbm_bytes": sum(self.peak.values()),
+            }
+
+
+_ACCOUNTANT = DeviceMemoryAccountant()
+
+
+def get_accountant() -> DeviceMemoryAccountant:
+    """THE process-wide device-memory accountant."""
+    return _ACCOUNTANT
+
+
+def maybe_sample() -> None:
+    _ACCOUNTANT.maybe_sample()
+
+
+def sample(force: bool = True):
+    return _ACCOUNTANT.sample(force=force)
+
+
+def snapshot() -> dict:
+    return _ACCOUNTANT.snapshot()
+
+
+# ---------------------------------------------------------------------------
+# Byte-aware cache instrumentation: one naming scheme for every cache.
+# ---------------------------------------------------------------------------
+
+
+def cache_hit(name: str, n: int = 1) -> None:
+    _registry.get_registry().counter(f"cache.{name}.hits").inc(n)
+    _query_cache_count(f"cache.{name}.hits", n)
+
+
+def cache_miss(name: str, n: int = 1) -> None:
+    _registry.get_registry().counter(f"cache.{name}.misses").inc(n)
+    _query_cache_count(f"cache.{name}.misses", n)
+
+
+def cache_eviction(name: str, n: int = 1) -> None:
+    if n:
+        _registry.get_registry().counter(f"cache.{name}.evictions").inc(n)
+        _query_cache_count(f"cache.{name}.evictions", n)
+
+
+def _query_cache_count(counter: str, n: int) -> None:
+    """Mirror a cache event onto the active per-query recorder (no-op
+    without one), so WHICH query thrashed a cache is attributable."""
+    from hyperspace_tpu_torch import telemetry
+    telemetry.add_count(counter, n)
+
+
+def cache_stats(name: str, bytes_held: Optional[int],
+                entries: Optional[int]) -> None:
+    """Post-mutation residency gauges; pass None to leave one unset."""
+    reg = _registry.get_registry()
+    if bytes_held is not None:
+        reg.gauge(f"cache.{name}.bytes_held").set(bytes_held)
+    if entries is not None:
+        reg.gauge(f"cache.{name}.entries").set(entries)
+
+
+def artifact_section() -> dict:
+    """The memory block a run report embeds: per-device peak bytes and
+    the per-cache hit/miss/eviction/bytes-held series."""
+    snap = _ACCOUNTANT.snapshot()
+    reg = _registry.get_registry().to_dict()
+    caches: Dict[str, dict] = {}
+    for kind in ("counters", "gauges"):
+        for name, value in reg[kind].items():
+            if not name.startswith("cache."):
+                continue
+            _, cache_name, series = name.split(".", 2)
+            caches.setdefault(cache_name, {})[series] = value
+    # Every cache reports the full shape, zeros included, so consumers
+    # diff like for like.
+    for series in ("hits", "misses", "evictions"):
+        for stats in caches.values():
+            stats.setdefault(series, 0)
+    snap["caches"] = caches
+    return snap

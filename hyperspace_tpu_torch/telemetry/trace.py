@@ -26,9 +26,11 @@ from collections import deque
 from contextlib import contextmanager
 from typing import Dict, List, Optional
 
+from hyperspace_tpu_torch.telemetry import registry as _registry
+
 __all__ = ["Tracer", "enable_tracing", "disable_tracing",
-           "tracing_enabled", "tracer", "span", "export_trace",
-           "PID_ENGINE"]
+           "tracing_enabled", "tracer", "span", "link_transfer",
+           "record_link_transfer", "export_trace", "PID_ENGINE"]
 
 # The trace "process" engine threads report under.
 PID_ENGINE = 1
@@ -63,6 +65,16 @@ class Tracer:
               "pid": pid, "tid": tid}
         if args:
             ev["args"] = args
+        with self._lock:
+            self.events.append(ev)
+            self.emitted += 1
+
+    def counter(self, name: str, values: Dict[str, float],
+                pid: int = PID_ENGINE) -> None:
+        """One Chrome "C" (counter) event: a value track in Perfetto
+        (the memory accountant's per-device bytes-in-use)."""
+        ev = {"name": name, "ph": "C", "ts": round(self.now_us(), 1),
+              "pid": pid, "tid": 0, "args": dict(values)}
         with self._lock:
             self.events.append(ev)
             self.emitted += 1
@@ -137,6 +149,54 @@ def span(name: str, cat: str = "engine", **args):
         yield
     finally:
         t.complete(name, cat, ts, t.now_us() - ts, args=args or None)
+
+
+def record_link_transfer(direction: str, nbytes: int, seconds: float,
+                         ts_us: Optional[float] = None,
+                         chunks: int = 1) -> None:
+    """Record one host<->device transfer (`direction` = "h2d" | "d2h"):
+    registry counters + log-bucketed byte/seconds histograms ALWAYS, a
+    per-query counter when a recorder is active, a span when tracing.
+    `chunks` is how many pipelined chunk copies the logical transfer
+    shipped as (`io/transfer.py`) — `link.<dir>.chunks` vs
+    `link.<dir>.transfers` is the chunking ratio. CUDA copies are
+    asynchronous — the measured wall is issue-side unless the measuring
+    code synchronized; the byte counts are exact either way."""
+    reg = _registry.get_registry()
+    reg.counter(f"link.{direction}.bytes").inc(nbytes)
+    reg.counter(f"link.{direction}.seconds").inc(seconds)
+    reg.counter(f"link.{direction}.transfers").inc()
+    reg.counter(f"link.{direction}.chunks").inc(max(int(chunks), 1))
+    reg.histogram(f"link.{direction}.bytes_per_transfer").observe(nbytes)
+    from hyperspace_tpu_torch import telemetry
+    telemetry.add_seconds(f"link.{direction}_s", seconds)
+    telemetry.add_count(f"link.{direction}_bytes", int(nbytes))
+    t = _tracer
+    if t is not None:
+        end = t.now_us()
+        start = end - seconds * 1e6 if ts_us is None else ts_us
+        t.complete(f"{direction} {int(nbytes):,}B", "link", start,
+                   end - start,
+                   args={"bytes": int(nbytes), "direction": direction})
+    # Every instrumented transfer moves device residency: fold a memory
+    # sample (throttled; no-op unless a recorder or tracer is active).
+    from hyperspace_tpu_torch.telemetry import memory as _memory
+    _memory.maybe_sample()
+
+
+@contextmanager
+def link_transfer(direction: str, nbytes: int, chunks: int = 1):
+    """Context-manager form of `record_link_transfer`: times the
+    enclosed block as the transfer wall."""
+    t = _tracer
+    ts = t.now_us() if t is not None else None
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        record_link_transfer(direction, nbytes,
+                             time.perf_counter() - t0, ts_us=ts,
+                             chunks=chunks)
 
 
 def export_trace(path: str) -> dict:

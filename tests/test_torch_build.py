@@ -133,8 +133,19 @@ def test_narrow_transport_hashes_like_the_wide_path():
     assert (nstarts == wstarts).all()
 
 
-def test_build_lane_thresholds():
-    assert tbuilder.build_lane(tbuilder.BUILD_MIN_DEVICE_ROWS - 1) \
-        == "host-lexsort"
-    assert tbuilder.build_lane(tbuilder.BUILD_MIN_DEVICE_ROWS) == "device"
+def test_build_lane_thresholds(monkeypatch):
+    from hyperspace_tpu_torch import native as tnative
+
+    n = tbuilder.BUILD_MIN_DEVICE_ROWS
+    cuda = torch.device("cuda")
+    for device in (None, CPU, cuda):
+        assert tbuilder.build_lane(n - 1, device) == "host-lexsort"
+    # A CUDA session keeps the device lane (the hash kernel); a CPU
+    # session takes the native radix sort when the library loads.
+    assert tbuilder.build_lane(n, cuda) == "device"
+    assert tbuilder.build_lane(n, CPU) == "native-host"
+    assert tbuilder.build_lane(n) == "native-host"
+    monkeypatch.setattr(tnative, "get_lib", lambda: None)
+    assert tbuilder.build_lane(n, CPU) == "device"
+    assert tbuilder.build_lane(n) == "host-lexsort"
     assert tbuilder.BUILD_MIN_DEVICE_ROWS == jbuilder.BUILD_MIN_DEVICE_ROWS

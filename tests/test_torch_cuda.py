@@ -444,3 +444,86 @@ def test_card_set_op_indices_equal_host_lane(card, names, anti):
     assert len(want) > 0
     assert isinstance(got, torch.Tensor) and got.device.type == "cuda"
     assert got.cpu().numpy().tolist() == want.tolist()
+
+
+@pytest.mark.parametrize("dtype", [np.int64, np.float64, np.int32, np.bool_])
+def test_card_engine_round_trips_pinned_chunks(card, dtype):
+    """The transfer engine on the card: chunked copies from reused pinned
+    staging buffers (several chunks per buffer over the put) land every
+    byte, cast or not, and a prefetched D2H fetch returns them."""
+    from hyperspace_tpu_torch.io import transfer
+
+    engine = transfer.set_engine(transfer.TransferEngine(
+        chunk_bytes=1 << 20, inflight_bytes=4 << 20, threads=2))
+    try:
+        rng = np.random.default_rng(31)
+        src = rng.integers(-2**40, 2**40, 3_000_001)
+        want = src.astype(dtype)
+        placed = [engine.put(want, card),
+                  engine.put(transfer.HostCast(src, dtype), card)]
+        torch.cuda.synchronize()
+        stats = dict(engine.stats)
+        assert stats["staging_reused"] > 0, stats
+        assert stats["staging_allocated"] <= 2 * engine.threads + 2
+        for got in placed:
+            assert got.device.type == "cuda"
+            engine.prefetch(got)
+            assert np.array_equal(engine.fetch(got), want)
+            assert np.array_equal(got.cpu().numpy(), want)
+    finally:
+        transfer.reset_engine()
+
+
+def _index_session(card, tmp_path):
+    import hyperspace_tpu_torch as ths
+
+    rng = np.random.default_rng(41)
+    src = tmp_path / "src"
+    src.mkdir()
+    pq.write_table(pa.table({
+        "key": rng.integers(0, 500, 200_000).astype(np.int64),
+        "val": rng.random(200_000),
+        "s": [f"s{i % 97}" for i in range(200_000)]}),
+        str(src / "part-0.parquet"))
+    sess = ths.HyperspaceSession(ths.HyperspaceConf({
+        "spark.hyperspace.warehouse.dir": str(tmp_path / "wh"),
+        "spark.hyperspace.execution.min.device.rows": "0"}), device=card)
+    df = sess.read_parquet(str(src))
+    ths.Hyperspace(sess).create_index(
+        df, ths.IndexConfig("cidx", ["key"], ["val", "s"]))
+    sess.enable_hyperspace()
+    return sess, df
+
+
+def test_card_warm_scan_is_a_cuda_segment_hit(card, tmp_path):
+    """A warm index Scan on the card returns the cached CUDA tensors and
+    crosses no link: a segment-cache hit adds no `link.h2d.chunks`."""
+    from hyperspace_tpu_torch import telemetry
+    from hyperspace_tpu_torch.engine.physical import plan_physical
+    from hyperspace_tpu_torch.io import segcache
+    from hyperspace_tpu_torch.plan.expr import col, lit
+
+    segcache.set_cache(segcache.SegmentCache())
+    try:
+        sess, df = _index_session(card, tmp_path)
+        frame = df.filter(col("key") >= lit(100)).select("key", "val", "s")
+        cold = frame.collect()
+        reg = telemetry.get_registry()
+        chunks0 = reg.counter("link.h2d.chunks").value
+        hits0 = reg.counter("cache.segments.hits").value
+        plan = sess.optimize(frame.plan)
+        scan = [n for n in plan_physical(plan, conf=sess.conf).collect()
+                if n.name == "Scan"][0]
+        batch = scan.execute()
+        assert reg.counter("cache.segments.hits").value == hits0 + 1
+        assert reg.counter("link.h2d.chunks").value == chunks0
+        for c in batch.columns.values():
+            assert c.data.device.type == "cuda"
+        warm = frame.collect()
+        assert reg.counter("link.h2d.chunks").value == chunks0
+        assert warm.equals(cold)
+        sess.disable_hyperspace()
+        assert sorted(warm.to_pylist(), key=repr) == sorted(
+            frame.collect().to_pylist(), key=repr)
+    finally:
+        segcache.set_cache(segcache.SegmentCache())

@@ -49,6 +49,8 @@ def _imported_modules(path):
 def test_no_module_imports_jax_or_the_jax_package():
     files = list(_package_files())
     assert len(files) > 20
+    # The native host library's loader is covered like every module.
+    assert os.path.join(PACKAGE, "native", "__init__.py") in files
     offenders = [(os.path.relpath(p, REPO), m) for p in files
                  for m in _imported_modules(p) if _forbidden(m)]
     assert offenders == []
@@ -72,6 +74,40 @@ def test_fresh_import_loads_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.splitlines()[0] == "0", out.stdout
+
+
+def test_native_library_is_the_ports_own_copy():
+    """The port builds and loads its own copy of the native host library
+    (`hyperspace_tpu_torch/native/`, built into `hyperspace_tpu_torch/
+    _build/`): no module of the port loads `hyperspace_tpu.native` or its
+    shared library."""
+    assert os.path.exists(os.path.join(PACKAGE, "native",
+                                       "hyperspace_host.cpp"))
+    code = (
+        "import sys\n"
+        "from hyperspace_tpu_torch import native\n"
+        "from hyperspace_tpu_torch.io import builder, columnar\n"
+        "import numpy as np\n"
+        "lib = native.get_lib()\n"
+        "columnar._string_hash64(np.array(['v%d' % i for i in range(99)]))\n"
+        "with open('/proc/self/maps') as f:\n"
+        "    maps = f.read()\n"
+        "print(lib is not None)\n"
+        "print(native.library_path() in maps)\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] == 'hyperspace_tpu'))\n"
+        "print(sorted({line.split()[-1] for line in maps.splitlines()\n"
+        "              if 'hyperspace_host' in line}))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    loaded, mapped, modules, libraries = out.stdout.splitlines()
+    assert loaded == "True" and mapped == "True"
+    assert modules == "[]"
+    for path in ast.literal_eval(libraries):
+        assert os.path.dirname(path) == os.path.join(PACKAGE, "_build")
 
 
 def test_default_device_is_cuda_and_raises_without_it():

@@ -186,6 +186,10 @@ def test_compact_index_lanes_match_a_full_rebuild(tmp_path, monkeypatch,
         monkeypatch.setattr(tbuilder, "_merge_path_permutation",
                             lambda *a, **k: None)
     if lane == "device":
+        # On a CPU session the torch lane runs when the native library is
+        # absent (with it, the session takes the native radix sort).
+        from hyperspace_tpu_torch import native as tnative
+        monkeypatch.setattr(tnative, "get_lib", lambda: None)
         monkeypatch.setattr(tbuilder, "BUILD_MIN_DEVICE_ROWS", 0)
     parts = [_rows(0, 700, 1, key_kind)] + [
         _rows(1000 * (i + 1), 90, 10 + i, key_kind) for i in range(3)]

@@ -17,7 +17,8 @@ step both runs record:
 The two records must be equal; paths compare relative to each run's lake.
 The port runs each scenario twice: on its default lanes, and with the
 torch lanes forced on the CPU (`BUILD_MIN_DEVICE_ROWS = 0`,
-`min.device.rows = 0`, the merge fast path disabled). Integers, strings
+`min.device.rows = 0`, the merge fast path and the native library
+disabled). Integers, strings
 and floats compare exactly: maintenance only moves rows.
 
 Then the cross-package checks: an index one package refreshed
@@ -604,6 +605,10 @@ def _jax_record(name, tmp_path_factory):
 
 
 def _force_torch_lanes(monkeypatch, conf):
+    # A CPU session builds on the torch lanes when the native library is
+    # absent (with it, the session takes the native radix sort).
+    from hyperspace_tpu_torch import native as tnative
+    monkeypatch.setattr(tnative, "get_lib", lambda: None)
     monkeypatch.setattr(tbuilder, "BUILD_MIN_DEVICE_ROWS", 0)
     monkeypatch.setattr(tbuilder, "_merge_path_permutation",
                         lambda *a, **k: None)
