@@ -45,7 +45,16 @@ entry points:
   all 99 queries with `min.device.rows` = 0 (windows, set operations and
   scalar subqueries among them) — rules on (a warm-up, then one timed run)
   and rules off, each against the pandas oracle, each rules-on plan on the
-  indexes the JAX package's plan reads.
+  indexes the JAX package's plan reads;
+- data skipping (`bench.py`'s rung 5b) over 16 key-clustered files of
+  1,048,576 rows: the sketch build on the device lane (`min.device.rows`
+  = 0) and on the host lane, their blobs byte-equal; the point, 1 % and
+  25 % key ranges pruned in place and one `k2 == 7 AND key in range`
+  query served from a Z-order copy, each against the unpruned scan, cold
+  and warm, rules on and off, each against numpy; one appended file, an
+  incremental refresh that sketches only it and a full refresh, each
+  followed by a point lookup on the newest blob; and hybrid scan over a
+  stale covering index whose appended branch the sketches prune away.
 
 Around the main path it also drives the host I/O layer: the native host
 library (built with `g++` from `hyperspace_tpu_torch/native/`; a `native`
@@ -89,6 +98,8 @@ TPCH_SCALE = 100                # the generator's scale for SF1 row counts
 TPCDS_SCALE = 10                # ~SF1 fact-table rows (2.9M store_sales)
 EXCHANGE_BUCKETS = 200          # the left index's count: B's Exchange target
 TRANSFER_BYTES = 512 << 20      # each way, in the transfer phase
+N_SKIP_FILES = 16               # the skipping phase's key-clustered files
+N_SKIP_PER_FILE = 1 << 20       # rows per file: 16,777,216 in all
 SEED = 42
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 INT_OPS_PER_S = 67e12           # H100 SXM non-tensor 32-bit rate
@@ -1259,6 +1270,309 @@ def phase_tpcds(hs, sess, work):
     return out
 
 
+# -- data skipping (bench.py's rung 5b) --------------------------------------
+
+def write_skip_source(src_dir, first_file, n_files):
+    """bench.py's rung-5b source: key-clustered files of N_SKIP_PER_FILE
+    rows (`key` an int64 arange per file, `k2` int64 in [0, 100), `score`
+    float64), seeded per file. Returns the columns."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    os.makedirs(src_dir, exist_ok=True)
+    parts = []
+    for i in range(first_file, first_file + n_files):
+        rng = np.random.default_rng([SEED, 5, i])
+        part = {"key": np.arange(i * N_SKIP_PER_FILE,
+                                 (i + 1) * N_SKIP_PER_FILE, dtype=np.int64),
+                "k2": rng.integers(0, 100, N_SKIP_PER_FILE).astype(np.int64),
+                "score": rng.random(N_SKIP_PER_FILE)}
+        pq.write_table(pa.table(part),
+                       os.path.join(src_dir, f"part-x{i:02d}.parquet"))
+        parts.append(part)
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+def sketch_lanes_ms(src_dir, nbits, card):
+    """The sketch's device work on one source file's `key` column — zone
+    reductions and the bloom build (flat bit positions, bincount, pack)
+    — on the card and on the host lane, each the median of 5 after one
+    warm-up. Runs outside the counted phases."""
+    import numpy as np
+    import pyarrow.parquet as pq
+    import torch
+
+    from hyperspace_tpu_torch.io import columnar
+    from hyperspace_tpu_torch.ops import sketch
+    from hyperspace_tpu_torch.plan.schema import Schema
+
+    table = pq.read_table(os.path.join(src_dir, "part-x00.parquet"),
+                          columns=["key"])
+    schema = Schema.from_arrow(table.schema)
+    out = {"rows": table.num_rows, "nbits": nbits}
+    for lane, device in (("device", card), ("host", None)):
+        column = columnar.from_arrow(table, schema,
+                                     device=device).column("key")
+        for name, fn in (("zones", lambda: sketch.zones(column)),
+                         ("bloom", lambda: sketch.bloom_build(column,
+                                                              nbits))):
+            times = []
+            for _ in range(6):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            out[f"{lane}_{name}_ms"] = float(np.median(times[1:]))
+    return out
+
+
+def phase_skipping(work, card):
+    """Data-skipping indexes at the filter rung's row count: 16
+    key-clustered files of 1,048,576 rows. The sketch build on the
+    device lane and on the host lane (byte-equal blobs), three pruned
+    selectivities and a Z-order query against the unpruned scan (cold
+    and warm, rules on and off, in turns), an incremental and a full
+    refresh, and hybrid scan's appended branch thinned by the sketches.
+    Every result equals numpy and the rules-off result."""
+    import numpy as np
+
+    from hyperspace_tpu_torch import (DataSkippingIndexConfig, Hyperspace,
+                                      HyperspaceConf, HyperspaceSession,
+                                      IndexConfig, col, lit)
+    from hyperspace_tpu_torch.index.sketch import SKETCH_BLOB, load_sketches
+    from hyperspace_tpu_torch.io import parquet, segcache
+
+    src = os.path.join(work, "skip_src")
+    t0 = time.perf_counter()
+    cols = write_skip_source(src, 0, N_SKIP_FILES)
+    source_s = time.perf_counter() - t0
+    n = len(cols["key"])
+    min_rows = "spark.hyperspace.execution.min.device.rows"
+
+    def session(name):
+        sess = HyperspaceSession(HyperspaceConf({
+            "spark.hyperspace.warehouse.dir": os.path.join(work, name)}),
+            device=card)
+        return sess, Hyperspace(sess)
+
+    def cold():
+        parquet.clear_read_cache()
+        segcache.clear()
+
+    sess, hs = session("skip_wh")
+    registry = hs.metrics_registry()
+    out = {"rows": n, "files": N_SKIP_FILES, "source_s": source_s}
+
+    # The build, on the device lane and at the default conf (the host
+    # lane: each file is below min.device.rows), in turns.
+    blobs, builds = [], {"device": [], "host": []}
+    for rep, lane in enumerate(("device", "host", "host", "device")):
+        bsess, bhs = (sess, hs) if rep == 0 else session(f"skip_wh_{rep}")
+        if lane == "device":
+            bsess.conf.set(min_rows, "0")
+        cold()
+        h2d0 = registry.counters_dict().get("link.h2d.bytes", 0)
+        t0 = time.perf_counter()
+        bhs.create_index(bsess.read_parquet(src),
+                         DataSkippingIndexConfig("bench_skip", ["key"]))
+        builds[lane].append(time.perf_counter() - t0)
+        h2d = registry.counters_dict().get("link.h2d.bytes", 0) - h2d0
+        check((h2d >= n * 8) == (lane == "device"),
+              f"skipping {lane} build moved {h2d} bytes to the card")
+        bsess.conf.unset(min_rows)
+        root = os.path.join(bsess.conf.system_path, "bench_skip", "v__=0")
+        with open(os.path.join(root, SKETCH_BLOB), "rb") as f:
+            blobs.append(f.read())
+    check(all(b == blobs[0] for b in blobs),
+          "skipping: the device-lane and host-lane blobs differ")
+    sketches = load_sketches(os.path.join(sess.conf.system_path,
+                                          "bench_skip", "v__=0"))
+    words = np.concatenate([fs.columns["key"].bloom
+                            for fs in sketches.files.values()])
+    nbits = len(sketches.files[os.path.join(
+        src, "part-x00.parquet")].columns["key"].bloom) * 32
+    out["build"] = {"device_s": builds["device"], "host_s": builds["host"],
+                    "blob_bytes": len(blobs[0]),
+                    "bloom_bits_per_file": nbits,
+                    "bloom_fill": float(np.unpackbits(
+                        words.view(np.uint8)).mean())}
+    out["sketch_lanes"] = sketch_lanes_ms(src, nbits, card)
+
+    sdf = sess.read_parquet(src)
+    files = sorted(sdf.plan.files())
+
+    def rows_of(table):
+        keys = table.column("key").to_numpy()
+        order = np.argsort(keys)
+        return keys[order], table.column("score").to_numpy()[order]
+
+    def timed_pair(name, frame, mask, want_files, served):
+        """Rules on and off, cold and then warm, in turns; every result
+        held against numpy; the rules-on plan's file list checked."""
+        want = (cols["key"][mask], cols["score"][mask])
+        sess.enable_hyperspace()
+        (leaf,) = sess.optimize(frame.plan).collect_leaves()
+        check(leaf._explicit_files and sorted(leaf.files()) == want_files,
+              f"skipping {name}: the plan reads {leaf.files()}")
+        passes = ("cold_on", "warm_on", "cold_off", "warm_off")
+        times = {p: [] for p in passes}
+        record = {}
+        for rep in range(2):
+            for p in passes:
+                if p.startswith("cold"):
+                    cold()
+                if p.endswith("on"):
+                    sess.enable_hyperspace()
+                else:
+                    sess.disable_hyperspace()
+                t0 = time.perf_counter()
+                table, metrics = frame.collect(with_metrics=True)
+                times[p].append((time.perf_counter() - t0) * 1e3)
+                got = rows_of(table)
+                check(all(np.array_equal(a, b) for a, b in zip(got, want)),
+                      f"skipping {name} {p}: rows differ from numpy")
+                if p == "cold_on" and rep == 0:
+                    (use,) = [u for u in metrics.index_usage()
+                              if u.get("side") == "skipping"]
+                    check(use["served"] == served,
+                          f"skipping {name}: served {use['served']}")
+                    record = {
+                        "files_pruned": metrics.counters.get(
+                            "skipping.files_pruned", 0),
+                        "bytes_pruned": metrics.counters.get(
+                            "skipping.bytes_pruned", 0),
+                        "files_read": len(want_files)}
+        sess.disable_hyperspace()
+        record.update({"rows_out": int(mask.sum()), "ms": times,
+                       **{f"{p}_ms": min(t) for p, t in times.items()}})
+        return record
+
+    point = n // 2
+    preds = {
+        "point": (col("key") == lit(point), cols["key"] == point,
+                  point, point + 1),
+        "narrow_1pct": ((col("key") >= lit(point))
+                        & (col("key") < lit(point + n // 100)),
+                        (cols["key"] >= point)
+                        & (cols["key"] < point + n // 100),
+                        point, point + n // 100),
+        "broad_25pct": ((col("key") >= lit(point))
+                        & (col("key") < lit(point + n // 4)),
+                        (cols["key"] >= point)
+                        & (cols["key"] < point + n // 4),
+                        point, point + n // 4),
+    }
+    queries = {}
+    for name, (pred, mask, lo, hi) in preds.items():
+        want_files = [f for i, f in enumerate(files)
+                      if i * N_SKIP_PER_FILE < hi
+                      and (i + 1) * N_SKIP_PER_FILE > lo]
+        queries[name] = timed_pair(name, sdf.filter(pred).select(
+            "key", "score"), mask, want_files, "source")
+        check(queries[name]["files_pruned"] == N_SKIP_FILES - len(
+            want_files), f"skipping {name}: {queries[name]}")
+    check(queries["point"]["files_pruned"] > 0
+          and queries["narrow_1pct"]["files_pruned"] > 0,
+          "skipping: point or narrow_1pct pruned no file")
+
+    # The Z-order copy, clustered by (key, k2); its sketches on the card.
+    sess.conf.set(min_rows, "0")
+    t0 = time.perf_counter()
+    hs.create_index(sdf, DataSkippingIndexConfig(
+        "bench_z", ["key", "k2"], zorder_by=["key", "k2"]))
+    zorder_s = time.perf_counter() - t0
+    sess.conf.unset(min_rows)
+    zroot = os.path.join(sess.conf.system_path, "bench_z", "v__=0")
+    zsk = load_sketches(zroot)
+    zfilter = ((col("k2") == lit(7)) & (col("key") >= lit(point))
+               & (col("key") < lit(point + n // 100)))
+    zmask = ((cols["k2"] == 7) & (cols["key"] >= point)
+             & (cols["key"] < point + n // 100))
+    from hyperspace_tpu_torch.plan.rules.skipping import prune_files
+    zsurvivors = sorted(prune_files(zfilter, sorted(zsk.files), zsk)[0])
+    queries["zorder"] = timed_pair("zorder", sdf.filter(zfilter).select(
+        "key", "score"), zmask, zsurvivors, "zorder-copy")
+    queries["zorder"]["build_s"] = zorder_s
+    queries["zorder"]["copy_files"] = len(zsk.files)
+    check(queries["zorder"]["files_pruned"] > 0,
+          "skipping: the Z-order query pruned no copy file")
+    out["queries"] = queries
+
+    # A covering index over the same source, stale after the append
+    # below: hybrid scan's appended branch.
+    t0 = time.perf_counter()
+    hs.create_index(sdf, IndexConfig("bench_cov", ["key"], ["score"]))
+    cov_s = time.perf_counter() - t0
+
+    # Maintenance: append one file, refresh incrementally, then fully.
+    app = write_skip_source(src, N_SKIP_FILES, 1)
+    allc = {k: np.concatenate([cols[k], app[k]]) for k in cols}
+
+    def lookup(version):
+        key = int(app["key"][123])
+        frame = sess.read_parquet(src).filter(
+            col("key") == lit(key)).select("key", "score")
+        sess.enable_hyperspace()
+        table, metrics = frame.collect(with_metrics=True)
+        sess.disable_hyperspace()
+        mask = allc["key"] == key
+        check(all(np.array_equal(a, b) for a, b in zip(
+            rows_of(table), (allc["key"][mask], allc["score"][mask]))),
+              f"skipping lookup after v__={version}: rows differ")
+        (use,) = [u for u in metrics.index_usage()
+                  if u.get("side") == "skipping"]
+        check(use["name"] == "bench_skip"
+              and use["index_root"].endswith(f"v__={version}")
+              and use["files_pruned"] == N_SKIP_FILES,
+              f"skipping lookup after v__={version}: {use}")
+
+    sess.conf.set(min_rows, "0")
+    maintenance = {}
+    for version, mode in ((1, "incremental"), (2, "full")):
+        cold()
+        t0 = time.perf_counter()
+        hs.refresh_index("bench_skip", mode=mode)
+        seconds = time.perf_counter() - t0
+        detail = registry.last_action_report()["detail"]
+        maintenance[mode] = {"seconds": seconds,
+                             "files_sketched": detail["files_sketched"],
+                             "files_carried": detail.get("files_carried")}
+        if mode == "incremental":
+            check(detail["files_sketched"] == 1
+                  and detail["files_carried"] == N_SKIP_FILES,
+                  f"skipping incremental refresh: {detail}")
+        lookup(version)
+    sess.conf.unset(min_rows)
+    out["maintenance"] = maintenance
+
+    # Hybrid scan: the stale covering index serves key == n/2; the
+    # appended file is refuted by the refreshed sketches.
+    sess.conf.set("spark.hyperspace.index.hybridscan.enabled", "true")
+    sess.enable_hyperspace()
+    frame = sess.read_parquet(src).filter(
+        col("key") == lit(point)).select("key", "score")
+    plan = sess.optimize(frame.plan)
+    check(plan_unions(plan) == 0
+          and any(leaf.index_name == "bench_cov"
+                  for leaf in plan.collect_leaves()),
+          "skipping hybrid: the appended branch was not pruned away")
+    table, metrics = frame.collect(with_metrics=True)
+    warm = wall_ms(frame.collect)
+    sess.disable_hyperspace()
+    sess.conf.unset("spark.hyperspace.index.hybridscan.enabled")
+    mask = allc["key"] == point
+    check(all(np.array_equal(a, b) for a, b in zip(
+        rows_of(table), (allc["key"][mask], allc["score"][mask]))),
+          "skipping hybrid: rows differ from numpy")
+    pruned = metrics.counters.get("skipping.files_pruned", 0)
+    check(pruned > 0, "skipping hybrid: no appended file pruned")
+    out["hybrid"] = {"cov_build_s": cov_s, "files_pruned": pruned,
+                     "rows_out": table.num_rows, "warm_ms": warm}
+    return out
+
+
 def counted(counters, fn, *args):
     """Run one phase of the main path with every kernel's launch count
     set to 0 just before it; returns (result, launches per kernel)."""
@@ -1365,6 +1679,10 @@ def main():
         emit("tpcds", **out)
         check(tally("tpcds", n)[0] > 0,
               "the tpcds phase never launched the hash kernel")
+        out, n = counted(counters, phase_skipping, work,
+                         torch.device("cuda"))
+        emit("skipping", **out)
+        tally("skipping", n)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for row, count in zip(rows, launches):

@@ -6,7 +6,9 @@ files, with all index data and metadata stored on the lake behind an
 optimistic-concurrency operation log (the same on-lake format as
 `hyperspace_tpu`, so each package serves the other's indexes), and a
 rewrite layer that redirects filter and equi-join queries to the indexes.
-The control plane is Python; the data plane is torch tensors on a CUDA
+Data-skipping indexes — per-file zone maps and bloom filters, optionally
+over a Z-order clustered copy — prune the files a filter reads. The
+control plane is Python; the data plane is torch tensors on a CUDA
 card, with the build's bucket hash and the Exchange's partition step as
 hand-written CUDA kernels (`csrc/`). Nothing here imports JAX or
 `hyperspace_tpu`.
@@ -17,7 +19,8 @@ __version__ = "0.1.0"
 from hyperspace_tpu_torch.exceptions import (HyperspaceException,
                                        IndexDataUnavailableError)
 from hyperspace_tpu_torch.config import HyperspaceConf
-from hyperspace_tpu_torch.index.index_config import IndexConfig
+from hyperspace_tpu_torch.index.index_config import (DataSkippingIndexConfig,
+                                                     IndexConfig)
 
 _LAZY = {
     "Hyperspace": ("hyperspace_tpu_torch.facade", "Hyperspace"),
@@ -43,6 +46,6 @@ def __getattr__(name):
 
 
 __all__ = ["HyperspaceException", "IndexDataUnavailableError",
-           "HyperspaceConf", "IndexConfig",
+           "HyperspaceConf", "IndexConfig", "DataSkippingIndexConfig",
            "Hyperspace", "HyperspaceSession", "DataFrame", "col", "lit",
            "telemetry", "__version__"]

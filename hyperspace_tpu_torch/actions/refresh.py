@@ -4,12 +4,9 @@ Parity: reference `actions/RefreshAction.scala:23-78`: deserializes the
 logged plan back into a dataframe (the Scan re-enumerates source files, so
 appended/changed data is picked up), reuses the stored IndexConfig,
 REFRESHING -> ACTIVE, `op()` writes into the next `v__=N+1` version dir.
-Requires current state ACTIVE.
-
-The JAX package also refreshes data-skipping indexes through this action
-(a full re-sketch); this package has no data-skipping indexes yet, so such
-an entry is refused with a typed error (ROADMAP.md, PyTorch port Queue 1
-item 8).
+Requires current state ACTIVE. A data-skipping entry takes the same FSM
+with its own data job: a full re-sketch (plus the Z-order copy when the
+entry has one), `actions/skipping.build_skipping_data`.
 """
 
 from __future__ import annotations
@@ -57,9 +54,19 @@ class RefreshAction(CreateActionBase):
         return self._df
 
     @property
-    def index_config(self) -> IndexConfig:
-        """Reuse the stored config (reference `RefreshAction.scala:52-55`)."""
+    def index_config(self):
+        """Reuse the stored config (reference `RefreshAction.scala:52-55`).
+        The config TYPE follows the previous entry's kind — refreshing a
+        DataSkippingIndex re-runs the sketch build through this same
+        FSM action (per-file sketches make a full re-sketch cheap)."""
         prev = self.previous_entry
+        from hyperspace_tpu_torch.index.log_entry import DataSkippingIndex
+        if isinstance(prev.derived_dataset, DataSkippingIndex):
+            from hyperspace_tpu_torch.index.index_config import (
+                DataSkippingIndexConfig)
+            dd = prev.derived_dataset
+            return DataSkippingIndexConfig(prev.name, dd.skipped_columns,
+                                           dd.sketch_types, dd.zorder_by)
         return IndexConfig(prev.name, prev.indexed_columns,
                            prev.included_columns)
 
@@ -77,30 +84,44 @@ class RefreshAction(CreateActionBase):
 
     def validate(self) -> None:
         """Reference `RefreshAction.scala:64-70`: state must be ACTIVE."""
-        from hyperspace_tpu_torch.index.log_entry import DataSkippingIndex
-
         self._recover_stale_writer()
-        prev = self.previous_entry
-        if isinstance(prev.derived_dataset, DataSkippingIndex):
-            # Both refresh modes: that index kind is not in this package.
-            raise HyperspaceException(
-                f"Cannot refresh data-skipping index {prev.name!r}: "
-                "data-skipping indexes are not part of hyperspace_tpu_torch "
-                "yet (ROADMAP.md, PyTorch port Queue 1 item 8).")
         if self.previous_entry.state != States.ACTIVE:
             raise HyperspaceException(
                 f"Refresh is only supported in {States.ACTIVE} state; "
                 f"current state is {self.previous_entry.state}.")
 
+    def _is_skipping(self) -> bool:
+        from hyperspace_tpu_torch.index.index_config import (
+            DataSkippingIndexConfig)
+        return isinstance(self.index_config, DataSkippingIndexConfig)
+
     def log_entry(self) -> IndexLogEntry:
         if self._entry is None:
-            self._entry = self.get_index_log_entry(
-                self.df, self.index_config, self.index_data_path)
+            if self._is_skipping():
+                from hyperspace_tpu_torch.actions.skipping import (
+                    skipping_log_entry)
+                self._entry = skipping_log_entry(
+                    self.df, self.index_config, self.index_data_path,
+                    self._signature_provider())
+            else:
+                self._entry = self.get_index_log_entry(
+                    self.df, self.index_config, self.index_data_path)
         return IndexLogEntry.from_dict(self._entry.to_dict())
 
     def op(self) -> None:
         """Reference `RefreshAction.scala:72-77` — rebuild into the next
         version dir; the old dir is retained for in-flight readers."""
+        if self._is_skipping():
+            from hyperspace_tpu_torch.actions.skipping import (
+                build_skipping_data, sweep_source_caches)
+            detail = build_skipping_data(self.df, self.index_config,
+                                         self.index_data_path, self.conf)
+            self.annotate_report(**detail)
+            self.commit_data_version()
+            self.annotate_report(
+                source_roots_swept=sweep_source_caches(self.df))
+            self.stamp_stats()
+            return
         self.write(self.df, self.index_config, self.index_data_path)
         self.commit_data_version()
         self.stamp_stats()

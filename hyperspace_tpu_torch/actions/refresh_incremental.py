@@ -129,6 +129,12 @@ class RefreshIncrementalAction(RefreshAction):
 
     def validate(self) -> None:
         super().validate()
+        if self._is_skipping():
+            raise HyperspaceException(
+                "The bucketed incremental-refresh path applies to "
+                "covering indexes only; data-skipping indexes take the "
+                "sketch-append delta path (mode='incremental' via the "
+                "collection manager dispatches there by kind).")
         self.source_delta()  # raises on un-servable deltas
         if self.lineage_enabled():
             return  # classify_current verified every survivor per file

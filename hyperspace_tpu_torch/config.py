@@ -189,5 +189,36 @@ class HyperspaceConf:
         return self.get_int(constants.IO_TRANSFER_ACQUIRE_TIMEOUT_MS,
                             constants.IO_TRANSFER_ACQUIRE_TIMEOUT_MS_DEFAULT)
 
+    @property
+    def skipping_enabled(self) -> bool:
+        """Query-side gate on data-skipping pruning (`plan/rules/
+        skipping.py`): "false" stops FilterIndexRule consulting sketch
+        blobs (unpruned scans — correct, just unaccelerated). Build
+        verbs ignore it."""
+        return (self.get(constants.SKIPPING_ENABLED,
+                         constants.SKIPPING_ENABLED_DEFAULT)
+                or "true").lower() == "true"
+
+    @property
+    def skipping_bloom_fpp(self) -> float:
+        """Target false-positive rate of the per-file blocked bloom
+        filters; sizes the filter from the file's row count."""
+        return float(self.get(constants.SKIPPING_BLOOM_FPP,
+                              str(constants.SKIPPING_BLOOM_FPP_DEFAULT)))
+
+    @property
+    def skipping_bloom_max_bytes(self) -> int:
+        """Per-file, per-column cap on bloom filter bytes — a huge file
+        gets a degraded (higher-FPP) filter, never an unbounded blob."""
+        return self.get_int(constants.SKIPPING_BLOOM_MAX_BYTES,
+                            constants.SKIPPING_BLOOM_MAX_BYTES_DEFAULT)
+
+    @property
+    def skipping_zorder_files(self) -> int:
+        """Output file count of the optional Z-order clustering rewrite
+        at data-skipping build time (more files = tighter zones)."""
+        return self.get_int(constants.SKIPPING_ZORDER_FILES,
+                            constants.SKIPPING_ZORDER_FILES_DEFAULT)
+
     def copy(self) -> "HyperspaceConf":
         return HyperspaceConf(dict(self._conf))

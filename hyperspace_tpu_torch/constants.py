@@ -114,6 +114,28 @@ LINEAGE_COLUMN = "_hs_file_id"
 # rows of deleted files (lineage-enabled indexes). Off by default.
 HYBRID_SCAN_ENABLED = "spark.hyperspace.index.hybridscan.enabled"
 
+# Data-skipping indexes (`index/sketch.py`, `actions/skipping.py`,
+# `plan/rules/skipping.py`): a second index kind flowing through the same
+# log/action FSM — per-source-file min/max zone maps + blocked bloom
+# filters persisted as a compact parquet sketch blob under the index
+# root, consulted at plan time by FilterIndexRule to drop files whose
+# zones/blooms refute the predicate. `skipping.enabled` gates the
+# QUERY-side consult only (build verbs always work); the bloom knobs
+# size the per-file split-block filter (bits from the standard
+# -n*ln(p)/ln(2)^2 estimate, rounded up to whole 256-bit blocks and
+# capped at `max.bytes` per file per column); `zorder.files` is how
+# many clustered output files the optional build-time Z-order rewrite
+# produces (more files = tighter zones = finer pruning, at small-file
+# cost).
+SKIPPING_ENABLED = "spark.hyperspace.index.skipping.enabled"
+SKIPPING_ENABLED_DEFAULT = "true"
+SKIPPING_BLOOM_FPP = "spark.hyperspace.index.skipping.bloom.fpp"
+SKIPPING_BLOOM_FPP_DEFAULT = 0.01
+SKIPPING_BLOOM_MAX_BYTES = "spark.hyperspace.index.skipping.bloom.max.bytes"
+SKIPPING_BLOOM_MAX_BYTES_DEFAULT = 64 * 1024
+SKIPPING_ZORDER_FILES = "spark.hyperspace.index.skipping.zorder.files"
+SKIPPING_ZORDER_FILES_DEFAULT = 16
+
 # Where the device lane runs: "cuda" (the default; a CUDA card must be
 # present) or "cpu". `HyperspaceSession(device=...)` sets it.
 DEVICE = "spark.hyperspace.device"

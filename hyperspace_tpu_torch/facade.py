@@ -15,7 +15,6 @@ import weakref
 from typing import Optional
 
 from hyperspace_tpu_torch.engine.session import HyperspaceSession
-from hyperspace_tpu_torch.index.index_config import IndexConfig
 from hyperspace_tpu_torch.index.manager import CachingIndexCollectionManager
 
 
@@ -56,9 +55,13 @@ class Hyperspace:
 
     # -- lifecycle verbs (reference `Hyperspace.scala:33-92`) -------------
 
-    def create_index(self, df, index_config: IndexConfig) -> None:
-        """Build a covering index (bucketed, sorted derived dataset) over
-        `df`'s relation, through the transactional log FSM."""
+    def create_index(self, df, index_config) -> None:
+        """Build an index over `df`'s relation. The config type selects
+        the KIND: `IndexConfig` builds a covering index (bucketed,
+        sorted derived dataset); `DataSkippingIndexConfig` builds a
+        data-skipping index (per-file zone-map + bloom sketch blob,
+        optional Z-order clustering). Both flow through the same
+        transactional log FSM."""
         self._manager.create(df, index_config)
 
     def delete_index(self, index_name: str) -> None:

@@ -20,7 +20,6 @@ from hyperspace_tpu_torch.index.cache import Cache, IndexCacheFactory
 from hyperspace_tpu_torch.utils import file_utils, storage
 from hyperspace_tpu_torch.index.factories import (IndexDataManagerFactory,
                                             IndexLogManagerFactory)
-from hyperspace_tpu_torch.index.index_config import IndexConfig
 from hyperspace_tpu_torch.index.log_entry import IndexLogEntry
 from hyperspace_tpu_torch.index.path_resolver import PathResolver
 from hyperspace_tpu_torch.actions.cancel import CancelAction
@@ -105,7 +104,7 @@ class IndexManager(ABC):
     def indexes(self) -> List[IndexSummary]: ...
 
     @abstractmethod
-    def create(self, df, index_config: IndexConfig) -> None: ...
+    def create(self, df, index_config) -> None: ...
 
     @abstractmethod
     def delete(self, index_name: str) -> None: ...
@@ -147,14 +146,19 @@ class IndexCollectionManager(IndexManager):
         return (self.log_manager_factory.create(path, conf=self.conf),
                 self.data_manager_factory.create(path))
 
-    def create(self, df, index_config: IndexConfig) -> None:
-        """Build a covering index through the log FSM. (Data-skipping
-        indexes are not part of this package yet; ROADMAP.md.)"""
-        if not isinstance(index_config, IndexConfig):
-            raise HyperspaceException(
-                f"hyperspace_tpu_torch builds covering indexes "
-                f"(IndexConfig); got {type(index_config).__name__}.")
+    def create(self, df, index_config) -> None:
+        """`index_config` selects the index KIND: an `IndexConfig`
+        builds a covering index, a `DataSkippingIndexConfig` builds the
+        sketch-blob skipping kind — both through the same FSM."""
         log_manager, data_manager = self._managers(index_config.index_name)
+        from hyperspace_tpu_torch.index.index_config import (
+            DataSkippingIndexConfig)
+        if isinstance(index_config, DataSkippingIndexConfig):
+            from hyperspace_tpu_torch.actions.skipping import (
+                CreateSkippingIndexAction)
+            CreateSkippingIndexAction(df, index_config, log_manager,
+                                      data_manager, self.conf).run()
+            return
         CreateAction(df, index_config, log_manager, data_manager, self.conf).run()
 
     def delete(self, index_name: str) -> None:
@@ -170,14 +174,26 @@ class IndexCollectionManager(IndexManager):
         VacuumAction(log_manager, data_manager, self.conf).run()
 
     def refresh(self, index_name: str, mode: str = "full") -> None:
-        """mode 'full' rebuilds; 'incremental' indexes only the source
-        delta (RefreshIncrementalAction). A data-skipping entry is refused
-        with a typed error: that index kind is not part of this package
-        yet (ROADMAP.md, PyTorch port Queue 1 item 8)."""
+        """mode 'full' rebuilds; mode 'incremental' dispatches on the
+        index KIND recorded in the op log: covering indexes take the
+        bucketed-delta path (RefreshIncrementalAction), data-skipping
+        indexes the per-file sketch-append path
+        (RefreshSkippingAppendAction) — both append-only streaming
+        refreshes through the same FSM."""
         log_manager, data_manager = self._managers(index_name)
         if mode == "full":
             RefreshAction(log_manager, data_manager, self.conf).run()
         elif mode == "incremental":
+            from hyperspace_tpu_torch.index.log_entry import (
+                DataSkippingIndex)
+            latest = log_manager.get_latest_log()
+            if isinstance(latest, IndexLogEntry) and \
+                    isinstance(latest.derived_dataset, DataSkippingIndex):
+                from hyperspace_tpu_torch.actions.skipping import (
+                    RefreshSkippingAppendAction)
+                RefreshSkippingAppendAction(log_manager, data_manager,
+                                            self.conf).run()
+                return
             from hyperspace_tpu_torch.actions.refresh_incremental import (
                 RefreshIncrementalAction)
             RefreshIncrementalAction(log_manager, data_manager,
@@ -288,7 +304,7 @@ class CachingIndexCollectionManager(IndexCollectionManager):
             return entries
         return [e for e in self.get_indexes() if e.state in states]
 
-    def create(self, df, index_config: IndexConfig) -> None:
+    def create(self, df, index_config) -> None:
         self.clear_cache()
         super().create(df, index_config)
 

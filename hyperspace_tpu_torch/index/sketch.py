@@ -1,0 +1,389 @@
+"""Data-skipping sketch blobs: per-source-file zone maps + bloom filters.
+
+The DATA of a `DataSkippingIndex` is one compact parquet blob per
+committed `v__=N` version dir — `_hs_sketches` (parquet format; the
+name carries no `.parquet` extension so data-file globs and bucket
+listings never mistake it for rows, same convention as `_committed` /
+`_bucket_spec.json`). One row per source file:
+
+  file, size, stamp          — path + the `index/signature.file_stamp`
+                               identity captured when the file was
+                               sketched; the query-side pruner
+                               revalidates it, so a rewritten file is
+                               simply UNKNOWN (kept), never wrongly
+                               pruned
+  rows, bucket               — row count; bucket id when the file name
+                               carries the bucketed layout's pattern
+                               (-1 otherwise), so pruning a bucketed
+                               source prunes whole buckets
+  per sketched column i:     min_i / max_i (int64 / float64 / string by
+                               column kind; NULL when no non-null,
+                               non-NaN row exists), nulls_i, ok_i
+                               (non-null non-NaN count), nan_i, and
+                               bloom_i (split-block filter words as
+                               little-endian uint32 bytes; empty when
+                               the bloom sketch was not selected)
+
+Blob-level metadata (parquet schema metadata, key
+`hyperspace.sketches`) records the format version, the sketched
+columns with their dtypes, the sketch types, and the bloom hash
+version — a loader refuses versions it does not understand, and the
+rules degrade that refusal to an unpruned scan.
+
+CONSULTING the sketches (deciding which files a predicate refutes)
+lives in `plan/rules/skipping.py`; `load_sketches` and `prune_files` are
+called only from the rules and from this blob-IO home, so pruning
+decisions cannot scatter.
+
+The blob's columns, metadata key and versions are the JAX package's, so
+each package loads, prunes with and refreshes the other's blobs.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+from hyperspace_tpu_torch.exceptions import HyperspaceException
+
+SKETCH_BLOB = "_hs_sketches"
+SKETCH_FORMAT_VERSION = 1
+# Version of the bloom hash identity (`ops/sketch.py` dual mix over the
+# bucket-hash value lanes). Bumped if the mix or lane decomposition ever
+# changes; a blob under a different version loads with blooms DISABLED
+# (zones still serve — they carry plain values).
+SKETCH_HASH_VERSION = 1
+
+_META_KEY = b"hyperspace.sketches"
+
+
+def _kind_of(dtype: str) -> str:
+    if dtype == "string":
+        return "str"
+    if dtype in ("float32", "float64"):
+        return "float"
+    return "int"
+
+
+@dataclass
+class ColumnSketch:
+    """One column's sketch facts for one file (module docstring)."""
+
+    dtype: str
+    min: object  # None when no non-null, non-NaN value exists
+    max: object
+    nulls: int
+    ok: int  # non-null, non-NaN row count
+    has_nan: bool
+    bloom: Optional[np.ndarray] = None  # uint32 words, None = no bloom
+
+
+@dataclass
+class FileSketch:
+    path: str
+    size: int
+    stamp: str
+    rows: int
+    bucket: int  # -1 when the file name carries no bucket id
+    columns: Dict[str, ColumnSketch] = field(default_factory=dict)
+    # keyed by LOWERCASED column name
+
+
+@dataclass
+class SketchSet:
+    """A loaded blob: sketched columns (+dtypes) and per-file facts."""
+
+    columns: List[str]
+    dtypes: Dict[str, str]  # lowercased name -> dtype
+    sketch_types: List[str]
+    blooms_usable: bool
+    files: Dict[str, FileSketch] = field(default_factory=dict)
+
+    def sketch_for(self, path: str) -> Optional[FileSketch]:
+        return self.files.get(path)
+
+
+# ---------------------------------------------------------------------------
+# Build side
+# ---------------------------------------------------------------------------
+
+
+def sketch_batch(batch, names: Sequence[str], want_bloom: bool,
+                 nbits: int) -> Dict[str, ColumnSketch]:
+    """Sketch every column in `names` of one ColumnBatch (host- or
+    device-lane; the device lane was staged through the TransferEngine
+    by `columnar.from_arrow`). Strings' code-space zone bounds are mapped
+    back through the sorted dictionary here."""
+    from hyperspace_tpu_torch.ops import sketch as ops_sketch
+
+    out: Dict[str, ColumnSketch] = {}
+    for name in names:
+        col = batch.column(name)
+        f = batch.schema.field(name)
+        z = ops_sketch.zones(col)
+        vmin, vmax = z["min"], z["max"]
+        if col.is_string and vmin is not None:
+            vmin = str(col.dictionary[int(vmin)])
+            vmax = str(col.dictionary[int(vmax)])
+        bloom = None
+        if want_bloom and len(col):
+            bloom = ops_sketch.bloom_build(col, nbits)
+        out[f.name.lower()] = ColumnSketch(
+            dtype=f.dtype, min=vmin, max=vmax, nulls=int(z["nulls"]),
+            ok=int(z["ok"]), has_nan=bool(z["has_nan"]), bloom=bloom)
+    return out
+
+
+def build_file_sketches(files: Sequence[str], names: Sequence[str],
+                        schema, conf) -> List[FileSketch]:
+    """One FileSketch per source file: read the sketched columns,
+    reduce on the adaptive lane (torch operations on the session's
+    device for batches at or above
+    `spark.hyperspace.execution.min.device.rows`, staged through the
+    TransferEngine; numpy below), and capture each file's (size, stamp)
+    identity for query-time revalidation."""
+    from hyperspace_tpu_torch._torch_config import device_of
+    from hyperspace_tpu_torch import constants
+    from hyperspace_tpu_torch.index.signature import file_stamp
+    from hyperspace_tpu_torch.io import columnar, parquet
+
+    want_bloom = True
+    fpp = constants.SKIPPING_BLOOM_FPP_DEFAULT
+    max_bytes = constants.SKIPPING_BLOOM_MAX_BYTES_DEFAULT
+    min_dev = constants.MIN_DEVICE_ROWS_DEFAULT
+    if conf is not None:
+        fpp = conf.skipping_bloom_fpp
+        max_bytes = conf.skipping_bloom_max_bytes
+        min_dev = conf.min_device_rows
+    from hyperspace_tpu_torch.ops.sketch import bloom_num_bits
+
+    col_schema = schema.select(names)
+    out: List[FileSketch] = []
+    for path in files:
+        stamp = file_stamp(path)
+        if stamp is None:
+            raise HyperspaceException(
+                f"Cannot stat source file for sketching: {path}")
+        table = parquet.read_table([path], columns=list(names))
+        rows = table.num_rows
+        batch = columnar.from_arrow(
+            table, col_schema,
+            device=device_of(conf) if rows >= min_dev else None)
+        columns = sketch_batch(
+            batch, names, want_bloom,
+            bloom_num_bits(rows, fpp, max_bytes)) if rows else {
+            n.lower(): ColumnSketch(col_schema.field(n).dtype, None, None,
+                                    0, 0, False,
+                                    np.zeros(0, dtype=np.uint32))
+            for n in names}
+        bucket = parquet.bucket_of_file(path)
+        out.append(FileSketch(
+            path=path, size=int(stamp[0]), stamp=str(stamp[1]), rows=rows,
+            bucket=-1 if bucket is None else int(bucket), columns=columns))
+    return out
+
+
+def write_sketches(version_dir: str, sketches: Sequence[FileSketch],
+                   names: Sequence[str], schema,
+                   sketch_types: Sequence[str]) -> int:
+    """Persist the blob into `version_dir` (before the `_committed`
+    marker lands — the blob is part of the version's data). Returns the
+    blob's on-disk bytes."""
+    import pyarrow as pa
+
+    from hyperspace_tpu_torch.io import parquet
+    from hyperspace_tpu_torch.utils import storage
+
+    resolved = [schema.field(n).name for n in names]
+    dtypes = [schema.field(n).dtype for n in resolved]
+    data: Dict[str, object] = {
+        "file": pa.array([s.path for s in sketches], type=pa.string()),
+        "size": pa.array([s.size for s in sketches], type=pa.int64()),
+        "stamp": pa.array([s.stamp for s in sketches], type=pa.string()),
+        "rows": pa.array([s.rows for s in sketches], type=pa.int64()),
+        "bucket": pa.array([s.bucket for s in sketches], type=pa.int32()),
+    }
+    for i, (name, dtype) in enumerate(zip(resolved, dtypes)):
+        kind = _kind_of(dtype)
+        pa_type = {"str": pa.string(), "float": pa.float64(),
+                   "int": pa.int64()}[kind]
+
+        def conv(v):
+            if v is None:
+                return None
+            if kind == "str":
+                return str(v)
+            return float(v) if kind == "float" else int(v)
+
+        per = [s.columns.get(name.lower()) for s in sketches]
+        data[f"min_{i}"] = pa.array([conv(c.min if c else None)
+                                     for c in per], type=pa_type)
+        data[f"max_{i}"] = pa.array([conv(c.max if c else None)
+                                     for c in per], type=pa_type)
+        data[f"nulls_{i}"] = pa.array([c.nulls if c else 0 for c in per],
+                                      type=pa.int64())
+        data[f"ok_{i}"] = pa.array([c.ok if c else 0 for c in per],
+                                   type=pa.int64())
+        data[f"nan_{i}"] = pa.array([bool(c.has_nan) if c else False
+                                     for c in per], type=pa.bool_())
+        data[f"bloom_{i}"] = pa.array(
+            [(c.bloom.astype("<u4").tobytes()
+              if c is not None and c.bloom is not None else b"")
+             for c in per], type=pa.binary())
+    meta = {
+        "version": SKETCH_FORMAT_VERSION,
+        "hashVersion": SKETCH_HASH_VERSION,
+        "columns": [{"name": n, "dtype": d}
+                    for n, d in zip(resolved, dtypes)],
+        "sketchTypes": list(sketch_types),
+    }
+    table = pa.table(data).replace_schema_metadata(
+        {_META_KEY: json.dumps(meta).encode("utf-8")})
+    blob_path = storage.join(version_dir, SKETCH_BLOB)
+    parquet.write_table(table, blob_path)
+    from hyperspace_tpu_torch.index.signature import file_stamp
+    stamp = file_stamp(blob_path)
+    return int(stamp[0]) if stamp is not None else 0
+
+
+# ---------------------------------------------------------------------------
+# Load side (bounded cache over immutable version dirs)
+# ---------------------------------------------------------------------------
+
+_cache: Dict[str, SketchSet] = {}
+_cache_lock = threading.Lock()
+
+
+def clear_sketch_cache() -> None:
+    with _cache_lock:
+        _cache.clear()
+
+
+def load_sketches(version_dir: str) -> SketchSet:
+    """Load (and cache) the sketch blob of one committed version dir.
+    Version dirs are immutable once committed, so cache entries never
+    revalidate; the cache is bounded, and a missing/corrupt/unknown-
+    version blob raises HyperspaceException — the rules degrade that to
+    an unpruned scan."""
+    key = os.path.normpath(version_dir)
+    with _cache_lock:
+        hit = _cache.get(key)
+    if hit is not None:
+        return hit
+    from hyperspace_tpu_torch.io import parquet
+    from hyperspace_tpu_torch.utils import storage
+
+    blob_path = storage.join(version_dir, SKETCH_BLOB)
+    try:
+        table = parquet.read_table([blob_path])
+    except HyperspaceException:
+        raise
+    except Exception as exc:
+        raise HyperspaceException(
+            f"Unreadable sketch blob at {blob_path}: {exc!r}") from exc
+    raw_meta = (table.schema.metadata or {}).get(_META_KEY)
+    if raw_meta is None:
+        raise HyperspaceException(
+            f"Sketch blob at {blob_path} carries no metadata.")
+    try:
+        meta = json.loads(raw_meta.decode("utf-8"))
+    except (ValueError, UnicodeDecodeError) as exc:
+        raise HyperspaceException(
+            f"Corrupt sketch metadata at {blob_path}: {exc}") from exc
+    if meta.get("version") != SKETCH_FORMAT_VERSION:
+        raise HyperspaceException(
+            f"Unsupported sketch format version {meta.get('version')} "
+            f"at {blob_path}.")
+    columns = [c["name"] for c in meta["columns"]]
+    dtypes = {c["name"].lower(): c["dtype"] for c in meta["columns"]}
+    # An unknown HASH version only disables blooms — zone maps store
+    # plain values and stay servable.
+    blooms_usable = meta.get("hashVersion") == SKETCH_HASH_VERSION
+
+    d = table.to_pydict()
+    files: Dict[str, FileSketch] = {}
+    for r in range(table.num_rows):
+        cols: Dict[str, ColumnSketch] = {}
+        for i, (name, cmeta) in enumerate(zip(columns, meta["columns"])):
+            raw_bloom = d[f"bloom_{i}"][r]
+            bloom = (np.frombuffer(raw_bloom, dtype="<u4")
+                     if raw_bloom else None)
+            cols[name.lower()] = ColumnSketch(
+                dtype=cmeta["dtype"], min=d[f"min_{i}"][r],
+                max=d[f"max_{i}"][r], nulls=int(d[f"nulls_{i}"][r]),
+                ok=int(d[f"ok_{i}"][r]), has_nan=bool(d[f"nan_{i}"][r]),
+                bloom=bloom if blooms_usable else None)
+        fs = FileSketch(path=d["file"][r], size=int(d["size"][r]),
+                        stamp=str(d["stamp"][r]), rows=int(d["rows"][r]),
+                        bucket=int(d["bucket"][r]), columns=cols)
+        files[fs.path] = fs
+    out = SketchSet(columns=columns, dtypes=dtypes,
+                    sketch_types=list(meta.get("sketchTypes", [])),
+                    blooms_usable=blooms_usable, files=files)
+    with _cache_lock:
+        if len(_cache) > 256:
+            _cache.clear()
+        _cache[key] = out
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Delta build (append-only streaming refresh)
+# ---------------------------------------------------------------------------
+
+
+def append_file_sketches(prev_version_dir: str, files: Sequence[str],
+                         names: Sequence[str], schema, conf):
+    """Delta-sketch build for an append-mostly source: carry forward the
+    previous version's per-file rows whose (size, stamp) identity still
+    matches the live file, re-sketch only new or rewritten files, and
+    drop rows for files that vanished. Returns `(sketches, detail)` —
+    the merged list in current-listing order plus a report dict with
+    carried/sketched/dropped counts.
+
+    Lives here (not in the refresh action) because `load_sketches` is
+    seam-linted to this module and `plan/rules/`: all blob IO stays in
+    one file. Safety: `plan/rules/skipping.prune_files` revalidates
+    (size, stamp) per file at query time and KEEPS any unknown or
+    changed file, so even a stale carried row can only under-prune,
+    never wrongly drop a file. An unreadable previous blob degrades to
+    a full re-sketch of every file (counted in the detail) rather than
+    failing the refresh.
+    """
+    from hyperspace_tpu_torch.index.signature import file_stamp
+
+    prev_files: Dict[str, FileSketch] = {}
+    prev_unreadable = False
+    try:
+        prev_files = dict(load_sketches(prev_version_dir).files)
+    except HyperspaceException:
+        prev_unreadable = True
+
+    carried: Dict[str, FileSketch] = {}
+    to_sketch: List[str] = []
+    for path in files:
+        prev = prev_files.get(path)
+        stamp = file_stamp(path) if prev is not None else None
+        if prev is not None and stamp is not None \
+                and prev.size == int(stamp[0]) \
+                and prev.stamp == str(stamp[1]):
+            carried[path] = prev
+        else:
+            to_sketch.append(path)
+    fresh = {s.path: s for s in
+             build_file_sketches(to_sketch, names, schema, conf)}
+    merged = [carried.get(p, fresh.get(p)) for p in files]
+    live = set(files)
+    detail = {
+        "files_carried": len(carried),
+        "files_sketched": len(fresh),
+        "files_dropped": sum(1 for p in prev_files if p not in live),
+    }
+    if prev_unreadable:
+        detail["prev_blob_unreadable"] = True
+    return merged, detail

@@ -91,6 +91,15 @@ class Rule:
         return [e for e in self._active_indexes()
                 if e.kind == "CoveringIndex"]
 
+    def _skipping_indexes(self) -> List[IndexLogEntry]:
+        """ACTIVE data-skipping entries, Z-order builds first (they can
+        both serve AND prune), then by name for determinism."""
+        entries = [e for e in self._active_indexes()
+                   if e.kind == "DataSkippingIndex"]
+        return sorted(entries,
+                      key=lambda e: (not e.derived_dataset.zorder_by,
+                                     e.name))
+
     def signature_matches(self, entry: IndexLogEntry, plan: LogicalPlan) -> bool:
         """Recompute the plan's signature with the provider recorded in the
         index metadata and compare (reference `FilterIndexRule.scala:155-168`).

@@ -16,10 +16,12 @@ Parity: reference `index/rules/FilterIndexRule.scala:41-229`.
 - Any exception makes the rule a no-op with a warning (reference `:76-80`).
 - Hybrid scan (`spark.hyperspace.index.hybridscan.enabled`): an index
   whose source changed since its build still serves the filter — its data
-  UNION the appended files, minus the rows of deleted files.
-
-The JAX package's data-skipping branch is not part of this package yet
-(ROADMAP.md).
+  UNION the appended files, minus the rows of deleted files; data-skipping
+  sketches thin the appended branch.
+- Data skipping, when no covering index applies: a Z-order skipping
+  index serves the filter from the copy files its sketches cannot refute,
+  or the scan is restricted in place to the source files no sketch
+  refutes (`plan/rules/skipping.py`).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from typing import List, Optional, Sequence
 from hyperspace_tpu_torch import telemetry
 from hyperspace_tpu_torch.index.log_entry import IndexLogEntry
 from hyperspace_tpu_torch.plan.nodes import Filter, LogicalPlan, Project, Scan
-from hyperspace_tpu_torch.plan.rules.base import Rule
+from hyperspace_tpu_torch.plan.rules.base import Rule, _version_of_root
 
 logger = logging.getLogger(__name__)
 
@@ -122,6 +124,13 @@ class FilterIndexRule(Rule):
             source = self._hybrid_scan_source(filt, scan, project_columns,
                                               filter_columns)
             if source is None:
+                # No covering index applies — consult DATA-SKIPPING
+                # sketches: drop source files whose zones/blooms refute
+                # the predicate (or serve from a Z-order clustered
+                # copy). Bit-identical by construction: only files that
+                # cannot contain a matching row are dropped.
+                source = self._skipping_source(filt, scan)
+            if source is None:
                 # The whyNot record: the relation (scan roots), the
                 # predicate columns, which of them are point (equality)
                 # comparisons — bucket pruning only helps those — and the
@@ -130,7 +139,8 @@ class FilterIndexRule(Rule):
                     "rule", "FilterIndexRule", action="skipped",
                     reason="no ACTIVE covering index matches the plan "
                            "signature (filter must reference the first "
-                           "indexed column; all columns must be covered)",
+                           "indexed column; all columns must be covered) "
+                           "and no data-skipping sketch prunes the scan",
                     filter_columns=list(filter_columns),
                     eq_columns=_eq_columns(filt.condition),
                     project_columns=sorted(
@@ -147,6 +157,151 @@ class FilterIndexRule(Rule):
             rewritten = Project(scan.schema.names, rewritten)
         return rewritten
 
+    def _skipping_enabled(self) -> bool:
+        conf = getattr(self.session, "conf", None)
+        return conf is None or conf.skipping_enabled
+
+    def _emit_skipping(self, entry, scan_roots, files_total: int,
+                       pruned, bytes_pruned: int, served: str) -> None:
+        """Pruning detail into the index-usage telemetry records (the
+        event's `root` is the SOURCE root for in-place pruning so the
+        usage join finds the scan that read the survivors) + the
+        process/per-query `skipping.{files_pruned,bytes_pruned}`
+        counters."""
+        reg = telemetry.get_registry()
+        reg.counter("skipping.files_pruned").inc(len(pruned))
+        reg.counter("skipping.bytes_pruned").inc(bytes_pruned)
+        telemetry.add_count("skipping.files_pruned", len(pruned))
+        telemetry.add_count("skipping.bytes_pruned", bytes_pruned)
+        # The MEASURED prune fraction, per served query: what an
+        # advisor's what-if score for a skipping index is held against
+        # (the JAX package's `Hyperspace.advisor()` reads both series;
+        # this package's advisor is ROADMAP.md's item 12).
+        frac = (len(pruned) / files_total) if files_total else 0.0
+        reg.histogram("skipping.measured_prune_fraction").observe(frac)
+        reg.gauge(
+            f"skipping.{entry.name}.measured_prune_fraction").set(
+            round(frac, 6))
+        telemetry.event(
+            "rule", "FilterIndexRule", action="applied",
+            indexes=[{"name": entry.name, "root": scan_roots[0],
+                      "index_root": entry.content.root,
+                      "num_buckets": 0, "side": "skipping",
+                      "served": served,
+                      # NOT "files_total": index_usage() overlays the
+                      # scan's own files_total (the post-prune listing)
+                      # over event keys of the same name.
+                      "files_considered": files_total,
+                      "files_pruned": len(pruned),
+                      "bytes_pruned": bytes_pruned}])
+
+    def _prune_file_list(self, condition, files):
+        """Prune `files` (source-data paths) with the best ACTIVE
+        non-Z-order skipping sketch available. Returns
+        (survivors, pruned, bytes_pruned, entry) — unchanged input and
+        entry=None when nothing applies. Sketch-blob problems degrade
+        to no pruning, never an error."""
+        if not files or not self._skipping_enabled():
+            return list(files), [], 0, None
+        from hyperspace_tpu_torch.index.sketch import load_sketches
+        from hyperspace_tpu_torch.plan.rules.skipping import prune_files
+        for entry in self._skipping_indexes():
+            if entry.derived_dataset.zorder_by:
+                continue  # z-order entries serve whole scans, not lists
+            try:
+                sketches = load_sketches(entry.content.root)
+            except Exception as exc:
+                logger.warning("Skipping index %s blob unusable (%s); "
+                               "not pruning", entry.name, exc)
+                continue
+            if not any(f in sketches.files for f in files):
+                continue  # sketches cover a different relation
+            survivors, pruned, bytes_pruned = prune_files(
+                condition, files, sketches)
+            if pruned:
+                return survivors, pruned, bytes_pruned, entry
+        return list(files), [], 0, None
+
+    def _skipping_source(self, filt: Filter, scan: Scan):
+        """Data-skipping rewrite when no covering index applies:
+
+        - a Z-ORDER entry whose signature matches the scan serves the
+          query from its clustered copy, restricted to the copy files
+          the predicate cannot refute (tight zones by construction);
+        - otherwise the scan is restricted IN PLACE to the source files
+          the sketches cannot refute (explicit file list — plan-time
+          pinned by definition).
+
+        Returns a replacement source plan, or None when nothing prunes
+        (an unpruned rewrite would be pure churn)."""
+        if not self._skipping_enabled():
+            return None
+        from hyperspace_tpu_torch.index.sketch import load_sketches
+        from hyperspace_tpu_torch.plan.rules.skipping import prune_files
+        from hyperspace_tpu_torch.plan.schema import Schema
+
+        files = scan.files()
+        if not files:
+            return None
+        for entry in self._skipping_indexes():
+            dd = entry.derived_dataset
+            if dd.zorder_by:
+                # Serving from the copy requires the copy to represent
+                # exactly the CURRENT source: signature match, plus a
+                # schema covering the scan's.
+                if not self.signature_matches(entry, scan):
+                    continue
+                try:
+                    copy_schema = Schema.from_json(entry.schema_json)
+                except Exception:
+                    continue
+                scan_names = {f.name.lower() for f in scan.schema.fields}
+                if not scan_names <= {f.name.lower()
+                                      for f in copy_schema.fields}:
+                    continue
+                try:
+                    sketches = load_sketches(entry.content.root)
+                except Exception as exc:
+                    logger.warning("Skipping index %s blob unusable "
+                                   "(%s); not serving", entry.name, exc)
+                    continue
+                copy_files = sorted(sketches.files)
+                survivors, pruned, bytes_pruned = prune_files(
+                    filt.condition, copy_files, sketches)
+                if not pruned:
+                    continue  # no win over the source scan
+                replacement = Scan(
+                    [entry.content.root], scan.schema,
+                    files=survivors, index_name=entry.name,
+                    pinned_version=_version_of_root(entry.content.root))
+                logger.info(
+                    "FilterIndexRule: z-order skipping index %s prunes "
+                    "%d/%d copy files", entry.name, len(pruned),
+                    len(copy_files))
+                self._emit_skipping(entry, [entry.content.root],
+                                    len(copy_files), pruned, bytes_pruned,
+                                    served="zorder-copy")
+                return replacement
+            try:
+                sketches = load_sketches(entry.content.root)
+            except Exception as exc:
+                logger.warning("Skipping index %s blob unusable (%s); "
+                               "not pruning", entry.name, exc)
+                continue
+            if not any(f in sketches.files for f in files):
+                continue
+            survivors, pruned, bytes_pruned = prune_files(
+                filt.condition, files, sketches)
+            if not pruned:
+                continue
+            logger.info("FilterIndexRule: skipping index %s prunes "
+                        "%d/%d source files", entry.name, len(pruned),
+                        len(files))
+            self._emit_skipping(entry, scan.root_paths, len(files),
+                                pruned, bytes_pruned, served="source")
+            return Scan(scan.root_paths, scan.schema, files=survivors)
+        return None
+
     def _hybrid_scan_source(self, filt: Filter, scan: Scan,
                             project_columns: Sequence[str],
                             filter_columns: Sequence[str]):
@@ -156,11 +311,8 @@ class FilterIndexRule(Rule):
         lineage-enabled indexes) deleted files' rows are excluded by a
         `_hs_file_id NOT IN (...)` filter pushed onto the index scan. No
         refresh required. Gated on
-        `spark.hyperspace.index.hybridscan.enabled`.
-
-        The JAX package also thins the appended branch with data-skipping
-        sketches; that waits for data-skipping indexes in this package
-        (ROADMAP.md, PyTorch port Queue 1 item 8)."""
+        `spark.hyperspace.index.hybridscan.enabled`. Data-skipping
+        sketches thin the appended branch (`_prune_file_list`)."""
         from hyperspace_tpu_torch import constants
         from hyperspace_tpu_torch.index.source_delta import (
             classify_current, restricted_scan, split_current)
@@ -209,6 +361,19 @@ class FilterIndexRule(Rule):
                           "side": "filter", "hybrid": True,
                           "appended_files": len(appended),
                           "deleted_files": len(deleted_ids)}])
+            if not appended:
+                return Project(needed_cols, index_source)
+            # The covering index's SOURCE-FILE REMAINDER: data-skipping
+            # sketches can still thin the appended-files branch of the
+            # hybrid union (files indexed by a refreshed skipping index
+            # whose zones/blooms refute the predicate).
+            appended, rem_pruned, rem_bytes, sk_entry = \
+                self._prune_file_list(filt.condition, appended)
+            if sk_entry is not None:
+                self._emit_skipping(sk_entry, scan.root_paths,
+                                    len(appended) + len(rem_pruned),
+                                    rem_pruned, rem_bytes,
+                                    served="hybrid-remainder")
             if not appended:
                 return Project(needed_cols, index_source)
             appended_scan = Scan(scan.root_paths, scan.schema,

@@ -228,10 +228,12 @@ def artifact_section() -> dict:
     caches: Dict[str, dict] = {}
     for kind in ("counters", "gauges"):
         for name, value in reg[kind].items():
-            if not name.startswith("cache."):
+            parts = name.split(".", 2)
+            # `cache.invalidations` counts sweeps across every cache: it
+            # is no one cache's series.
+            if parts[0] != "cache" or len(parts) < 3:
                 continue
-            _, cache_name, series = name.split(".", 2)
-            caches.setdefault(cache_name, {})[series] = value
+            caches.setdefault(parts[1], {})[parts[2]] = value
     # Every cache reports the full shape, zeros included, so consumers
     # diff like for like.
     for series in ("hits", "misses", "evictions"):

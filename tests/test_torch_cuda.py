@@ -527,3 +527,49 @@ def test_card_warm_scan_is_a_cuda_segment_hit(card, tmp_path):
             frame.collect().to_pylist(), key=repr)
     finally:
         segcache.set_cache(segcache.SegmentCache())
+
+
+@pytest.mark.parametrize("nulls", [False, True])
+def test_card_sketch_blob_equals_host_lane(card, tmp_path, nulls):
+    """A data-skipping build whose sketches reduce on the card writes the
+    host lane's `_hs_sketches` blob byte for byte, and each column's
+    zones and bloom words on the card equal the host lane's."""
+    from hyperspace_tpu_torch import (DataSkippingIndexConfig, Hyperspace,
+                                      HyperspaceConf, HyperspaceSession)
+    from hyperspace_tpu_torch.ops import sketch
+    from hyperspace_tpu_torch.plan.schema import Schema
+
+    src = tmp_path / "src"
+    src.mkdir()
+    rng = np.random.default_rng(8)
+    for i in range(3):
+        n = 50_000
+        x = rng.standard_normal(n)
+        x[rng.random(n) < 0.01] = np.nan
+        t = pa.table({
+            "k": np.arange(i * n, (i + 1) * n, dtype=np.int64),
+            "s": pa.array([None if nulls and j % 31 == 0 else f"v{j % 97}"
+                           for j in range(n)]),
+            "x": x, "b": rng.random(n) < 0.5,
+            "g": rng.integers(-9, 9, n).astype(np.int32)})
+        pq.write_table(t, str(src / f"part-{i}.parquet"))
+        schema = Schema.from_arrow(t.schema)
+        host = columnar.from_arrow(t, schema, device=None)
+        dev = columnar.from_arrow(t, schema, device=card)
+        for name in t.column_names:
+            assert sketch.zones(dev.column(name)) == \
+                sketch.zones(host.column(name)), name
+            assert np.array_equal(
+                sketch.bloom_build(dev.column(name), 1 << 16),
+                sketch.bloom_build(host.column(name), 1 << 16)), name
+    blobs = []
+    for lane, min_rows in (("device", "0"), ("host", str(1 << 30))):
+        sess = HyperspaceSession(HyperspaceConf({
+            "spark.hyperspace.warehouse.dir": str(tmp_path / lane),
+            "spark.hyperspace.execution.min.device.rows": min_rows}))
+        Hyperspace(sess).create_index(sess.read_parquet(str(src)),
+                                      DataSkippingIndexConfig(
+                                          "sk", ["k", "s", "x", "b", "g"]))
+        path = tmp_path / lane / "indexes" / "sk" / "v__=0" / "_hs_sketches"
+        blobs.append(path.read_bytes())
+    assert blobs[0] == blobs[1]

@@ -127,12 +127,37 @@ def test_artifact_section_shape(sales_env):
     series = section["caches"]["segments"]
     assert {"hits", "misses", "evictions", "bytes_held",
             "entries"} <= set(series)
-    # The same cache names and series shape as the JAX package's.
+    # The same cache names and series shape as the JAX package's, over
+    # the series the JAX query itself adds or moves: the JAX registry is
+    # process-wide, and other suites sharing this process leave series
+    # of their own in it (`cache.segments.host.*`, `.shared.*`).
+    before = jtelemetry.memory.artifact_section()["caches"].get(
+        "segments", {})
     jsess = jax_session()
     jsess.read_parquet(fact_dir).select("key").collect()
-    jsection = jtelemetry.memory.artifact_section()
-    assert set(jsection["caches"]["segments"]) <= set(series) | {
+    jseries = jtelemetry.memory.artifact_section()["caches"]["segments"]
+    touched = {s for s, v in jseries.items()
+               if s not in before or before[s] != v}
+    assert touched
+    assert touched <= set(series) | {
         "coalesced", "fills", "pins", "rekeyed", "shared"}
+
+
+def test_artifact_section_after_an_index_commit(sales_env):
+    """An index commit sweeps the host caches and counts the sweep as
+    `cache.invalidations`, a counter of no single cache: the artifact
+    section still lists every cache by name, and no cache named after
+    that counter."""
+    from hyperspace_tpu_torch import Hyperspace, IndexConfig
+
+    session, _jax_session, fact_dir = sales_env
+    sess = session()
+    Hyperspace(sess).create_index(sess.read_parquet(fact_dir),
+                                  IndexConfig("mem", ["key"], ["qty"]))
+    assert telemetry.get_registry().counter("cache.invalidations").value > 0
+    section = telemetry.memory.artifact_section()
+    assert "invalidations" not in section["caches"]
+    assert "segments" in section["caches"]
 
 
 def test_accountant_per_device_attribution():

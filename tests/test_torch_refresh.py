@@ -651,20 +651,50 @@ def test_hybrid_plan_roundtrips_file_restriction(tmp_path):
     assert jfrom_json(text).to_dict() == union.to_dict()
 
 
-def test_incremental_refresh_of_a_data_skipping_entry_is_refused(tmp_path):
-    """A data-skipping index (built by the JAX package) is refused by
-    every refresh mode with a typed error naming the ROADMAP item."""
-    run = Run(jhs, tmp_path, SAMPLE_CONF)
-    sample_lake(run)
+@pytest.mark.parametrize("lane", ["host", "torch"])
+def test_refresh_of_a_jax_built_data_skipping_entry(tmp_path, lane):
+    """Two data-skipping indexes the JAX package built over one lake: the
+    port refreshes one, the JAX package the other, in each mode, after
+    each change to the lake. Each refresh's `_hs_sketches` blob equals
+    the JAX package's refresh of the same lake (same rows, same
+    metadata), and the port's action report names the files it
+    re-sketched."""
     from hyperspace_tpu.index.index_config import DataSkippingIndexConfig
-    run.hs.create_index(run.df(), DataSkippingIndexConfig(
-        "skip", ["clicks"]))
-    sess = ths.HyperspaceSession(ths.HyperspaceConf(
-        {"spark.hyperspace.warehouse.dir": str(tmp_path / "wh")}),
-        device="cpu")
-    for mode in ("incremental", "full"):
-        with pytest.raises(HyperspaceException, match="item 8"):
-            ths.Hyperspace(sess).refresh_index("skip", mode=mode)
+    from hyperspace_tpu_torch import telemetry
+
+    jrun = Run(jhs, tmp_path, SAMPLE_CONF)
+    sample_lake(jrun)
+    for name in ("skip_t", "skip_j"):
+        jrun.hs.create_index(jrun.df(), DataSkippingIndexConfig(
+            name, ["clicks", "query"]))
+    conf = {"spark.hyperspace.warehouse.dir": str(tmp_path / "wh")}
+    if lane == "torch":
+        conf["spark.hyperspace.execution.min.device.rows"] = "0"
+    tsess = ths.HyperspaceSession(ths.HyperspaceConf(conf), device="cpu")
+    ths_hs = ths.Hyperspace(tsess)
+
+    def blob(name, version):
+        t = pq.read_table(jrun.path("wh", "indexes", name,
+                                    f"v__={version}", "_hs_sketches"))
+        return t.schema.metadata, t.to_pydict()
+
+    steps = [("incremental", lambda: append_rows(jrun), 1),
+             ("full", lambda: append_rows(jrun, id_start=20_000), 1),
+             ("incremental", lambda: remove(jrun, "part-extra-10000.parquet"),
+              0)]
+    for version, (mode, change, sketched) in enumerate(steps, start=1):
+        change()
+        ths_hs.refresh_index("skip_t", mode=mode)
+        detail = telemetry.get_registry().last_action_report()["detail"]
+        if mode == "incremental":
+            assert detail["files_sketched"] == sketched
+        else:
+            assert detail["files_sketched"] == detail["source_files"]
+        jrun.hs.refresh_index("skip_j", mode=mode)
+        assert blob("skip_t", version) == blob("skip_j", version)
+    res = jrun.query("clicks==200", lambda df, E: df().filter(
+        E.col("clicks") == 200).select("id", "clicks"))
+    assert len(res["rows"][1][0]) == 50
 
 
 # -- cross-package maintenance ------------------------------------------------
