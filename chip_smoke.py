@@ -56,6 +56,19 @@ entry points:
   followed by a point lookup on the newest blob; and hybrid scan over a
   stale covering index whose appended branch the sketches prune away.
 
+- device-side telemetry, over the filter index and the two right indexes
+  of the join rung: the compile seam's counts of the nvcc and g++ builds
+  and of the later loads; the range filter and joins A and B with their
+  recorders' `roofline` (CUDA-event device seconds of the instrumented
+  entry points, modeled bytes, the gathers' bytes held against this
+  script's own formula) and critical paths; the range filter and join A
+  with their recorders and without, in turns (181 and 21), the medians
+  held to 5 %; join B captured
+  by `torch.profiler` under `spark.hyperspace.trace.dir`, with the
+  trace's device-busy share; a slow-query dump read back; the ops
+  server's endpoints; and a cold and a warm pass of the three queries
+  as canonical artifacts with their diff.
+
 Around the main path it also drives the host I/O layer: the native host
 library (built with `g++` from `hyperspace_tpu_torch/native/`; a `native`
 line with its build time and the time to hash TPC-H `o_comment`'s
@@ -83,6 +96,7 @@ removed at the end.
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -1070,6 +1084,8 @@ def phase_tpch(hs, sess, work):
         line = {"name": name, "rows": table.num_rows, "on_ms": on_ms,
                 "off_ms": off_ms, "cold_on_ms": cold_on_ms,
                 "cold_off_ms": cold_off_ms, "indexes": read,
+                "device_share": metrics.roofline["device_share"],
+                "dominant": metrics.critical_path["dominant"],
                 "top_operators": [{"op": o["op"], "self_ms": o["self_ms"]}
                                   for o in ops[:3]]}
         emit("tpch_query", **line)
@@ -1247,6 +1263,8 @@ def phase_tpcds(hs, sess, work):
                 "cold_off_ms": cold_off_ms, "indexes": read,
                 "warm_segment_hits": passes["warm_on"].get(
                     "cache.segments.hits", 0) - hits0,
+                "device_share": metrics.roofline["device_share"],
+                "dominant": metrics.critical_path["dominant"],
                 "top_operators": [{"op": o["op"], "self_ms": o["self_ms"]}
                                   for o in ops[:3]]}
         emit("tpcds_query", **line)
@@ -1573,6 +1591,328 @@ def phase_skipping(work, card):
     return out
 
 
+def _trace_kernels(trace_dir):
+    """{kernel symbol: summed device microseconds} of a `torch.profiler`
+    capture directory's `trace.json`."""
+    from hyperspace_tpu_torch.telemetry.profiler import TRACE_FILE
+
+    with open(os.path.join(trace_dir, TRACE_FILE)) as f:
+        events = json.load(f).get("traceEvents", [])
+    out = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            out[e["name"]] = out.get(e["name"], 0.0) + float(e.get("dur", 0))
+    return out
+
+
+def _symbol(kernels, fragment):
+    return [k for k in kernels if fragment in k]
+
+
+def gather_bytes(rows, widths):
+    """Bytes one row gather of `rows` rows moves, computed here apart
+    from the seam's cost functions: the int64 index read once, and each
+    gathered row of each column (byte widths `widths`) read and written
+    once."""
+    return rows * (8 + 2 * sum(widths))
+
+
+# The recorder's cost: warm runs of each side, in turns (the order
+# flips every turn); the gate is on the medians of all the turns, and
+# each block of seven turns is shown. The range filter's runs spread
+# wider than the limit (host work over 200 files), so it takes more.
+OVERHEAD_TURNS = {"range": 181, "join_A": 21}
+OVERHEAD_LIMIT = 1.05
+
+
+def phase_telemetry(hs, sess, df, work, fresh):
+    """The device-side telemetry of the port over the join rung's indexes:
+    build counts, per-query roofline and critical path for the range
+    filter and joins A and B, the seam's overhead, a torch.profiler
+    capture of join B, the flight recorder, the ops server, and a cold
+    and a warm artifact with their diff. `fresh` names the libraries that
+    were not built when the run started."""
+    import urllib.request
+
+    import torch
+
+    from hyperspace_tpu_torch import col, lit, native, telemetry
+    from hyperspace_tpu_torch.engine.executor import execute_plan
+    from hyperspace_tpu_torch.io import parquet, segcache
+    from hyperspace_tpu_torch.io.columnar import to_arrow
+    from hyperspace_tpu_torch.ops.cuda import build as kbuild
+    from hyperspace_tpu_torch.ops.cuda import hash_kernel, partition_kernel
+    from hyperspace_tpu_torch.telemetry import (artifact, critical_path,
+                                                diff, flight, ops_server,
+                                                profiler)
+
+    phase_t0 = time.perf_counter()
+    reg = telemetry.get_registry()
+    out = {}
+
+    # Builds: the first use of each library was counted as a trace (it
+    # was built in this run) or a cache hit (it was there); a later load
+    # of the kernels is a cache hit.
+    c = reg.counters_dict()
+    builds = {}
+    for lib in (*kbuild.SOURCES, "hyperspace_host"):
+        traces = int(c.get(f"compile.{lib}.traces", 0))
+        hits = int(c.get(f"compile.{lib}.cache_hits", 0))
+        check(traces == (1 if fresh[lib] else 0) and traces + hits >= 1,
+              f"telemetry: {lib} counted {traces} builds, {hits} loads "
+              f"(fresh: {fresh[lib]})")
+        builds[lib] = {"traces": traces, "cache_hits": hits}
+    check(native.get_lib() is not None, "telemetry: no native library")
+    kbuild.build_all()
+    c2 = reg.counters_dict()
+    for lib in kbuild.SOURCES:
+        check(c2.get(f"compile.{lib}.cache_hits", 0)
+              == builds[lib]["cache_hits"] + 1,
+              f"telemetry: a later load of {lib} was not a cache hit")
+    out["builds"] = builds
+    out["compile"] = {"traces": int(c2.get("compile.traces", 0)),
+                      "cache_hits": int(c2.get("compile.cache_hits", 0)),
+                      "seconds": c2.get("compile.seconds", 0.0)}
+
+    sess.enable_hyperspace()
+    frames = {
+        "range": (df.filter((col("key") >= lit(0)) & (col("k2") < lit(50)))
+                  .select("id", "score")),
+    }
+    for name, buckets in (("join_A", 200), ("join_B", 64)):
+        rdf = sess.read_parquet(os.path.join(work, f"right{buckets}"))
+        frames[name] = (df.select("key", "id")
+                        .join(rdf.select("key", "val"), on="key")
+                        .select("id", "val"))
+    seq0 = flight.get_recorder().last_seq
+
+    # Queries: one warm run each with its recorder and tracing on.
+    telemetry.enable_tracing()
+    queries = {}
+    try:
+        for name, frame in frames.items():
+            frame.collect()
+            table, m = frame.collect(with_metrics=True)
+            roof, cp = m.roofline, m.critical_path
+            # The unclamped seconds: `device_share` is capped at 1.
+            check(0 < roof["dispatch_s"] <= m.wall_s
+                  and roof["device_share"] > 0,
+                  f"telemetry {name}: roofline {roof} over {m.wall_s} s")
+            modeled = sum(v for k, v in m.counters.items()
+                          if k.startswith("device.")
+                          and k.endswith(".bytes_accessed")
+                          and k != "device.bytes_accessed")
+            check(m.counters["device.bytes_accessed"] == modeled,
+                  f"telemetry {name}: bytes_accessed "
+                  f"{m.counters['device.bytes_accessed']} != {modeled}")
+            # The gathers against this script's own formula (every
+            # column is int64 or float64): the range filter gathers its
+            # survivors of the four scanned columns; each join gathers
+            # the left `id` and the right `val` of every output row, and
+            # join B's Exchange reorders the right side's `key` and `val`.
+            want = {"range": gather_bytes(table.num_rows, [8] * 4),
+                    "join_A": 2 * gather_bytes(table.num_rows, [8]),
+                    "join_B": 2 * gather_bytes(table.num_rows, [8])
+                    + gather_bytes(N_RIGHT, [8, 8])}[name]
+            took = m.counters.get("device.columnar.fused_take.bytes_accessed")
+            check(took == want,
+                  f"telemetry {name}: gathers moved {took} B, not {want}")
+            check(abs(sum(cp["segments"].values()) - m.wall_s)
+                  <= critical_path.SUM_EXACT_EPSILON_S,
+                  f"telemetry {name}: critical path {cp} vs {m.wall_s}")
+            entry = {
+                "rows": table.num_rows, "wall_ms": m.wall_s * 1e3,
+                "dispatch_ms": roof["dispatch_s"] * 1e3,
+                "device_share": roof["device_share"],
+                "bytes_accessed": roof["bytes_accessed"],
+                "dominant": cp["dominant"],
+                "segments_ms": {k: v * 1e3
+                                for k, v in cp["segments"].items()},
+                "dispatches": {k[len("device."):-len(".dispatches")]: v
+                               for k, v in m.counters.items()
+                               if k.endswith(".dispatches")
+                               and k != "device.dispatches"}}
+            queries[name] = entry
+            emit("telemetry_query", name=name, **entry)
+    finally:
+        telemetry.disable_tracing()
+    part = m.counters.get(
+        "device.cuda.partition_ids_and_histogram.dispatches", 0)
+    per_launch = partition_kernel.partition_cost(
+        torch.empty((2, N_RIGHT), dtype=torch.int32, device="meta"),
+        EXCHANGE_BUCKETS)[1]
+    check(part > 0 and m.counters[
+        "device.cuda.partition_ids_and_histogram.bytes_accessed"]
+        == part * per_launch == part * (N_RIGHT * 12 + 8 * 200),
+        f"telemetry join_B: partition bytes {m.counters}")
+    out["queries"] = queries
+    out["modeled_bytes_per_launch"] = {
+        "hash_lanes_to_buckets": hash_kernel.hash_cost(torch.empty(
+            (2, N_ROWS), dtype=torch.int32, device="meta"), 200)[1],
+        "partition_ids_and_histogram": per_launch}
+
+    # The seam's cost: each warm query through `collect` (its recorder,
+    # the device events queued and resolved at finish, the critical path
+    # and the flight ring) against the same optimized plan executed with
+    # no recorder active (OVERHEAD_TURNS).
+    overhead = {}
+    for name, turns in OVERHEAD_TURNS.items():
+        frame = frames[name]
+        runs = {"recorder": [], "none": []}
+        for turn in range(turns):
+            order = ("recorder", "none") if turn % 2 == 0 else (
+                "none", "recorder")
+            for side in order:
+                t0 = time.perf_counter()
+                if side == "recorder":
+                    frame.collect()
+                else:
+                    to_arrow(execute_plan(sess.optimize(frame.plan),
+                                          conf=sess.conf))
+                runs[side].append((time.perf_counter() - t0) * 1e3)
+        med = {k: statistics.median(v) for k, v in runs.items()}
+        blocks = [statistics.median(runs["recorder"][i:i + 7])
+                  / statistics.median(runs["none"][i:i + 7])
+                  for i in range(0, turns - 6, 7)]
+        overhead[name] = {"turns": turns, "recorder_ms": med["recorder"],
+                          "none_ms": med["none"],
+                          "ratio": med["recorder"] / med["none"],
+                          "block_ratios": blocks,
+                          "runs_ms": runs}
+        check(overhead[name]["ratio"] <= OVERHEAD_LIMIT,
+              f"telemetry {name}: the recorder costs {overhead[name]}")
+    out["overhead"] = overhead
+    emit("telemetry_overhead", limit=OVERHEAD_LIMIT,
+         **{k: {x: v[x] for x in ("turns", "recorder_ms", "none_ms",
+                                  "ratio", "block_ratios")}
+            for k, v in overhead.items()})
+
+    # torch.profiler. The hash kernel is not on join B's path: one launch
+    # at the build's shape, captured on its own (which also starts the
+    # profiler's CUDA tracing before the query's capture).
+    trace_root = os.path.join(work, "traces")
+    lanes = torch.randint(-2**31, 2**31 - 1, (2, N_ROWS),
+                          dtype=torch.int32, device=sess.device)
+    with profiler.device_trace(os.path.join(trace_root, "hash")):
+        hash_kernel.hash_lanes_to_buckets(lanes, 200)
+        torch.cuda.synchronize()
+    hash_kernels = _trace_kernels(os.path.join(trace_root, "hash"))
+    check(_symbol(hash_kernels, "hash_lanes_to_buckets_kernel"),
+          f"telemetry: the hash capture names no hash kernel: "
+          f"{sorted(hash_kernels)}")
+    # Join B captured by the executor under trace.dir.
+    sess.conf.set("spark.hyperspace.trace.dir", trace_root)
+    try:
+        _table, m = frames["join_B"].collect(with_metrics=True)
+    finally:
+        sess.conf.unset("spark.hyperspace.trace.dir")
+    (capture,) = [e["path"] for e in m.events_of("profiler", "capture")]
+    kernels = _trace_kernels(capture)
+    check(_symbol(kernels, "partition_histogram_kernel"),
+          f"telemetry: join B's trace names no partition kernel: "
+          f"{sorted(kernels)}")
+    busy_ms = sum(kernels.values()) / 1e3
+    warm_ms = queries["join_B"]["wall_ms"]
+    out["profiler"] = {
+        "captured_wall_ms": m.wall_s * 1e3,
+        "device_busy_ms": busy_ms,
+        "device_busy_share": busy_ms / (m.wall_s * 1e3),
+        "device_busy_share_of_warm_wall": busy_ms / warm_ms,
+        "seam_device_share": queries["join_B"]["device_share"],
+        "kernels": len(kernels),
+        "top_kernels_ms": {k[:80]: v / 1e3 for k, v in sorted(
+            kernels.items(), key=lambda kv: -kv[1])[:6]},
+        "partition_kernel_us": sum(kernels[k] for k in _symbol(
+            kernels, "partition_histogram_kernel")),
+        "hash_kernel_us": sum(hash_kernels[k] for k in _symbol(
+            hash_kernels, "hash_lanes_to_buckets_kernel")),
+        "note": "busy: every kernel in the trace (the captured run's wall "
+                "includes the profiler's own cost; also shown over the "
+                "unprofiled warm wall); seam: only the instrumented entry "
+                "points' event spans"}
+    emit("telemetry_profiler", **out["profiler"])
+
+    # Flight recorder: one slow-query dump, read back.
+    dump_dir = os.path.join(work, "slowlog")
+    sess.conf.set("spark.hyperspace.telemetry.slowlog.seconds", "0.000001")
+    sess.conf.set("spark.hyperspace.telemetry.slowlog.dir", dump_dir)
+    try:
+        _table, m = frames["range"].collect(with_metrics=True)
+    finally:
+        sess.conf.unset("spark.hyperspace.telemetry.slowlog.seconds")
+        sess.conf.unset("spark.hyperspace.telemetry.slowlog.dir")
+    sess.close()
+    dumps = sorted(f for f in os.listdir(dump_dir) if f.startswith("slow-"))
+    check(len(dumps) == 1, f"telemetry: slow-query dumps {dumps}")
+    doc = flight.load_dump(os.path.join(dump_dir, dumps[0]))
+    check(doc["metrics"]["critical_path"] == m.critical_path
+          and doc["wall_s"] == m.wall_s,
+          "telemetry: the slow-query dump does not round-trip")
+    fresh_q, last = flight.get_recorder().snapshot(seq0)
+    # 6 query runs, the timed runs with a recorder, the capture, the dump;
+    # the ring keeps the newest of them.
+    recorded = 6 + sum(OVERHEAD_TURNS.values()) + 2
+    check(last - seq0 == recorded
+          and [q.flight_seq for q in fresh_q] == list(range(
+              last - min(recorded, flight.CAPACITY) + 1, last + 1))
+          and all(q.critical_path for q in fresh_q),
+          f"telemetry: the flight ring holds {len(fresh_q)} of "
+          f"{last - seq0} phase queries")
+    out["flight"] = {"dump": dumps[0], "recorded": last - seq0,
+                     "ring_queries": len(fresh_q)}
+
+    # Ops server on an ephemeral port.
+    server = ops_server.start_server(port=0)
+    try:
+        status = {}
+        for path in ("/metrics", "/healthz", "/critpath", "/timeseries"):
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{server.port}{path}",
+                    timeout=30) as r:
+                status[path] = r.status
+                r.read()
+    finally:
+        ops_server.stop_server()
+    check(all(v == 200 for v in status.values()),
+          f"telemetry: ops server answered {status}")
+    out["ops_server"] = status
+
+    # Artifacts: a cold and a warm pass of the three queries, and their
+    # diff.
+    docs = {}
+    for tag in ("cold", "warm"):
+        if tag == "cold":
+            parquet.clear_read_cache()
+            segcache.clear()
+        entries = {}
+        for name, frame in frames.items():
+            _table, m = frame.collect(with_metrics=True)
+            entries[name] = {"wall_s": m.wall_s,
+                             **artifact.query_metrics_block(m)}
+        docs[tag] = artifact.make_artifact(
+            driver="chip_smoke.telemetry", metric="wall_s",
+            value=sum(e["wall_s"] for e in entries.values()), unit="s",
+            vs_baseline=None, queries=entries, device=sess.device)
+        check(artifact.validate(docs[tag]) == [],
+              f"telemetry: the {tag} artifact is not canonical")
+    card = docs["warm"]
+    check(card["platform"] == "gpu"
+          and card["device_kind"] == torch.cuda.get_device_name(0)
+          and card["power_limit"],
+          f"telemetry: artifact device {card['platform']}, "
+          f"{card['device_kind']}, {card['power_limit']}")
+    delta = diff.diff_artifacts(docs["cold"], docs["warm"], "cold", "warm")
+    out["artifact"] = {
+        "platform": card["platform"], "device_kind": card["device_kind"],
+        "power_limit": card["power_limit"],
+        "cold_s": docs["cold"]["value"], "warm_s": card["value"],
+        "diff": [{"query": q.name, "delta_s": q.delta,
+                  "top": [(b.name, b.seconds) for b in q.ranked()[:3]]}
+                 for q in delta.ranked_queries()]}
+    out["phase_s"] = time.perf_counter() - phase_t0
+    return out
+
+
 def counted(counters, fn, *args):
     """Run one phase of the main path with every kernel's launch count
     set to 0 just before it; returns (result, launches per kernel)."""
@@ -1609,12 +1949,17 @@ def main():
          device=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
 
+    from hyperspace_tpu_torch import native, telemetry
+
+    # Which libraries this run builds (the telemetry phase holds the
+    # compile seam's counts against it).
+    fresh = {name: not os.path.exists(kbuild.library_path(name))
+             for name in kbuild.SOURCES}
+    fresh["hyperspace_host"] = not os.path.exists(native.library_path())
     t0 = time.perf_counter()
     seconds = kbuild.build_all()
     emit("build_kernels", seconds=time.perf_counter() - t0,
          per_library=seconds)
-
-    from hyperspace_tpu_torch import native, telemetry
 
     t0 = time.perf_counter()
     check(native.get_lib() is not None,
@@ -1660,6 +2005,11 @@ def main():
                                              sess, df, work, cols)
         emit("join", **out)
         tally("join", n)
+        out, n = counted(counters, phase_telemetry, hs, sess, df, work,
+                         fresh)
+        emit("telemetry", **out)
+        check(tally("telemetry", n)[1] > 0,
+              "the telemetry phase never launched the partition kernel")
         out, n = counted(counters, phase_hybrid, hs, sess, work, cols,
                          right_df, right)
         emit("hybrid", **out)

@@ -220,5 +220,203 @@ class HyperspaceConf:
         return self.get_int(constants.SKIPPING_ZORDER_FILES,
                             constants.SKIPPING_ZORDER_FILES_DEFAULT)
 
+    # -- telemetry (the JAX package's keys and defaults) -------------------
+
+    @property
+    def trace_dir(self):
+        """Directory for `torch.profiler` traces of executed queries
+        (None = tracing off)."""
+        return self.get(constants.TRACE_DIR)
+
+    @property
+    def serve_slo_window_seconds(self) -> float:
+        """Span of the serving plane's SLO window; here the default
+        trailing window of the timeseries sampler's `window.*`
+        quantile gauges."""
+        return float(self.get(
+            constants.SERVE_SLO_WINDOW_SECONDS,
+            str(constants.SERVE_SLO_WINDOW_SECONDS_DEFAULT)))
+
+    @property
+    def telemetry_ops_port(self) -> Optional[int]:
+        """Operations-plane HTTP port (`telemetry/ops_server.py`):
+        unset (default) = no server; 0 = bind an ephemeral port; any
+        other value = bind that port. Setting it also starts the
+        background timeseries sampler."""
+        value = self.get(constants.TELEMETRY_OPS_PORT)
+        if value is None or value == "":
+            return None
+        return int(value)
+
+    @property
+    def telemetry_ops_host(self) -> str:
+        """Bind address of the ops server — localhost by default (the
+        endpoints are unauthenticated; exposing them wider is an
+        explicit decision)."""
+        return self.get(constants.TELEMETRY_OPS_HOST,
+                        constants.TELEMETRY_OPS_HOST_DEFAULT) \
+            or constants.TELEMETRY_OPS_HOST_DEFAULT
+
+    @property
+    def timeseries_interval_seconds(self) -> float:
+        """Fixed sampling interval of the background timeseries
+        sampler (`telemetry/timeseries.py`)."""
+        return float(self.get(
+            constants.TELEMETRY_TIMESERIES_INTERVAL_SECONDS,
+            str(constants.TELEMETRY_TIMESERIES_INTERVAL_SECONDS_DEFAULT)))
+
+    @property
+    def timeseries_capacity(self) -> int:
+        """Bound on the sampler's ring (samples retained; older samples
+        rotate out)."""
+        return self.get_int(
+            constants.TELEMETRY_TIMESERIES_CAPACITY,
+            constants.TELEMETRY_TIMESERIES_CAPACITY_DEFAULT)
+
+    @property
+    def slowlog_seconds(self) -> float:
+        """Slow-query dump threshold for the flight recorder
+        (`telemetry/flight.py`): any query whose wall exceeds this many
+        seconds persists its full metric tree, a registry snapshot,
+        and a trace slice to `slowlog_dir`. 0 (the default) disables
+        dumping; the in-memory ring of recent queries is always on."""
+        return float(self.get(constants.TELEMETRY_SLOWLOG_SECONDS,
+                              str(constants.TELEMETRY_SLOWLOG_SECONDS_DEFAULT)))
+
+    @property
+    def slowlog_dir(self) -> str:
+        """Slow-query dump directory; default `<warehouse>/slowlog`."""
+        configured = self.get(constants.TELEMETRY_SLOWLOG_DIR)
+        if configured:
+            return configured
+        return os.path.join(self.warehouse_dir, "slowlog")
+
+    @property
+    def slowlog_keep(self) -> int:
+        """How many slow-query dump files to retain (oldest pruned)."""
+        return self.get_int(constants.TELEMETRY_SLOWLOG_KEEP,
+                            constants.TELEMETRY_SLOWLOG_KEEP_DEFAULT)
+
+    @property
+    def critpath_enabled(self) -> bool:
+        """Per-query critical-path stamping
+        (`telemetry/critical_path.py`): "false" skips the decomposition
+        at query finish (the per-segment source counters still
+        record)."""
+        return (self.get(constants.TELEMETRY_CRITPATH_ENABLED,
+                         constants.TELEMETRY_CRITPATH_ENABLED_DEFAULT)
+                or "true").lower() == "true"
+
+    @property
+    def profiler_enabled(self) -> bool:
+        """Host sampling profiler (`telemetry/profiler.py`): "true"
+        starts the stack-sampling daemon at session init."""
+        return (self.get(constants.TELEMETRY_PROFILER_ENABLED,
+                         constants.TELEMETRY_PROFILER_ENABLED_DEFAULT)
+                or "false").lower() == "true"
+
+    @property
+    def profiler_hz(self) -> float:
+        """Stack-sampling rate of the host profiler (samples/second;
+        the default sits off the 10/100 Hz grid to avoid aliasing
+        periodic work)."""
+        return float(self.get(
+            constants.TELEMETRY_PROFILER_HZ,
+            str(constants.TELEMETRY_PROFILER_HZ_DEFAULT)))
+
+    @property
+    def profiler_capture_seconds(self) -> float:
+        """Length of a TRIGGERED device-trace capture (SLO burn or a
+        slowlog dump fires one). 0 (the default) disarms triggered
+        capture."""
+        return float(self.get(
+            constants.TELEMETRY_PROFILER_CAPTURE_SECONDS,
+            str(constants.TELEMETRY_PROFILER_CAPTURE_SECONDS_DEFAULT)))
+
+    @property
+    def profiler_capture_keep(self) -> int:
+        """How many triggered `profile-*` capture directories to
+        retain next to the slow-query dumps (oldest pruned)."""
+        return self.get_int(
+            constants.TELEMETRY_PROFILER_CAPTURE_KEEP,
+            constants.TELEMETRY_PROFILER_CAPTURE_KEEP_DEFAULT)
+
+    @property
+    def profiler_capture_min_interval_s(self) -> float:
+        """Rate limit between triggered captures — a sustained SLO
+        burn produces a trickle of profiles, not a flood."""
+        return float(self.get(
+            constants.TELEMETRY_PROFILER_CAPTURE_MIN_INTERVAL_SECONDS,
+            str(constants
+                .TELEMETRY_PROFILER_CAPTURE_MIN_INTERVAL_SECONDS_DEFAULT)))
+
+    @property
+    def telemetry_history_enabled(self) -> bool:
+        """Durable on-lake telemetry history (`telemetry/history.py`):
+        "true" makes the sampler's tick hook flush periodic history
+        segments under `telemetry_history_dir`. Off by default — the
+        history store writes to the warehouse, which is an explicit
+        operator decision."""
+        return (self.get(constants.TELEMETRY_HISTORY_ENABLED,
+                         constants.TELEMETRY_HISTORY_ENABLED_DEFAULT)
+                or "false").lower() == "true"
+
+    @property
+    def telemetry_history_dir(self) -> str:
+        """History segment directory; defaults to
+        `constants.TELEMETRY_HISTORY_DIRNAME` under the warehouse
+        (telemetry history is metadata, and metadata lives on the
+        lake)."""
+        configured = self.get(constants.TELEMETRY_HISTORY_DIR)
+        if configured:
+            return configured
+        return os.path.join(self.warehouse_dir,
+                            constants.TELEMETRY_HISTORY_DIRNAME)
+
+    @property
+    def telemetry_history_interval_seconds(self) -> float:
+        """Minimum seconds between periodic history flushes (incident
+        flushes are immediate and ignore this)."""
+        return float(self.get(
+            constants.TELEMETRY_HISTORY_INTERVAL_SECONDS,
+            str(constants.TELEMETRY_HISTORY_INTERVAL_SECONDS_DEFAULT)))
+
+    @property
+    def telemetry_history_keep_seconds(self) -> float:
+        """Age past which history segments are pruned (0 = keep by
+        byte budget only)."""
+        return float(self.get(
+            constants.TELEMETRY_HISTORY_KEEP_SECONDS,
+            str(constants.TELEMETRY_HISTORY_KEEP_SECONDS_DEFAULT)))
+
+    @property
+    def telemetry_history_keep_bytes(self) -> int:
+        """Total byte budget of the history directory; oldest segments
+        pruned beyond it (0 = no byte bound)."""
+        return self.get_int(constants.TELEMETRY_HISTORY_KEEP_BYTES,
+                            constants.TELEMETRY_HISTORY_KEEP_BYTES_DEFAULT)
+
+    @property
+    def alerts_enabled(self) -> bool:
+        """Rule-driven alerting (`telemetry/alerts.py`): "false" skips
+        rule evaluation on sampler ticks entirely."""
+        return (self.get(constants.TELEMETRY_ALERTS_ENABLED,
+                         constants.TELEMETRY_ALERTS_ENABLED_DEFAULT)
+                or "true").lower() == "true"
+
+    def alert_rule_override(self, rule: str, knob: str) -> Optional[str]:
+        """Per-rule alert override (`telemetry.alerts.rule.<rule>.
+        <knob>`), or None when unset. Knobs: `enabled`, `threshold`,
+        `clear`, `sustain.seconds`, `window.seconds`."""
+        return self.get(
+            f"{constants.TELEMETRY_ALERTS_RULE_PREFIX}{rule}.{knob}")
+
+    @property
+    def compile_cache_dir(self):
+        """Directory the nvcc and g++ builds go to and are loaded from
+        (None = the package's `_build/`). Wired at session init via
+        `telemetry.compilation.configure_persistent_cache`."""
+        return self.get(constants.COMPILE_CACHE_DIR)
+
     def copy(self) -> "HyperspaceConf":
         return HyperspaceConf(dict(self._conf))

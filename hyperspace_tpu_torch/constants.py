@@ -171,6 +171,105 @@ LATEST_STABLE_LOG = "latestStable"
 # The leading underscore keeps it out of every parquet file listing.
 INDEX_DATA_COMMIT_MARKER = "_committed"
 
+# Telemetry (`telemetry/`): the JAX package's keys and defaults.
+#
+# Operations plane (`telemetry/timeseries.py`, `telemetry/ops_server.py`):
+# the background sampler snapshots selected registry series every
+# `timeseries.interval.seconds` into a ring of `timeseries.capacity`
+# samples. Setting `ops.port` starts the in-process HTTP server (and the
+# sampler with it); it binds `ops.host`, 127.0.0.1 by default — the
+# endpoints are unauthenticated. Port 0 binds an ephemeral port (read it
+# back from `ops_server.get_server().port`); unset = no server.
+TELEMETRY_OPS_PORT = "spark.hyperspace.telemetry.ops.port"
+TELEMETRY_OPS_HOST = "spark.hyperspace.telemetry.ops.host"
+TELEMETRY_OPS_HOST_DEFAULT = "127.0.0.1"
+TELEMETRY_TIMESERIES_INTERVAL_SECONDS = \
+    "spark.hyperspace.telemetry.timeseries.interval.seconds"
+TELEMETRY_TIMESERIES_INTERVAL_SECONDS_DEFAULT = 1.0
+TELEMETRY_TIMESERIES_CAPACITY = \
+    "spark.hyperspace.telemetry.timeseries.capacity"
+TELEMETRY_TIMESERIES_CAPACITY_DEFAULT = 600
+
+# The serving plane's key that the telemetry modules read: the sampler's
+# default trailing window.
+SERVE_SLO_WINDOW_SECONDS = "spark.hyperspace.serve.slo.window.seconds"
+SERVE_SLO_WINDOW_SECONDS_DEFAULT = 60.0
+
+# Where the built libraries go (`telemetry/compilation.
+# configure_persistent_cache`): the nvcc and g++ builds of
+# `ops/cuda/build.py` and `native/`. Empty (default) = the package's
+# `_build/` directory.
+COMPILE_CACHE_DIR = "spark.hyperspace.compile.cache.dir"
+
+# Device profiler integration: when set to a directory, every executed
+# query is captured as a `torch.profiler` trace under it (one
+# subdirectory per query, `trace.json` inside), viewable in Perfetto.
+# Empty (default) = off.
+TRACE_DIR = "spark.hyperspace.trace.dir"
+
+# Query flight recorder (`telemetry/flight.py`): the ring of the last-K
+# completed QueryMetrics is ALWAYS on; a query whose wall exceeds
+# `slowlog.seconds` (0, the default, disables dumping) persists its metric
+# tree + registry snapshot + trace slice under `slowlog.dir` (default
+# `<warehouse>/slowlog`); only the newest `slowlog.keep` dumps are kept.
+TELEMETRY_SLOWLOG_SECONDS = "spark.hyperspace.telemetry.slowlog.seconds"
+TELEMETRY_SLOWLOG_SECONDS_DEFAULT = 0.0
+TELEMETRY_SLOWLOG_DIR = "spark.hyperspace.telemetry.slowlog.dir"
+TELEMETRY_SLOWLOG_KEEP = "spark.hyperspace.telemetry.slowlog.keep"
+TELEMETRY_SLOWLOG_KEEP_DEFAULT = 20
+
+# Critical-path decomposition (`telemetry/critical_path.py`): "false"
+# skips the per-query stamp (the source counters still record).
+TELEMETRY_CRITPATH_ENABLED = "spark.hyperspace.telemetry.critpath.enabled"
+TELEMETRY_CRITPATH_ENABLED_DEFAULT = "true"
+
+# Sampling profiler (`telemetry/profiler.py`): a daemon thread samples
+# every live thread's stack at `profiler.hz` (off by default). Triggered
+# device capture: when `capture.seconds` > 0, a slowlog dump or an
+# incident fires a background `torch.profiler` capture of that many
+# seconds, written as a `profile-*` directory next to the slow-query
+# dumps (newest `capture.keep` retained; at most one per
+# `capture.min.interval.seconds`).
+TELEMETRY_PROFILER_ENABLED = "spark.hyperspace.telemetry.profiler.enabled"
+TELEMETRY_PROFILER_ENABLED_DEFAULT = "false"
+TELEMETRY_PROFILER_HZ = "spark.hyperspace.telemetry.profiler.hz"
+TELEMETRY_PROFILER_HZ_DEFAULT = 19.0
+TELEMETRY_PROFILER_CAPTURE_SECONDS = \
+    "spark.hyperspace.telemetry.profiler.capture.seconds"
+TELEMETRY_PROFILER_CAPTURE_SECONDS_DEFAULT = 0.0
+TELEMETRY_PROFILER_CAPTURE_KEEP = \
+    "spark.hyperspace.telemetry.profiler.capture.keep"
+TELEMETRY_PROFILER_CAPTURE_KEEP_DEFAULT = 4
+TELEMETRY_PROFILER_CAPTURE_MIN_INTERVAL_SECONDS = \
+    "spark.hyperspace.telemetry.profiler.capture.min.interval.seconds"
+TELEMETRY_PROFILER_CAPTURE_MIN_INTERVAL_SECONDS_DEFAULT = 30.0
+
+# Durable on-lake telemetry history (`telemetry/history.py`): when
+# enabled, the sampler's tick hook flushes segment files under
+# `history.dir` (default `<warehouse>/.hyperspace_telemetry`), pruned by
+# age (`keep.seconds`) and total bytes (`keep.bytes`).
+TELEMETRY_HISTORY_ENABLED = "spark.hyperspace.telemetry.history.enabled"
+TELEMETRY_HISTORY_ENABLED_DEFAULT = "false"
+TELEMETRY_HISTORY_DIR = "spark.hyperspace.telemetry.history.dir"
+TELEMETRY_HISTORY_DIRNAME = ".hyperspace_telemetry"
+TELEMETRY_HISTORY_INTERVAL_SECONDS = \
+    "spark.hyperspace.telemetry.history.interval.seconds"
+TELEMETRY_HISTORY_INTERVAL_SECONDS_DEFAULT = 60.0
+TELEMETRY_HISTORY_KEEP_SECONDS = \
+    "spark.hyperspace.telemetry.history.keep.seconds"
+TELEMETRY_HISTORY_KEEP_SECONDS_DEFAULT = 7 * 24 * 3600.0
+TELEMETRY_HISTORY_KEEP_BYTES = \
+    "spark.hyperspace.telemetry.history.keep.bytes"
+TELEMETRY_HISTORY_KEEP_BYTES_DEFAULT = 64 * 1024 * 1024
+
+# Rule-driven alerting (`telemetry/alerts.py`): rules over the sampler's
+# windowed series, evaluated on every tick. Per-rule overrides live under
+# `alerts.rule.<name>.{enabled,threshold,clear,sustain.seconds,
+# window.seconds}`; `alerts.enabled=false` disables evaluation.
+TELEMETRY_ALERTS_ENABLED = "spark.hyperspace.telemetry.alerts.enabled"
+TELEMETRY_ALERTS_ENABLED_DEFAULT = "true"
+TELEMETRY_ALERTS_RULE_PREFIX = "spark.hyperspace.telemetry.alerts.rule."
+
 # Explain display mode (reference `index/IndexConstants.scala:42-49`).
 DISPLAY_MODE = "spark.hyperspace.explain.displayMode"
 HIGHLIGHT_BEGIN_TAG = "spark.hyperspace.explain.displayMode.highlight.beginTag"

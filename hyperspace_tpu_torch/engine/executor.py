@@ -2,13 +2,22 @@
 
 from __future__ import annotations
 
+import itertools
 import time
+import uuid
 from typing import Optional, Sequence
 
 from hyperspace_tpu_torch.engine.physical import (PhysicalNode, ProjectExec,
                                                   plan_physical)
 from hyperspace_tpu_torch.io.columnar import ColumnBatch
 from hyperspace_tpu_torch.plan.nodes import LogicalPlan
+
+# Per-query profiler captures (`spark.hyperspace.trace.dir`): a process
+# run id + sequence names each capture directory uniquely; the capture
+# itself serializes inside `telemetry.profiler.device_trace` (torch
+# permits one active profiler per process).
+_trace_seq = itertools.count()
+_trace_run_id = uuid.uuid4().hex[:8]
 
 
 def compile_plan(plan: LogicalPlan,
@@ -106,11 +115,29 @@ def execute_plan(plan: LogicalPlan,
                  projection: Optional[Sequence[str]] = None,
                  conf=None) -> ColumnBatch:
     """Resolve the plan's scalar subqueries, plan it physically and run
-    it."""
+    it. With `spark.hyperspace.trace.dir` set, the execution is captured
+    by `torch.profiler` into one directory per query under it
+    (`<dir>/query-<run>-<seq>/trace.json`)."""
     from hyperspace_tpu_torch import telemetry
 
     _resolve_scalar_subqueries(plan, conf)
     t0 = time.perf_counter()
     physical = compile_plan(plan, projection, conf)
     telemetry.add_seconds("plan_s", time.perf_counter() - t0)
-    return physical.execute()
+    trace_dir = conf.trace_dir if conf is not None else None
+    if not trace_dir:
+        return physical.execute()
+    from hyperspace_tpu_torch.telemetry import profiler
+
+    seq = next(_trace_seq)
+    capture = f"{trace_dir.rstrip('/')}/query-{_trace_run_id}-{seq:05d}"
+    telemetry.event("profiler", "capture", path=capture)
+    with profiler.device_trace(capture):
+        out = physical.execute()
+        # All of the query's device work inside the capture window: the
+        # kernels and copies queued asynchronously finish before it
+        # closes (a host-lane result may still have used the card).
+        import torch
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+    return out

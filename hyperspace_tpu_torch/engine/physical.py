@@ -151,17 +151,16 @@ class ScanExec(PhysicalNode):
         self.allowed_buckets = allowed_buckets
 
     def _annotate_read(self, files: List[str], host: bool,
-                       files_total: Optional[int]) -> None:
+                       files_total: Optional[int], nbytes: int) -> None:
         """Index-usage detail on this scan's operator record: lane, files
-        scanned vs total, buckets scanned vs total."""
+        scanned vs total, buckets scanned vs total, and the raw on-disk
+        bytes behind the read (`nbytes`, from the stat that validated the
+        footer counts — no second stat a file)."""
         if telemetry.current() is None:
             return
-        from hyperspace_tpu_torch.plan import footprint
         detail = {"lane": "host" if host else "device",
                   "files_scanned": len(files),
-                  # Raw on-disk bytes behind this read, through the
-                  # stamp-validated size cache (one cached stat a file).
-                  "bytes_scanned": footprint.file_sizes_total(files),
+                  "bytes_scanned": nbytes,
                   "roots": list(self.scan.root_paths)}
         spec = self.scan.bucket_spec
         if spec is not None:
@@ -248,8 +247,9 @@ class ScanExec(PhysicalNode):
             files_total = len(files)
         if not files:
             return _empty_batch(self.out_schema)
-        return self._read(files, sum(parquet.file_row_counts(files)),
-                          files_total)
+        stats = parquet.file_footer_stats(files)
+        return self._read(files, sum(r for r, _ in stats), files_total,
+                          sum(b for _, b in stats))
 
     def _budget(self, device: bool):
         """Session-conf cache budget for this scan's lane (None = the
@@ -277,7 +277,7 @@ class ScanExec(PhysicalNode):
                                      budget=self._budget(device=True))
 
     def _read(self, files: List[str], rows: int, files_total: int,
-              bucketed: bool = False):
+              nbytes: int, bucketed: bool = False):
         """Read `files` (holding `rows` rows) on the adaptive lane: small
         reads (e.g. a pruned point-filter bucket) stay in host memory — a
         device round-trip would dwarf the work — and come through the
@@ -287,7 +287,7 @@ class ScanExec(PhysicalNode):
         min_dev = (self.conf.min_device_rows if self.conf is not None
                    else MIN_DEVICE_ROWS_DEFAULT)
         host = rows < min_dev
-        self._annotate_read(files, host, files_total)
+        self._annotate_read(files, host, files_total, nbytes)
         if host:
             return parquet.read_host_batch(
                 files, self.columns, self.out_schema,
@@ -316,10 +316,12 @@ class ScanExec(PhysicalNode):
         if not ordered:
             return _empty_batch(self.out_schema), lengths
         files = [f for _, f in ordered]
-        for (b, _), c in zip(ordered, parquet.file_row_counts(files)):
+        stats = parquet.file_footer_stats(files)
+        for (b, _), (c, _) in zip(ordered, stats):
             lengths[b] += c
         return (self._read(files, int(lengths.sum()), files_total,
-                           bucketed=True), lengths)
+                           sum(n for _, n in stats), bucketed=True),
+                lengths)
 
 
 class FilterExec(PhysicalNode):

@@ -37,6 +37,16 @@ class HyperspaceSession:
         # (io.transfer.{chunk,inflight,threads,acquire.timeout}).
         from hyperspace_tpu_torch.io import transfer
         transfer.configure(self.conf)
+        # `spark.hyperspace.compile.cache.dir`: where the nvcc and g++
+        # builds go and are loaded from (no-op when unset).
+        from hyperspace_tpu_torch.telemetry import compilation
+        compilation.configure_persistent_cache(self.conf)
+        # Operations plane: the profiler, alert manager and history
+        # writer read their knobs; `spark.hyperspace.telemetry.ops.port`
+        # starts the timeseries sampler and the /metrics | /healthz |
+        # /timeseries HTTP server (localhost; no-op when unset).
+        from hyperspace_tpu_torch.telemetry import ops_server
+        ops_server.configure(self.conf)
         self._rules: List = []
         self._hyperspace_enabled = False
         self._last_query_metrics = None
@@ -46,6 +56,16 @@ class HyperspaceSession:
         """`telemetry.QueryMetrics` of the most recent query collected
         through this session, or None."""
         return self._last_query_metrics
+
+    def close(self) -> None:
+        """Flush the flight recorder's pending slow-query dumps
+        (idempotent). The process-wide executors stay up for
+        co-resident sessions; interpreter teardown drains them via their
+        atexit hooks. (The JAX package's close also cancels the
+        session's live queries through its scheduler, which this package
+        has not got yet.)"""
+        from hyperspace_tpu_torch import telemetry
+        telemetry.flight.get_recorder().drain()
 
     def metrics_registry(self):
         """The PROCESS-WIDE metrics registry (counters, gauges,

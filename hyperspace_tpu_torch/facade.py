@@ -5,7 +5,9 @@ the index collection manager and the `indexes` catalog view, plus the
 session-keyed context holding a CachingIndexCollectionManager
 (`Hyperspace.scala:107-133`). This package carries create, refresh
 (full and incremental), optimize, delete, restore, vacuum, cancel and
-recover, and `explain` (the plan diff with rules on vs off).
+recover, `explain` (the plan diff with rules on vs off), and the
+observability verbs `index_usage`, `incidents`, `export_trace` and
+`device_memory`.
 """
 
 from __future__ import annotations
@@ -27,6 +29,40 @@ class HyperspaceContext:
 
     def __init__(self, session: HyperspaceSession):
         self.index_collection_manager = CachingIndexCollectionManager(session.conf)
+
+
+def index_usage_report(manager, last_n: Optional[int] = None):
+    """Per-index rule-usage rows for `manager`'s catalog (the body of
+    `Hyperspace.index_usage`, module-level so the `/healthz`
+    `index_usage` section can render the same report from a bare
+    conf-built manager — an HTTP handler thread has no facade)."""
+    from hyperspace_tpu_torch import telemetry
+
+    counters = telemetry.get_registry().counters_dict()
+    ring = telemetry.get_recorder().queries(last_n)
+    ring_counts: dict = {}
+    for qm in ring:
+        try:
+            for use in qm.index_usage():
+                name = use.get("name")
+                if name:
+                    ring_counts[name] = ring_counts.get(name, 0) + 1
+        except Exception:
+            continue  # a foreign recorder shape never breaks the report
+    out = []
+    for entry in manager.indexes():
+        name = entry.name
+        served_ring = ring_counts.get(name, 0)
+        out.append({
+            "index": name,
+            "state": entry.state,
+            "served_total": int(
+                counters.get(f"rules.served.{name}", 0)),
+            "served_in_ring": served_ring,
+            "ring_entries": len(ring),
+            "unused": served_ring == 0,
+        })
+    return out
 
 
 class Hyperspace:
@@ -108,6 +144,41 @@ class Hyperspace:
         action reports, counters)."""
         from hyperspace_tpu_torch import telemetry
         return telemetry.get_registry()
+
+    def index_usage(self, last_n: Optional[int] = None):
+        """Per-index rule-usage report: for every index in this
+        session's catalog, how many queries a rewrite rule served from
+        it over the PROCESS lifetime (`rules.served.<index>` counters)
+        and within the last `last_n` flight-ring entries (None = the
+        whole ring), plus an `unused` flag for indexes no ring entry
+        selected. Report only — an index idle here may still serve a
+        workload that rotated out of the bounded ring."""
+        return index_usage_report(self._manager, last_n)
+
+    def incidents(self, active_only: bool = False):
+        """The incident plane's structured incidents (rule-driven
+        alerting, `telemetry/alerts.py`): each carries its rule, fire
+        and resolve times, breaching value, and the evidence bundle
+        captured at fire time. `active_only` keeps the still-firing
+        ones. The same documents the `/alerts` ops endpoint serves."""
+        from hyperspace_tpu_torch.telemetry import alerts
+
+        return alerts.get_manager().incidents(active_only=active_only)
+
+    def export_trace(self, path: str) -> dict:
+        """Export collected spans as Chrome trace-event JSON (requires
+        a prior `telemetry.enable_tracing()`); loads in
+        chrome://tracing and ui.perfetto.dev."""
+        from hyperspace_tpu_torch import telemetry
+        return telemetry.export_trace(path)
+
+    def device_memory(self) -> dict:
+        """Snapshot of the device-memory accountant: per-device
+        live/peak bytes and which backend measured them. Takes a fresh
+        sample first so the answer is current."""
+        from hyperspace_tpu_torch import telemetry
+        telemetry.memory.sample()
+        return telemetry.memory.snapshot()
 
     def explain(self, df, verbose: bool = False, redirect=None,
                 metrics=None) -> None:

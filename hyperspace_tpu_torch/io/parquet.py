@@ -17,7 +17,7 @@ import re
 import stat
 import threading
 from collections import OrderedDict
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.utils import storage
@@ -250,6 +250,13 @@ def file_row_counts(paths: Sequence[str]) -> List[int]:
     """Per-file row counts from parquet footers (no data read); stamped
     per-file cache (index data files are immutable, and the bucketed read
     path asks for the same footers on every warm query)."""
+    return [rows for rows, _size in file_footer_stats(paths)]
+
+
+def file_footer_stats(paths: Sequence[str]) -> List[Tuple[int, int]]:
+    """(rows, on-disk bytes) per file: the rows from the footer through the
+    stamped count cache, the bytes from the same stat that validates it (0
+    for an unstampable file). A Scan reads both with one stat a file."""
     import pyarrow.parquet as pq
 
     def meta_rows(p):
@@ -257,10 +264,11 @@ def file_row_counts(paths: Sequence[str]) -> List[int]:
             stamp = _file_stamp(p)
         except OSError:
             stamp = None
+        size = int(stamp[0]) if stamp is not None else 0
         if stamp is not None:
             hit = _count_cache.get(p)
             if hit is not None and hit[0] == stamp:
-                return hit[1]
+                return hit[1], size
         if storage.is_url(p):
             fs, real = storage.get_fs(p)
             with fs.open(real, "rb") as f:
@@ -271,7 +279,7 @@ def file_row_counts(paths: Sequence[str]) -> List[int]:
             if len(_count_cache) > 65536:
                 _count_cache.clear()
             _count_cache[p] = (stamp, rows)
-        return rows
+        return rows, size
 
     if len(paths) <= 1:
         return [meta_rows(p) for p in paths]

@@ -491,6 +491,7 @@ class SegmentCache:
                                 files=len(paths)):
                 telemetry.get_registry().counter(
                     "cache.segments.fills").inc()
+                telemetry.charge_tenant("cache.segments.fills")
                 batch = self._fill(key, fill, paths, cols, schema, stamps,
                                    ref, conf, budget, device)
             fill.batch = batch

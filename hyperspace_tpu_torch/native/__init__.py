@@ -10,9 +10,12 @@ hash of its source and flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is. Nothing runs at import time.
 
 Every entry point returns None when the library is unavailable (no
-compiler, a failed build) and the caller takes its numpy lane; each such
+`g++` on the machine) and the caller takes its numpy lane; each such
 fallback counts `native.unavailable`, so a run can prove the library
-carried its path.
+carried its path. A build that runs and fails raises. The build is
+counted by the compile seam (`telemetry/compilation.py`) as
+`compile.hyperspace_host.traces`; a load of an existing library as a
+`compile.cache_hits`.
 """
 
 from __future__ import annotations
@@ -49,20 +52,38 @@ def library_path() -> str:
 
 
 def _build(out: str) -> bool:
+    """Build the library into `out`. False when there is no `g++` (the
+    numpy lanes take over); a compile that fails raises."""
+    from hyperspace_tpu_torch.exceptions import HyperspaceException
+    from hyperspace_tpu_torch.telemetry import compilation
+
     os.makedirs(BUILD_DIR, exist_ok=True)
+    cause = compilation.build_cause(BUILD_DIR, "libhyperspace_host-",
+                                    "native/hyperspace_host.cpp")
     tmp = f"{out}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
     try:
         subprocess.run(["g++", *GXX_FLAGS, "-o", tmp, SOURCE],
                        check=True, capture_output=True, timeout=300)
         os.replace(tmp, out)
-        return True
-    except (OSError, subprocess.SubprocessError) as exc:
-        logger.warning("Native host library build failed (the numpy "
+    except FileNotFoundError as exc:
+        logger.warning("No g++ for the native host library (the numpy "
                        "lanes take over): %s", exc)
         return False
+    except subprocess.CalledProcessError as exc:
+        raise HyperspaceException(
+            f"g++ failed for {os.path.basename(SOURCE)} (exit "
+            f"{exc.returncode}):\n"
+            + exc.stderr.decode(errors="replace")) from exc
+    except subprocess.TimeoutExpired as exc:
+        raise HyperspaceException(
+            f"g++ timed out for {os.path.basename(SOURCE)}") from exc
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
+    compilation.record_build("hyperspace_host", time.perf_counter() - t0,
+                             cause)
+    return True
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -85,17 +106,22 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
-    """The loaded library, building it first if needed; None when it
-    cannot be built or loaded (the attempt is made once per process)."""
+    """The loaded library, building it first if needed; None when there
+    is no `g++` or the library does not load (the attempt is made once
+    per process). A compile that fails raises."""
     global _lib, _load_attempted, build_seconds
     with _lock:
         if _lib is not None or _load_attempted:
             return _lib
-        _load_attempted = True
         t0 = time.perf_counter()
         out = library_path()
-        if not os.path.exists(out) and not _build(out):
+        if os.path.exists(out):
+            from hyperspace_tpu_torch.telemetry import compilation
+            compilation.record_cache_hit("hyperspace_host")
+        elif not _build(out):  # a failed compile raises, and is retried
+            _load_attempted = True
             return None
+        _load_attempted = True
         build_seconds = time.perf_counter() - t0
         try:
             lib = ctypes.CDLL(out)

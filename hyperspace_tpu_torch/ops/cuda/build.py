@@ -8,6 +8,11 @@ checkout only, into `hyperspace_tpu_torch/_build/` (listed in
 edited source is rebuilt and an unchanged one is loaded as it is.
 `build_all` starts one `nvcc` per source at once and waits for all of them.
 
+Every build is counted by the compile seam (`telemetry/compilation.py`):
+a build is a `compile.traces` (a `retrace` when an older build of the
+library is there, i.e. its source changed), a load of a library that is
+already built a `compile.cache_hits`. A failed build raises.
+
 Nothing here runs at import time: the CPU tests import every module and
 this machine may have no `nvcc`.
 """
@@ -92,16 +97,25 @@ def build_all(names: Sequence[str] = tuple(SOURCES)) -> Dict[str, float]:
     """Compile every named library not yet built, all `nvcc` processes at
     once. Returns {name: seconds from start until its build ended} (0.0
     for a library that was already built)."""
+    from hyperspace_tpu_torch.telemetry import compilation
+
     t0 = time.perf_counter()
     with _lock:
+        causes = {name: compilation.build_cause(
+            BUILD_DIR, f"lib{name}-", f"csrc/{SOURCES[name]}")
+            for name in names}
         started = {name: _start(name) for name in names}
         seconds: Dict[str, float] = {}
         try:
             for name, job in started.items():
                 if job is not None:
                     _finish(name, job)
-                seconds[name] = (time.perf_counter() - t0
-                                 if job is not None else 0.0)
+                    seconds[name] = time.perf_counter() - t0
+                    compilation.record_build(name, seconds[name],
+                                             causes[name])
+                else:
+                    seconds[name] = 0.0
+                    compilation.record_cache_hit(name)
         finally:
             for job in started.values():
                 if job is not None and job[0].poll() is None:

@@ -20,8 +20,13 @@ from typing import Sequence
 import torch
 
 from hyperspace_tpu_torch.exceptions import HyperspaceException
+from hyperspace_tpu_torch.telemetry.compilation import instrumented_device
 
 _MAX_BUCKETS = (1 << 31) - 1
+
+# 32-bit integer operations per key lane per row: fmix32 (two multiplies,
+# three shift-xors) and the boost hash_combine step.
+HASH_OPS_PER_LANE = 20
 
 
 def stack_lanes(lanes: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -74,8 +79,17 @@ def _kernel_fn():
     return _fn
 
 
-def hash_lanes_to_buckets(lanes: torch.Tensor,
-                          num_buckets: int) -> torch.Tensor:
+def hash_cost(lanes: torch.Tensor, num_buckets: int):
+    """Modeled (operations, bytes accessed) of one call, for the device
+    seam (`telemetry/compilation.py`): each of the L int32 lanes read
+    once and the int32 ids written once, n·(4L+4) bytes; 20 integer
+    operations per lane per row."""
+    n_lanes, n = int(lanes.shape[0]), int(lanes.shape[1])
+    return HASH_OPS_PER_LANE * n_lanes * n, n * (4 * n_lanes + 4)
+
+
+def _hash_lanes_to_buckets(lanes: torch.Tensor,
+                           num_buckets: int) -> torch.Tensor:
     """lanes: contiguous [L, n] int32 tensor of uint32 bit patterns (lane 0
     seeds the hash, further lanes hash-combine). Returns int32 [n] bucket
     ids in [0, num_buckets), on the lanes' device. A CUDA tensor launches
@@ -104,4 +118,8 @@ def hash_lanes_to_buckets(lanes: torch.Tensor,
     return out
 
 
+# The entry point, through the device seam: device seconds and modeled
+# bytes per call. `.launches` counts kernel launches (CUDA tensors only).
+hash_lanes_to_buckets = instrumented_device(
+    "cuda.hash_lanes_to_buckets", _hash_lanes_to_buckets, cost=hash_cost)
 hash_lanes_to_buckets.launches = 0

@@ -22,7 +22,9 @@ import torch
 
 from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.ops.cuda.hash_kernel import (
-    _check as _check_lanes, hash_lanes_to_buckets_reference, stack_lanes)
+    HASH_OPS_PER_LANE, _check as _check_lanes,
+    hash_lanes_to_buckets_reference, stack_lanes)
+from hyperspace_tpu_torch.telemetry.compilation import instrumented_device
 
 # Bucket counts up to this take the fused kernel (its shared-memory
 # histogram is 4 * B bytes); above it the Exchange takes the two-pass path
@@ -65,8 +67,18 @@ def _kernel_fn():
     return _fn
 
 
-def partition_ids_and_histogram(lanes: torch.Tensor, num_buckets: int
-                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+def partition_cost(lanes: torch.Tensor, num_buckets: int):
+    """Modeled (operations, bytes accessed) of one call, for the device
+    seam: the lanes read once, the int32 ids and the int64 lengths
+    written once, n·(4L+4) + 8B bytes; the hash's operations plus one
+    histogram increment per row."""
+    n_lanes, n = int(lanes.shape[0]), int(lanes.shape[1])
+    return ((HASH_OPS_PER_LANE * n_lanes + 1) * n,
+            n * (4 * n_lanes + 4) + 8 * int(num_buckets))
+
+
+def _partition_ids_and_histogram(lanes: torch.Tensor, num_buckets: int
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """lanes: contiguous [L, n] int32 tensor of uint32 bit patterns (see
     `stack_lanes`). Returns (int32 ids [n] in [0, num_buckets), int64
     lengths [num_buckets]) on the lanes' device. A CUDA tensor launches the
@@ -96,6 +108,10 @@ def partition_ids_and_histogram(lanes: torch.Tensor, num_buckets: int
     return ids, lengths
 
 
+# The entry point, through the device seam (see hash_kernel).
+partition_ids_and_histogram = instrumented_device(
+    "cuda.partition_ids_and_histogram", _partition_ids_and_histogram,
+    cost=partition_cost)
 partition_ids_and_histogram.launches = 0
 
 

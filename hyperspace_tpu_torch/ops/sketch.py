@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from hyperspace_tpu_torch.exceptions import HyperspaceException
+from hyperspace_tpu_torch.telemetry.compilation import instrumented_device
 
 # Per-word salts of the split-block bloom (parquet's constants).
 _SALT = (0x47B6137B, 0x44974D91, 0x8824AD5B, 0xA2B7289D,
@@ -130,6 +131,17 @@ def _host_bloom_words(h1: np.ndarray, h2: np.ndarray,
     return words
 
 
+def _bloom_cost(h1: torch.Tensor, h2: torch.Tensor, nbits: int):
+    """Modeled (operations, bytes accessed) for the device seam: both
+    hash tensors read once and the nbits/32 int64 words written once;
+    per row one block modulo, then a multiply, a shift and an add per
+    salt."""
+    n = int(h1.numel())
+    return (n * (1 + 3 * len(_SALT)),
+            n * (h1.element_size() + h2.element_size()) + (nbits // 32) * 8)
+
+
+@instrumented_device("sketch.bloom", cost=_bloom_cost)
 def _device_bloom_words(h1: torch.Tensor, h2: torch.Tensor,
                         nbits: int) -> torch.Tensor:
     """Per-row flat bit positions -> bincount -> packed words (int64
@@ -182,6 +194,17 @@ def bloom_maybe_contains(words: np.ndarray, h1: int, h2: int) -> bool:
 _FLOAT_DTYPES = ("float32", "float64")
 
 
+def _zones_cost(data: torch.Tensor, valid: torch.Tensor,
+                nan: torch.Tensor):
+    """Modeled (operations, bytes accessed) for the device seam: the
+    data and the two bool masks read once, five 8-byte facts written;
+    eight elementwise operations per row (the ok mask, two selects, min,
+    max, two counts and the NaN test)."""
+    n = int(data.numel())
+    return 8 * n, n * (data.element_size() + 2) + 5 * 8
+
+
+@instrumented_device("sketch.zones", cost=_zones_cost)
 def _device_zones(data: torch.Tensor, valid: torch.Tensor,
                   nan: torch.Tensor):
     """(valid_count, ok_count, has_nan, min, max) as Python scalars, with

@@ -24,6 +24,7 @@ import torch
 
 from hyperspace_tpu_torch.io.columnar import ColumnBatch, batch_to_host
 from hyperspace_tpu_torch.ops.keys import MASK32
+from hyperspace_tpu_torch.telemetry.compilation import instrumented_device
 
 
 def _as_u32(lane):
@@ -106,6 +107,16 @@ def sort_batch(batch: ColumnBatch, by: Sequence[str]) -> ColumnBatch:
 TOPK_CANDIDATE_CAP = 1 << 21
 
 
+def _topk_threshold_cost(prefix: torch.Tensor, k: int):
+    """Modeled (operations, bytes accessed) for the device seam: the
+    int64 prefix read once, the bool mask and the int64 count written
+    once; one comparison and one add per row (the k-selection's own
+    comparisons are not modeled)."""
+    n = int(prefix.numel())
+    return 2 * n, 8 * n + n + 8
+
+
+@instrumented_device("sort.topk_threshold", cost=_topk_threshold_cost)
 def _topk_threshold(prefix: torch.Tensor, k: int):
     """(mask, count) for rows whose packed prefix is <= the k-th smallest
     prefix value. `prefix` holds unsigned 64-bit values with the sign bit

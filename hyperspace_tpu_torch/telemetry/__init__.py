@@ -23,15 +23,22 @@ Surface: `DataFrame.collect(with_metrics=True)` returns the recorder
 next to the result; `session.last_query_metrics()` returns the most
 recent one; `to_json()` / `format_tree()` render reports.
 
-Process-wide observability rides in sibling modules re-exported here:
-`registry` (named counters/gauges/log-bucketed histograms aggregating
-across queries and sessions; Prometheus text dump), `trace` (span
-tracer with Chrome trace-event / Perfetto export — `enable_tracing()`
-then `export_trace(path)` — and the host<->device link counters) and
-`memory` (the device-memory accountant and the `cache.<name>.*`
-series). The JAX package's profiler, compile instrumentation, flight
-recorder, deadlines, tenants and ops server are not part of this
-package yet (`ROADMAP.md`).
+Process-wide observability rides in sibling modules re-exported here,
+the JAX package's set under its names: `registry` (named counters/
+gauges/log-bucketed histograms aggregating across queries and sessions;
+Prometheus text dump), `trace` (span tracer with Chrome trace-event /
+Perfetto export — `enable_tracing()` then `export_trace(path)` — and the
+host<->device link counters), `memory` (the device-memory accountant
+and the `cache.<name>.*` series), `compilation` (the compile and launch
+seam: library builds as `compile.*`, device seconds from CUDA events and
+modeled cost as `device.*`), `critical_path` (each query's wall
+decomposed into a closed segment set), `flight` (the ring of recent
+queries and the slow-query dump), `artifact` and `diff` (the canonical
+bench artifact and the regression differ), `timeseries`, `alerts`,
+`history`, `profiler` (host stack sampling and `torch.profiler`
+captures) and `ops_server` (the pull-based HTTP endpoints). Deadlines
+belong to the serving plane and are not part of this package yet
+(`ROADMAP.md`).
 """
 
 from __future__ import annotations
@@ -53,21 +60,55 @@ from hyperspace_tpu_torch.telemetry.trace import (Tracer, disable_tracing,
                                                   record_link_transfer, span,
                                                   tracer, tracing_enabled)
 from hyperspace_tpu_torch.telemetry import memory  # noqa: F401
+from hyperspace_tpu_torch.telemetry import compilation  # noqa: F401
+from hyperspace_tpu_torch.telemetry import artifact  # noqa: F401
+from hyperspace_tpu_torch.telemetry import diff  # noqa: F401
+from hyperspace_tpu_torch.telemetry import flight  # noqa: F401
+from hyperspace_tpu_torch.telemetry import timeseries  # noqa: F401
+from hyperspace_tpu_torch.telemetry import ops_server  # noqa: F401
+from hyperspace_tpu_torch.telemetry import critical_path  # noqa: F401
+from hyperspace_tpu_torch.telemetry import profiler  # noqa: F401
+from hyperspace_tpu_torch.telemetry.compilation import instrumented_device
+from hyperspace_tpu_torch.telemetry.flight import (FlightRecorder,
+                                                   get_recorder)
 from hyperspace_tpu_torch.telemetry.memory import (DeviceMemoryAccountant,
                                                    get_accountant)
 
 __all__ = [
-    "QueryMetrics", "OperatorRecord", "current", "recording", "event",
-    "annotate", "add_seconds", "add_count", "MetricsRegistry",
-    "get_registry", "Tracer", "enable_tracing", "disable_tracing",
-    "tracing_enabled", "tracer", "span", "link_transfer",
-    "record_link_transfer", "export_trace", "memory",
+    "QueryMetrics", "OperatorRecord", "current", "recording",
+    "propagating", "event", "annotate", "add_seconds", "add_count",
+    "DEFAULT_TENANT", "current_tenant", "tenant_scope", "charge_tenant",
+    "known_tenants", "tenant_digest", "TENANT_CHARGE_COUNTERS",
+    "MetricsRegistry", "get_registry", "Tracer", "enable_tracing",
+    "disable_tracing", "tracing_enabled", "tracer", "span",
+    "link_transfer", "record_link_transfer", "export_trace", "memory",
+    "compilation", "instrumented_device", "artifact", "diff", "flight",
+    "FlightRecorder", "get_recorder", "timeseries", "ops_server",
+    "critical_path", "profiler",
     "DeviceMemoryAccountant", "get_accountant",
 ]
 
 
 _current: contextvars.ContextVar[Optional["QueryMetrics"]] = \
     contextvars.ContextVar("hyperspace_query_metrics", default=None)
+
+# The active TENANT identity rides the same contextvar scoping as the
+# recorder: set by `tenant_scope`, carried across pool threads by
+# `propagating(...)`, read by every chargeback site (the device seam,
+# `trace.record_link_transfer`, the segment-cache fills) to mirror
+# global counters onto `tenant.<id>.*`. Unset means the DEFAULT tenant —
+# charges never go unattributed, so summing `tenant.<id>.*` over all
+# tenants (including "default") equals the global counters EXACTLY.
+_tenant: contextvars.ContextVar[Optional[str]] = \
+    contextvars.ContextVar("hyperspace_query_tenant", default=None)
+
+DEFAULT_TENANT = "default"
+
+# Tenants observed by any chargeback/scope since process start, so the
+# report surfaces can enumerate `tenant.<id>.*` families without parsing
+# metric names (tenant ids may themselves contain dots). Never pruned.
+_known_tenants: set = {DEFAULT_TENANT}
+_known_tenants_lock = threading.Lock()
 
 def current() -> Optional["QueryMetrics"]:
     """The recorder of the query executing on this thread, or None."""
@@ -82,6 +123,103 @@ def recording(metrics: "QueryMetrics"):
         yield metrics
     finally:
         _current.reset(token)
+
+
+def current_tenant() -> str:
+    """The tenant the calling context charges to — the contextvar if a
+    tenant scope is active, else the DEFAULT tenant. Never None:
+    chargeback sites must always have someone to bill."""
+    return _tenant.get() or DEFAULT_TENANT
+
+
+def known_tenants() -> List[str]:
+    """Sorted ids of every tenant observed since process start."""
+    with _known_tenants_lock:
+        return sorted(_known_tenants)
+
+
+def _note_tenant(tenant: str) -> None:
+    if tenant not in _known_tenants:  # racy pre-check; set add is safe
+        with _known_tenants_lock:
+            _known_tenants.add(tenant)
+
+
+@contextmanager
+def tenant_scope(tenant: Optional[str]):
+    """Make `tenant` the active billing identity for the calling
+    context (None keeps the surrounding scope — a no-op carrier)."""
+    if tenant is None:
+        yield None
+        return
+    tenant = str(tenant)
+    _note_tenant(tenant)
+    token = _tenant.set(tenant)
+    try:
+        yield tenant
+    finally:
+        _tenant.reset(token)
+
+
+# Every counter family the chargeback sites mirror per-tenant. The
+# exactness contract: for each name here, the sum of
+# `tenant.<id>.<name>` over ALL known tenants equals the global counter
+# of the same name.
+TENANT_CHARGE_COUNTERS = (
+    "device.flops", "device.bytes_accessed", "device.dispatch.seconds",
+    "link.h2d.bytes", "link.d2h.bytes", "cache.segments.fills",
+)
+
+
+def tenant_digest() -> Dict[str, Dict[str, float]]:
+    """{tenant: {charge counter: value}} for every known tenant, read
+    from the registry's `tenant.<id>.*` mirrors. Tenants with zero
+    usage are included (the default tenant always appears), so a
+    consumer can verify the exactness contract by summing columns."""
+    counters = get_registry().counters_dict()
+    out: Dict[str, Dict[str, float]] = {}
+    for t in known_tenants():
+        out[t] = {name: counters.get(f"tenant.{t}.{name}", 0)
+                  for name in TENANT_CHARGE_COUNTERS}
+    return out
+
+
+def charge_tenant(name: str, amount: float = 1.0,
+                  tenant: Optional[str] = None) -> str:
+    """Mirror a global-counter increment onto the active tenant's
+    `tenant.<id>.<name>` series. Call this at the SAME site as the
+    global `reg.counter(name).inc(amount)` so per-tenant sums stay
+    exactly equal to the global counters. Returns the tenant charged."""
+    t = tenant if tenant is not None else current_tenant()
+    _note_tenant(t)
+    get_registry().counter(f"tenant.{t}.{name}").inc(amount)
+    return t
+
+
+def propagating(fn):
+    """Wrap `fn` for execution on another thread (the engine's pools),
+    carrying over the active recorder, the caller's position in the
+    operator tree and the active tenant — contextvars do not cross
+    thread boundaries on their own."""
+    rec = _current.get()
+    tenant = _tenant.get()
+    if rec is None and tenant is None:
+        return fn
+    parent = rec._current_op_id() if rec is not None else None
+
+    def run(*args, **kwargs):
+        token = _current.set(rec)
+        ttoken = _tenant.set(tenant)
+        if rec is not None:
+            rec._adopt_parent(parent)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            if rec is not None:
+                rec._clear_adoption()
+            _tenant.reset(ttoken)
+            _current.reset(token)
+
+    return run
 
 
 def event(category: str, name: str, **detail) -> None:
@@ -111,6 +249,17 @@ def add_count(counter: str, n: int = 1) -> None:
     rec = _current.get()
     if rec is not None:
         rec.add_count(counter, n)
+
+
+def _fmt_bytes(n: int) -> str:
+    """Human-readable bytes for report rendering (binary units)."""
+    value = float(n)
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if value < 1024 or unit == "TiB":
+            return (f"{int(value)}{unit}" if unit == "B"
+                    else f"{value:.1f}{unit}")
+        value /= 1024
+    return f"{n}B"
 
 
 class OperatorRecord:
@@ -185,6 +334,17 @@ class QueryMetrics:
         # (`telemetry/memory.py` samples at link transfers).
         self.peak_hbm_bytes = 0
         self.peak_hbm_per_device: Dict[str, int] = {}
+        # The tenant billed for the query (None = default tenant / no
+        # tenant scope); the flight ring inherits it.
+        self.tenant: Optional[str] = None
+        # Latency anatomy, stamped at query finish by
+        # `telemetry/critical_path.py`: the wall decomposed into the
+        # closed segment set, segments summing exactly to wall_s. None
+        # until stamped.
+        self.critical_path: Optional[dict] = None
+        # CUDA event pairs of the device seam (`telemetry/compilation.
+        # py`), resolved into `device.dispatch_s` by `finish()`.
+        self._device_events: list = []
         self._lock = threading.Lock()
         self._ids = itertools.count()
         self._tls = threading.local()
@@ -200,10 +360,23 @@ class QueryMetrics:
         return stack
 
 
+    def _current_op_id(self) -> Optional[int]:
+        stack = self._stack()
+        return stack[-1].op_id if stack else None
+
+    def _adopt_parent(self, parent_id: Optional[int]) -> None:
+        """Root this worker thread's operator chain under `parent_id`
+        (see `propagating`)."""
+        self._tls.adopted = parent_id
+
+    def _clear_adoption(self) -> None:
+        self._tls.adopted = None
+
     def start_operator(self, name: str, node=None,
                        bucketed: bool = False) -> OperatorRecord:
         stack = self._stack()
-        parent = stack[-1].op_id if stack else None
+        parent = (stack[-1].op_id if stack
+                  else getattr(self._tls, "adopted", None))
         # next() on itertools.count and list.append are both atomic
         # under the GIL — the hot path takes no lock.
         op = OperatorRecord(next(self._ids), parent, name, node, bucketed)
@@ -260,7 +433,49 @@ class QueryMetrics:
         self.wall_s = time.perf_counter() - self._t0
         for op in self.operators:
             op.label  # resolve now; releases the node references
+        if self._device_events:
+            from hyperspace_tpu_torch.telemetry import compilation
+            compilation.resolve_query(self)
         return self
+
+    @property
+    def compile(self) -> dict:
+        """This query's build story: how many library builds it caused
+        (`traces`), how many loads found the library built
+        (`cache_hits`), and the seconds spent building. A repeat query
+        must show traces == 0."""
+        return {
+            "traces": int(self.counters.get("compile.traces", 0)),
+            "cache_hits": int(self.counters.get("compile.cache_hits", 0)),
+            "seconds": round(
+                float(self.counters.get("compile.seconds", 0.0)), 6),
+        }
+
+    @property
+    def roofline(self) -> dict:
+        """This query's device cost story: the modeled flops and bytes
+        accessed of its instrumented device calls (each entry point's
+        cost function), their measured device seconds (CUDA events on a
+        card), the device share of the query's wall (a low share says
+        the bottleneck is host orchestration, not the card), and the
+        arithmetic intensity that places the work on a roofline plot.
+        Only the instrumented entry points are counted; device work
+        outside them (plain torch operators) is not in `dispatch_s`."""
+        flops = float(self.counters.get("device.flops", 0.0))
+        nbytes = float(self.counters.get("device.bytes_accessed", 0.0))
+        disp = float(self.counters.get("device.dispatch_s", 0.0))
+        wall = self.wall_s
+        return {
+            "flops": round(flops, 1),
+            "bytes_accessed": round(nbytes, 1),
+            "dispatch_s": round(disp, 6),
+            "device_share": (round(min(disp / wall, 1.0), 4)
+                             if wall else None),
+            "intensity_flops_per_byte": (round(flops / nbytes, 4)
+                                         if nbytes else None),
+            "achieved_flops_per_s": (round(flops / disp, 1)
+                                     if disp > 0 else None),
+        }
 
     # -- user side (reports) -------------------------------------------
 
@@ -269,6 +484,13 @@ class QueryMetrics:
         return [e for e in self.events
                 if e["category"] == category
                 and (name is None or e["name"] == name)]
+
+    def rows_in(self, op: OperatorRecord) -> Optional[int]:
+        """Sum of the operator's direct children's output rows (None when
+        no child reported rows — e.g. a leaf scan)."""
+        rows = [c.rows_out for c in self.operators
+                if c.parent_id == op.op_id and c.rows_out is not None]
+        return sum(rows) if rows else None
 
     def index_usage(self) -> List[dict]:
         """Index-usage records: one per rule application (index name,
@@ -319,7 +541,15 @@ class QueryMetrics:
             "counters": {k: (round(v, 6) if isinstance(v, float) else v)
                          for k, v in self.counters.items()},
             "index_usage": self.index_usage(),
+            "peak_hbm_bytes": self.peak_hbm_bytes,
+            "peak_hbm_per_device": dict(self.peak_hbm_per_device),
+            "compile": self.compile,
+            "roofline": self.roofline,
         }
+        if self.tenant is not None:
+            out["tenant"] = self.tenant
+        if self.critical_path is not None:
+            out["critical_path"] = dict(self.critical_path)
         return out
 
     def to_json(self, indent: Optional[int] = None) -> str:
@@ -358,7 +588,14 @@ class QueryMetrics:
             "counters": {k: (round(v, 4) if isinstance(v, float) else v)
                          for k, v in self.counters.items()},
             "index_usage": self.index_usage(),
+            "peak_hbm_bytes": self.peak_hbm_bytes,
+            "compile": self.compile,
+            "roofline": self.roofline,
         }
+        if self.tenant is not None:
+            out["tenant"] = self.tenant
+        if self.critical_path is not None:
+            out["critical_path"] = dict(self.critical_path)
         return out
 
     def format_tree(self) -> str:
@@ -407,6 +644,28 @@ class QueryMetrics:
                 lines.append(f"  {k} = "
                              + (f"{v:.4f}" if isinstance(v, float)
                                 else str(v)))
+        if self.peak_hbm_bytes:
+            per_dev = ", ".join(
+                f"{dev}={_fmt_bytes(b)}"
+                for dev, b in sorted(self.peak_hbm_per_device.items()))
+            lines.append(f"Peak HBM: {_fmt_bytes(self.peak_hbm_bytes)}"
+                         + (f" ({per_dev})" if per_dev else ""))
+        comp = self.compile
+        if comp["traces"] or comp["cache_hits"]:
+            lines.append(f"Compile: {comp['traces']} traces, "
+                         f"{comp['cache_hits']} cache hits, "
+                         f"{comp['seconds']:.4f}s")
+        roof = self.roofline
+        if roof["flops"] or roof["dispatch_s"]:
+            bits = [f"{roof['flops']:.0f} flops",
+                    f"{roof['bytes_accessed']:.0f} B accessed",
+                    f"{roof['dispatch_s']:.4f}s dispatch"]
+            if roof["device_share"] is not None:
+                bits.append(f"device share {roof['device_share']:.1%}")
+            if roof["intensity_flops_per_byte"] is not None:
+                bits.append(
+                    f"{roof['intensity_flops_per_byte']:.2f} flops/B")
+            lines.append("Device: " + ", ".join(bits))
         return "\n".join(lines)
 
     def __repr__(self) -> str:

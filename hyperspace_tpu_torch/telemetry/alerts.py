@@ -1,0 +1,587 @@
+"""Rule-driven alerting with evidence-bundled incidents.
+
+The operations plane OBSERVES — counters, windows, flight entries —
+but deciding "this is bad, look now" was left to a
+human watching `/metrics`. This module closes that gap in-process, the
+same no-side-services discipline as everything else: declarative rules
+over the sampler's windowed series, evaluated on every tick, opening
+STRUCTURED incidents that carry their own evidence.
+
+**Rules.** Each `AlertRule` names a value source (`kind`), a predicate
+(threshold with a direction; window deltas and multiplicative trends
+are kinds whose value IS the delta/ratio), a **sustain** duration (the
+breach must hold continuously that long before firing — one hiccup
+tick is not an incident) and a **clear** level for hysteresis (a
+firing rule resolves only when the value crosses `clear`, not when it
+dips below `threshold` — no flapping at the boundary). Every knob is
+conf-tunable and every rule conf-disableable via
+`spark.hyperspace.telemetry.alerts.rule.<name>.*`.
+
+**Default rules** (the JAX package's whose series this package sets):
+segment-cache hit-rate collapse and rebuild storms (`compile.traces`
+still rising while warm). Its other rules (SLO burn, admission
+headroom, breaker opens, queue saturation, ingest staleness) read what
+only the serving and ingest planes set; they arrive with those planes.
+Every rule kind but `burn` is here, so a conf or test can declare such
+rules over any series.
+
+**Incidents.** A firing rule opens ONE incident (repeat breaches while
+it is open are counted `alerts.suppressed`, not duplicated), attaches
+an evidence bundle — registry snapshot, sliding-window quantiles,
+recent flight entries with critical paths, a slowlog-style dump of the
+slowest recent query, and a rate-limited `profiler.request_capture`
+device trace (`torch.profiler`) — transitions firing→resolved with
+exact counter agreement (`alerts.fired - alerts.resolved == active incidents`,
+always), and persists into the durable history store
+(`telemetry/history.py`) at both transitions. Live state is served at
+the `/alerts` ops endpoint and as the `incidents` section of
+`/healthz`.
+
+Evaluation must never cost a query: the tick hook guards everything
+into `alerts.eval_errors`.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Dict, List, Optional
+
+from hyperspace_tpu_torch.telemetry import registry as _registry
+
+__all__ = ["AlertRule", "AlertManager", "DEFAULT_RULES", "get_manager",
+           "set_manager", "reset_manager", "configure", "on_tick",
+           "alerts_doc"]
+
+# How many resolved incidents the manager retains for /alerts (active
+# incidents are always retained).
+RECENT_INCIDENTS = 32
+
+
+class AlertRule:
+    """One declarative rule. `kind` selects the value source (the JAX
+    package's kinds; its ``burn`` kind reads the serving plane's SLO
+    burn rate and waits for a scheduler here):
+
+    - ``window_rate``  — per-second rate of counter `series` over
+                         `window_s`
+    - ``window_delta`` — raw counter delta of `series` over `window_s`
+    - ``hit_ratio``    — hits/(hits+misses) of the `series` counter
+                         family over `window_s` (gated on `min_count`
+                         observations so an idle cache never "collapses")
+    - ``trend``        — multiplicative trend: this window's delta of
+                         `series` over the PREVIOUS equal window's
+                         (2.0 = doubled)
+    - ``gauge``        — current registry gauge value
+    - ``gauge_frac``   — gauge value over a conf-derived capacity
+                         (`capacity_of(conf)`), e.g. queue depth /
+                         queue bound
+
+    The predicate is `value > threshold` for direction "above"
+    (`value < threshold` for "below"), sustained for `sustain_s`; a
+    firing rule resolves when value crosses `clear` on the other side.
+    `warm_min` gates evaluation on a cumulative counter
+    (`warm_counter`) having reached that value — the retrace-storm
+    rule only means something once the process is warm."""
+
+    __slots__ = ("name", "kind", "series", "threshold", "clear",
+                 "direction", "sustain_s", "window_s", "description",
+                 "min_count", "warm_counter", "warm_min",
+                 "capacity_of")
+
+    def __init__(self, name: str, kind: str, series: Optional[str],
+                 threshold: float, clear: float,
+                 description: str, direction: str = "above",
+                 sustain_s: float = 0.0,
+                 window_s: Optional[float] = None,
+                 min_count: int = 0,
+                 warm_counter: Optional[str] = None, warm_min: float = 0,
+                 capacity_of=None):
+        self.name = name
+        self.kind = kind
+        self.series = series
+        self.threshold = float(threshold)
+        self.clear = float(clear)
+        self.direction = direction
+        self.sustain_s = float(sustain_s)
+        self.window_s = window_s
+        self.description = description
+        self.min_count = int(min_count)
+        self.warm_counter = warm_counter
+        self.warm_min = float(warm_min)
+        self.capacity_of = capacity_of
+
+    def to_dict(self) -> dict:
+        return {"name": self.name, "kind": self.kind,
+                "series": self.series, "threshold": self.threshold,
+                "clear": self.clear, "direction": self.direction,
+                "sustain_s": self.sustain_s, "window_s": self.window_s,
+                "description": self.description}
+
+
+# The shipped rule set. Thresholds are starting points, each tunable
+# via `telemetry.alerts.rule.<name>.{threshold,clear,sustain.seconds,
+# window.seconds,enabled}`. Names, series, thresholds and descriptions
+# are the JAX package's, so both packages open the same incidents on
+# the same ticks.
+DEFAULT_RULES: List[AlertRule] = [
+    AlertRule(
+        "segcache_hit_collapse", "hit_ratio", "cache.segments",
+        threshold=0.5, clear=0.75, direction="below", sustain_s=5.0,
+        min_count=32,
+        description="segment-cache hit rate collapsed below 50% over "
+                    "the window (warm reads paying the link again)"),
+    AlertRule(
+        "retrace_storm", "window_rate", "compile.traces",
+        threshold=0.5, clear=0.1, sustain_s=5.0,
+        warm_counter="queries.total", warm_min=50,
+        description="compilation still tracing while warm — shape "
+                    "churn defeating the executable cache"),
+]
+
+
+class _RuleState:
+    __slots__ = ("breach_since", "incident")
+
+    def __init__(self):
+        self.breach_since: Optional[float] = None
+        self.incident: Optional[dict] = None
+
+
+class AlertManager:
+    """Rule evaluation + incident lifecycle. One per process
+    (`get_manager()`); `evaluate()` runs from the sampler's tick hook
+    with the tick's own timestamp, so scripted tests drive sustain and
+    hysteresis deterministically through `tick(t=...)`."""
+
+    def __init__(self, rules: Optional[List[AlertRule]] = None):
+        self.rules = list(DEFAULT_RULES if rules is None else rules)
+        self._lock = threading.Lock()
+        self._states: Dict[str, _RuleState] = {}
+        self._incidents: List[dict] = []   # resolved ring + active
+        self._conf = None
+        self._seq = 0
+
+    def configure(self, conf) -> None:
+        self._conf = conf
+
+    # -- conf-resolved rule knobs ---------------------------------------
+
+    def _resolved(self, rule: AlertRule, conf):
+        """(enabled, threshold, clear, sustain_s, window_s) with the
+        per-rule conf overrides applied."""
+        enabled, threshold, clear = True, rule.threshold, rule.clear
+        sustain, window = rule.sustain_s, rule.window_s
+        if conf is not None:
+            try:
+                ov = conf.alert_rule_override
+                v = ov(rule.name, "enabled")
+                if v is not None:
+                    enabled = (v or "true").lower() == "true"
+                v = ov(rule.name, "threshold")
+                if v is not None:
+                    threshold = float(v)
+                v = ov(rule.name, "clear")
+                if v is not None:
+                    clear = float(v)
+                v = ov(rule.name, "sustain.seconds")
+                if v is not None:
+                    sustain = float(v)
+                v = ov(rule.name, "window.seconds")
+                if v is not None:
+                    window = float(v)
+            except Exception:
+                pass  # a malformed override never disables alerting
+        return enabled, threshold, clear, sustain, window
+
+    # -- value sources ---------------------------------------------------
+
+    def _value(self, rule: AlertRule, sampler, conf,
+               window_s: Optional[float]) -> Optional[float]:
+        reg = _registry.get_registry()
+        if rule.warm_counter and \
+                reg.counter(rule.warm_counter).value < rule.warm_min:
+            return None  # not warm yet: the rule is not meaningful
+        if rule.kind == "gauge":
+            return reg.gauge(rule.series).value
+        if rule.kind == "gauge_frac":
+            cap = rule.capacity_of(conf) if rule.capacity_of else 0.0
+            if cap <= 0:
+                return None  # unbounded: nothing to saturate
+            return reg.gauge(rule.series).value / cap
+        if sampler is None:
+            return None
+        if rule.kind == "window_rate":
+            return sampler.window_rate(rule.series, window_s=window_s)
+        if rule.kind == "window_delta":
+            delta, covered = sampler.window_delta(rule.series,
+                                                  window_s=window_s)
+            return delta if covered > 0 else None
+        if rule.kind == "hit_ratio":
+            hits, ch = sampler.window_delta(f"{rule.series}.hits",
+                                            window_s=window_s)
+            misses, cm = sampler.window_delta(f"{rule.series}.misses",
+                                              window_s=window_s)
+            total = hits + misses
+            if max(ch, cm) <= 0 or total < max(rule.min_count, 1):
+                return None  # idle cache: no collapse to report
+            return hits / total
+        if rule.kind == "trend":
+            w = window_s or sampler.window_s
+            recent, c1 = sampler.window_delta(rule.series, window_s=w)
+            both, c2 = sampler.window_delta(rule.series,
+                                            window_s=2 * w)
+            previous = both - recent
+            if c2 <= c1 or previous <= 0:
+                return None  # no full previous window to trend against
+            return recent / previous
+        return None
+
+    @staticmethod
+    def _breaches(value: float, threshold: float,
+                  direction: str) -> bool:
+        return value > threshold if direction == "above" \
+            else value < threshold
+
+    @staticmethod
+    def _cleared(value: float, clear: float, direction: str) -> bool:
+        return value < clear if direction == "above" else value > clear
+
+    # -- evaluation ------------------------------------------------------
+
+    def evaluate(self, sampler=None, conf=None,
+                 now: Optional[float] = None) -> List[dict]:
+        """One evaluation pass over every rule (the tick hook's entry
+        point). Returns the incidents that TRANSITIONED this pass
+        (opened or resolved). Counter contract: `alerts.evaluations`
+        counts rule evaluations with an available value,
+        `alerts.fired`/`alerts.resolved` count incident transitions
+        exactly, `alerts.suppressed` counts breaches while the rule's
+        incident was already open."""
+        conf = conf if conf is not None else self._conf
+        if conf is not None:
+            try:
+                if not conf.alerts_enabled:
+                    return []
+            except Exception:
+                pass
+        now = time.time() if now is None else float(now)
+        reg = _registry.get_registry()
+        transitions: List[dict] = []
+        for rule in self.rules:
+            enabled, threshold, clear, sustain, window = \
+                self._resolved(rule, conf)
+            if not enabled:
+                continue
+            try:
+                value = self._value(rule, sampler, conf, window)
+            except Exception:
+                reg.counter("alerts.eval_errors").inc()
+                continue
+            if value is None:
+                continue
+            reg.counter("alerts.evaluations").inc()
+            with self._lock:
+                state = self._states.setdefault(rule.name, _RuleState())
+                breaching = self._breaches(value, threshold,
+                                           rule.direction)
+                if state.incident is not None:
+                    # Firing: hysteresis — resolve only on crossing
+                    # `clear`, suppress repeat breaches meanwhile.
+                    if self._cleared(value, clear, rule.direction):
+                        incident = state.incident
+                        incident["state"] = "resolved"
+                        incident["resolved_at"] = round(now, 3)
+                        incident["resolved_value"] = round(value, 6)
+                        state.incident = None
+                        state.breach_since = None
+                        reg.counter("alerts.resolved").inc()
+                        transitions.append(incident)
+                    elif breaching:
+                        reg.counter("alerts.suppressed").inc()
+                    continue
+                if not breaching:
+                    state.breach_since = None
+                    continue
+                if state.breach_since is None:
+                    state.breach_since = now
+                if now - state.breach_since < sustain:
+                    continue  # breaching, not yet sustained
+                incident = self._open(rule, value, threshold, clear,
+                                      sustain, now, conf)
+                state.incident = incident
+                transitions.append(incident)
+        for incident in transitions:
+            self._persist(incident, conf)
+        reg.gauge("alerts.active").set(
+            sum(1 for s in self._states.values()
+                if s.incident is not None))
+        return transitions
+
+    def _open(self, rule: AlertRule, value: float, threshold: float,
+              clear: float, sustain: float, now: float, conf) -> dict:
+        # Caller holds the lock.
+        reg = _registry.get_registry()
+        self._seq += 1
+        incident = {
+            "id": f"inc-{int(now * 1000)}-{self._seq:04d}",
+            "rule": rule.name,
+            "kind": rule.kind,
+            "series": rule.series,
+            "description": rule.description,
+            "state": "firing",
+            "opened_at": round(now, 3),
+            "resolved_at": None,
+            "value": round(value, 6),
+            "threshold": threshold,
+            "clear": clear,
+            "sustain_s": sustain,
+            "evidence": self._evidence(rule, conf),
+        }
+        self._incidents.append(incident)
+        # Bound the ring, but never evict a still-firing incident.
+        resolved = [i for i in self._incidents
+                    if i["state"] == "resolved"]
+        overflow = len(self._incidents) - RECENT_INCIDENTS \
+            - len([i for i in self._incidents
+                   if i["state"] == "firing"])
+        for stale in resolved[:max(overflow, 0)]:
+            self._incidents.remove(stale)
+        reg.counter("alerts.fired").inc()
+        return incident
+
+    # -- evidence --------------------------------------------------------
+
+    @staticmethod
+    def _evidence(rule: AlertRule, conf) -> dict:
+        """The bundle a responder needs, captured AT fire time, each
+        section error-isolated (an incident with partial evidence
+        beats no incident)."""
+        evidence: dict = {"captured_at": round(time.time(), 3)}
+
+        def section(name, fn):
+            try:
+                evidence[name] = fn()
+            except Exception as exc:
+                evidence[name] = {"error": repr(exc)}
+
+        def _windows():
+            from hyperspace_tpu_torch.telemetry import timeseries
+            sampler = timeseries.get_sampler()
+            latest = sampler._latest()
+            names = list(sampler.histograms)
+            if latest is not None:
+                names.extend(k for k in latest.hists
+                             if k not in sampler.histograms)
+            out = {}
+            for name in names:
+                buckets, covered = sampler.window_buckets(name)
+                count = sum(buckets.values())
+                if not count:
+                    continue
+                out[name] = {
+                    "count": count,
+                    "covered_s": round(covered, 3),
+                    "p50": timeseries.quantile_from_buckets(buckets, .50),
+                    "p90": timeseries.quantile_from_buckets(buckets, .90),
+                    "p99": timeseries.quantile_from_buckets(buckets, .99),
+                }
+            return out
+
+        def _flight():
+            from hyperspace_tpu_torch.telemetry import flight
+            out = []
+            for qm in flight.get_recorder().queries(n=8):
+                out.append({
+                    "description": getattr(qm, "description", None),
+                    "flight_seq": getattr(qm, "flight_seq", None),
+                    "wall_s": getattr(qm, "wall_s", None),
+                    "tenant": getattr(qm, "tenant", None),
+                    "critical_path": getattr(qm, "critical_path", None),
+                })
+            return out
+
+        def _slowlog():
+            # The slowlog-dump shape for the slowest recent query,
+            # built in memory (no file, no threshold): the same
+            # self-contained diagnosis document a slow-query dump
+            # would have written.
+            from hyperspace_tpu_torch.telemetry import flight
+            entries = [qm for qm in flight.get_recorder().queries(n=8)
+                       if getattr(qm, "wall_s", None) is not None]
+            if not entries:
+                return None
+            worst = max(entries, key=lambda qm: qm.wall_s)
+            doc = {"kind": "hyperspace-slowlog",
+                   "dumped_at": round(time.time(), 3),
+                   "threshold_s": None,
+                   "wall_s": worst.wall_s,
+                   "description": worst.description,
+                   "metrics": worst.to_dict()}
+            cp = getattr(worst, "critical_path", None)
+            if cp is not None:
+                doc["critical_path"] = cp
+            return doc
+
+        def _capture():
+            from hyperspace_tpu_torch.telemetry import profiler
+            return profiler.request_capture(
+                conf, reason=f"incident:{rule.name}")
+
+        section("registry", _registry.get_registry().to_dict)
+        section("window_quantiles", _windows)
+        section("flight", _flight)
+        section("slowlog", _slowlog)
+        section("device_profile", _capture)
+        return evidence
+
+    def _persist(self, incident: dict, conf) -> None:
+        """Incident transitions land in the durable history store
+        immediately (not on the next interval) — the incident record
+        must survive the process that suffered it."""
+        try:
+            from hyperspace_tpu_torch.telemetry import history
+            h = history.get_history()
+            if h is not None:
+                h.flush(conf=conf, reason="incident",
+                        incidents=[incident])
+        except Exception:
+            _registry.get_registry().counter(
+                "alerts.persist_errors").inc()
+
+    # -- inspection ------------------------------------------------------
+
+    def incidents(self, active_only: bool = False) -> List[dict]:
+        """Incident documents, oldest first (`active_only` keeps the
+        still-firing ones)."""
+        with self._lock:
+            out = [dict(i) for i in self._incidents]
+        if active_only:
+            out = [i for i in out if i["state"] == "firing"]
+        return out
+
+    def active_count(self) -> int:
+        with self._lock:
+            return sum(1 for i in self._incidents
+                       if i["state"] == "firing")
+
+    def snapshot(self) -> dict:
+        """The `/alerts` payload: rule table (conf-resolved), live
+        incidents, and the exact counters."""
+        conf = self._conf
+        reg = _registry.get_registry()
+        rules = []
+        for rule in self.rules:
+            enabled, threshold, clear, sustain, window = \
+                self._resolved(rule, conf)
+            row = rule.to_dict()
+            row.update({"enabled": enabled, "threshold": threshold,
+                        "clear": clear, "sustain_s": sustain,
+                        "window_s": window})
+            with self._lock:
+                state = self._states.get(rule.name)
+                row["firing"] = bool(state and state.incident)
+            rules.append(row)
+        counters = reg.counters_dict()
+        return {
+            "enabled": (conf is None or self._safe_enabled(conf)),
+            "rules": rules,
+            "active": self.incidents(active_only=True),
+            "recent": self.incidents()[-RECENT_INCIDENTS:],
+            "counters": {k: counters.get(k, 0) for k in (
+                "alerts.evaluations", "alerts.fired",
+                "alerts.resolved", "alerts.suppressed")},
+        }
+
+    @staticmethod
+    def _safe_enabled(conf) -> bool:
+        try:
+            return bool(conf.alerts_enabled)
+        except Exception:
+            return True
+
+    def digest(self) -> dict:
+        """The compact block a bench artifact embeds: the four exact
+        counters plus a compact incident list."""
+        counters = _registry.get_registry().counters_dict()
+        return {
+            "evaluations": int(counters.get("alerts.evaluations", 0)),
+            "fired": int(counters.get("alerts.fired", 0)),
+            "resolved": int(counters.get("alerts.resolved", 0)),
+            "suppressed": int(counters.get("alerts.suppressed", 0)),
+            "active": self.active_count(),
+            "incidents": [
+                {k: i.get(k) for k in ("id", "rule", "state",
+                                       "opened_at", "resolved_at",
+                                       "value", "threshold")}
+                for i in self.incidents()],
+        }
+
+    def reset(self) -> None:
+        """Forget incidents and sustain state (test isolation). The
+        `alerts.*` counters live in the registry and reset with it."""
+        with self._lock:
+            self._states.clear()
+            self._incidents.clear()
+
+
+# ---------------------------------------------------------------------------
+# Process-wide manager + wiring
+# ---------------------------------------------------------------------------
+
+_manager: Optional[AlertManager] = None
+_manager_lock = threading.Lock()
+
+
+def get_manager() -> AlertManager:
+    """THE process alert manager (created on first use; rules are the
+    defaults until `set_manager` installs others)."""
+    global _manager
+    if _manager is None:
+        with _manager_lock:
+            if _manager is None:
+                _manager = AlertManager()
+    return _manager
+
+
+def set_manager(manager: AlertManager) -> AlertManager:
+    global _manager
+    with _manager_lock:
+        _manager = manager
+    return manager
+
+
+def reset_manager() -> None:
+    global _manager
+    with _manager_lock:
+        _manager = None
+
+
+def configure(conf) -> Optional[AlertManager]:
+    """Session-init wiring (called from `ops_server.configure` next to
+    the sampler and the history writer): hands the manager its conf.
+    Never a startup failure."""
+    try:
+        manager = get_manager()
+        manager.configure(conf)
+        return manager
+    except Exception:
+        import logging
+        logging.getLogger(__name__).warning(
+            "alert manager configuration failed; alerting disabled",
+            exc_info=True)
+        return None
+
+
+def on_tick(sampler, now: Optional[float] = None) -> None:
+    """The sampler's tick hook: evaluate every rule against this
+    tick's windows."""
+    m = _manager
+    if m is not None:
+        m.evaluate(sampler=sampler, now=now)
+
+
+def alerts_doc() -> dict:
+    """The `/alerts` payload (manager snapshot; a never-configured
+    manager still renders — empty incidents, default rule table)."""
+    return get_manager().snapshot()

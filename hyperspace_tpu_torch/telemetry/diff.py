@@ -1,0 +1,556 @@
+"""Regression attribution: diff two bench artifacts (or two
+`QueryMetrics` trees) and decompose each wall-clock delta into
+attributed buckets.
+
+The recorder captures what can EXPLAIN a regression — operator trees,
+link spans, build events, cache series, degradation events; this
+module consumes two rounds and says *why* one is slower. It is the
+JAX package's differ, unchanged in its arithmetic, so both packages
+attribute the same pair of artifacts identically. Given an old and a
+new artifact
+(canonical schema, `telemetry/artifact.py`), it aligns queries by name
+and operator nodes by tree path, and splits every query's wall delta
+into:
+
+- `compute`   — per-operator self-time movement net of link/compile/
+                device-dispatch (node-level deltas ride in the bucket
+                detail) — i.e. host-side OVERHEAD;
+- `device_bound` — measured device seconds of the instrumented entry
+                points (`device.dispatch_s`, CUDA events on a card),
+                with the modeled cost movement
+                (`device.{flops,bytes_accessed}`) as evidence;
+- `link`      — H2D/D2H seconds from the per-query `link.{h2d,d2h}_s`
+                counters (the transfer engine's chunk counters ride
+                along as evidence);
+- `compile`   — `compile.seconds` movement (library builds) + the
+                rebuild-cause events of the new run;
+- `plan`      — optimizer/planning seconds (`plan_s`);
+- `cache`     — cache-behavior evidence: per-query
+                `cache.<name>.{hits,misses,evictions}` deltas. Counted
+                in events, not seconds — the seconds a miss costs
+                already land in compute/link, so attributing them here
+                too would double-count;
+- `fallback`  — resilience degradation events (`resilience.fallbacks`,
+                `degraded`); evidence, not seconds, same reason;
+- `cancellation` — serving-plane interruptions: deadline/cancel events
+                with the phase they interrupted
+                (`serve.interrupted.<phase>` counters), so timeout
+                clusters name their phase instead of landing in
+                residual;
+- `framework_common` — LEGACY-artifact coarse attribution: the part of
+                the rules-on slowdown matching the rules-OFF lane's
+                relative slowdown. Both lanes share everything except
+                the index rewrite, so a shift both paid is environment
+                / framework-wide, not index-path work;
+- `residual`  — whatever the telemetry cannot attribute.
+
+Buckets are ranked by attributed magnitude; `dominant` names the
+biggest. `ArtifactDiff.format_tree()` renders the ranked attribution
+tree. `diff_trees()` diffs two raw `QueryMetrics` trees directly
+— a flight-recorder dump against a live re-run, say — without any
+artifact around them.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Dict, List, Optional
+
+__all__ = ["Bucket", "QueryDiff", "ArtifactDiff", "diff_artifacts",
+           "diff_trees"]
+
+# Evidence-only buckets attribute counts, never seconds (their cost is
+# already inside compute/link); they rank below any timed bucket.
+_EVIDENCE_BUCKETS = ("cache", "fallback", "cancellation")
+
+
+class Bucket:
+    """One attributed slice of a wall-clock delta."""
+
+    __slots__ = ("name", "seconds", "detail")
+
+    def __init__(self, name: str, seconds: float,
+                 detail: Optional[dict] = None):
+        self.name = name
+        self.seconds = float(seconds)
+        self.detail = detail or {}
+
+    def to_dict(self) -> dict:
+        d = {"name": self.name, "seconds": round(self.seconds, 4)}
+        if self.detail:
+            d["detail"] = self.detail
+        return d
+
+
+def _rollup(block) -> Optional[dict]:
+    """Normalize a telemetry block into one comparable shape.
+
+    Accepts a full `QueryMetrics.to_dict()` tree (operators as a LIST
+    of records with parent links — node alignment possible), a
+    `summary()` digest (operators as a per-name rollup dict), or a
+    `QueryMetrics` instance. Returns
+    {wall, per_op: {name: self_s}, nodes: {path: self_s} | None,
+     counters, events} or None when there is nothing to roll up."""
+    if block is None:
+        return None
+    if hasattr(block, "to_dict"):  # live QueryMetrics
+        block = block.to_dict()
+    if not isinstance(block, dict):
+        return None
+    ops = block.get("operators")
+    counters = dict(block.get("counters") or {})
+    events = list(block.get("events") or [])
+    wall = block.get("wall_s")
+    if isinstance(ops, list):
+        # Tree form: self time = wall minus direct children's walls.
+        child_s: Dict[Optional[int], float] = {}
+        for op in ops:
+            child_s[op.get("parent_id")] = \
+                child_s.get(op.get("parent_id"), 0.0) \
+                + float(op.get("wall_s") or 0.0)
+        per_op: Dict[str, float] = {}
+        nodes: Dict[str, float] = {}
+        # Path = name#occurrence under the parent — stable across runs
+        # of the same plan, insensitive to op_id numbering.
+        paths: Dict[Optional[int], str] = {None: ""}
+        sibling_seen: Dict[tuple, int] = {}
+        for op in ops:
+            parent = op.get("parent_id")
+            name = op.get("name", "?")
+            k = (parent, name)
+            idx = sibling_seen.get(k, 0)
+            sibling_seen[k] = idx + 1
+            path = f"{paths.get(parent, '?')}/{name}#{idx}"
+            paths[op.get("op_id")] = path
+            self_s = max(float(op.get("wall_s") or 0.0)
+                         - child_s.get(op.get("op_id"), 0.0), 0.0)
+            per_op[name] = per_op.get(name, 0.0) + self_s
+            nodes[path] = nodes.get(path, 0.0) + self_s
+        return {"wall": wall, "per_op": per_op, "nodes": nodes,
+                "counters": counters, "events": events}
+    if isinstance(ops, dict):  # summary form
+        per_op = {name: float(ent.get("self_s") or 0.0)
+                  for name, ent in ops.items()}
+        return {"wall": wall, "per_op": per_op, "nodes": None,
+                "counters": counters, "events": events}
+    if counters or wall is not None:
+        return {"wall": wall, "per_op": {}, "nodes": None,
+                "counters": counters, "events": events}
+    return None
+
+
+def _counter(roll: Optional[dict], *names: str) -> float:
+    if not roll:
+        return 0.0
+    return sum(float(roll["counters"].get(n, 0.0)) for n in names)
+
+
+def _cache_deltas(old: Optional[dict], new: Optional[dict]) -> dict:
+    out: Dict[str, float] = {}
+    keys = set()
+    for roll in (old, new):
+        if roll:
+            keys.update(k for k in roll["counters"]
+                        if k.startswith("cache."))
+    for k in sorted(keys):
+        d = _counter(new, k) - _counter(old, k)
+        if d:
+            out[k] = round(d, 4)
+    return out
+
+
+class QueryDiff:
+    """Attribution of ONE aligned query's wall-clock delta."""
+
+    def __init__(self, name: str, old_wall: Optional[float],
+                 new_wall: Optional[float]):
+        self.name = name
+        self.old_wall = old_wall
+        self.new_wall = new_wall
+        self.buckets: List[Bucket] = []
+        self.notes: List[str] = []
+
+    @property
+    def delta(self) -> Optional[float]:
+        if self.old_wall is None or self.new_wall is None:
+            return None
+        return self.new_wall - self.old_wall
+
+    @property
+    def ratio(self) -> Optional[float]:
+        if not self.old_wall or self.new_wall is None:
+            return None
+        return self.new_wall / self.old_wall
+
+    def ranked(self) -> List[Bucket]:
+        timed = [b for b in self.buckets
+                 if b.name not in _EVIDENCE_BUCKETS]
+        evid = [b for b in self.buckets if b.name in _EVIDENCE_BUCKETS]
+        timed.sort(key=lambda b: -abs(b.seconds))
+        return timed + evid
+
+    @property
+    def dominant(self) -> Optional[str]:
+        """Largest attributed bucket, or None when nothing moved."""
+        for b in self.ranked():
+            if abs(b.seconds) > 1e-9:
+                return b.name
+        return None
+
+    def to_dict(self) -> dict:
+        return {
+            "query": self.name,
+            "old_wall_s": self.old_wall,
+            "new_wall_s": self.new_wall,
+            "delta_s": (round(self.delta, 4)
+                        if self.delta is not None else None),
+            "ratio": (round(self.ratio, 3)
+                      if self.ratio is not None else None),
+            "dominant": self.dominant,
+            "buckets": [b.to_dict() for b in self.ranked()],
+            "notes": list(self.notes),
+        }
+
+
+def _attribute_from_rollups(qd: QueryDiff, old: Optional[dict],
+                            new: Optional[dict]) -> None:
+    """Telemetry-based decomposition. Sums exactly:
+    delta = plan + compute + link + compile + device_bound + residual
+    (compute is the operator self-time movement net of the link/
+    compile/device-dispatch seconds that happened inside operators —
+    no double counting; what remains in `compute` is host-side
+    overhead, the other half of the device-bound-vs-overhead split)."""
+    link_d = (_counter(new, "link.h2d_s", "link.d2h_s")
+              - _counter(old, "link.h2d_s", "link.d2h_s"))
+    compile_d = (_counter(new, "compile.seconds")
+                 - _counter(old, "compile.seconds"))
+    device_d = (_counter(new, "device.dispatch_s")
+                - _counter(old, "device.dispatch_s"))
+    plan_d = _counter(new, "plan_s") - _counter(old, "plan_s")
+    self_d = (sum((new or {}).get("per_op", {}).values())
+              - sum((old or {}).get("per_op", {}).values()))
+    compute_d = self_d - link_d - compile_d - device_d
+    delta = qd.delta if qd.delta is not None else self_d + plan_d
+    residual = delta - plan_d - self_d
+
+    compute_detail: dict = {}
+    old_nodes = (old or {}).get("nodes")
+    new_nodes = (new or {}).get("nodes")
+    if old_nodes is not None and new_nodes is not None:
+        moves = {p: round(new_nodes.get(p, 0.0) - old_nodes.get(p, 0.0), 4)
+                 for p in set(old_nodes) | set(new_nodes)}
+        top = sorted(moves.items(), key=lambda kv: -abs(kv[1]))[:5]
+        compute_detail["top_node_deltas"] = {p: d for p, d in top if d}
+    else:
+        per = {n: round((new or {}).get("per_op", {}).get(n, 0.0)
+                        - (old or {}).get("per_op", {}).get(n, 0.0), 4)
+               for n in set((old or {}).get("per_op", {}))
+               | set((new or {}).get("per_op", {}))}
+        top = sorted(per.items(), key=lambda kv: -abs(kv[1]))[:5]
+        compute_detail["top_operator_deltas"] = {n: d for n, d in top if d}
+
+    link_detail = {}
+    for k in ("link.h2d_bytes", "link.d2h_bytes"):
+        d = _counter(new, k) - _counter(old, k)
+        if d:
+            link_detail[k] = int(d)
+    compile_detail: dict = {
+        "traces": int(_counter(new, "compile.traces")
+                      - _counter(old, "compile.traces"))}
+    retraces = [e for e in (new or {}).get("events", [])
+                if e.get("category") == "compile"
+                and e.get("name") == "retrace"
+                and e.get("cause") != "first trace"]
+    if retraces:
+        compile_detail["retrace_causes"] = [
+            {"target": e.get("target"), "cause": e.get("cause")}
+            for e in retraces[:5]]
+
+    # Device-bound vs overhead: the measured device seconds the
+    # instrumented entry points charged (`device.dispatch_s`) move in
+    # their own bucket, with the MODELED cost movement (flops / bytes)
+    # as evidence — "the chip did 2x the flops" and "the chip
+    # did the same flops slower" are different regressions.
+    device_detail: dict = {}
+    for k in ("device.flops", "device.bytes_accessed"):
+        d = _counter(new, k) - _counter(old, k)
+        if d:
+            device_detail[k] = round(d, 1)
+
+    qd.buckets.append(Bucket("compute", compute_d, compute_detail))
+    qd.buckets.append(Bucket("link", link_d, link_detail))
+    qd.buckets.append(Bucket("compile", compile_d, compile_detail))
+    qd.buckets.append(Bucket("device_bound", device_d, device_detail))
+    qd.buckets.append(Bucket("plan", plan_d))
+    qd.buckets.append(Bucket("residual", residual))
+
+    caches = _cache_deltas(old, new)
+    qd.buckets.append(Bucket("cache", 0.0, caches or {}))
+    fallbacks = int(_counter(new, "resilience.fallbacks")
+                    - _counter(old, "resilience.fallbacks"))
+    degraded = [e for e in (new or {}).get("events", [])
+                if e.get("category") == "resilience"]
+    qd.buckets.append(Bucket(
+        "fallback", 0.0,
+        {"fallbacks": fallbacks,
+         "events": degraded[:3]} if (fallbacks or degraded) else {}))
+
+    # Serving-plane interruptions: a deadline/cancellation event is
+    # recorded WITH the phase it interrupted (scan/operator/stage/
+    # transfer/write — `serve.interrupted.<phase>` counters + `serve`
+    # events), so a cluster of timeouts attributes to its phase bucket
+    # here instead of polluting `residual` — "q64 times out in
+    # transfer" is actionable, "q64 got slower somehow" is not.
+    serve_detail: dict = {}
+    phases = {}
+    for roll, sign in ((old, -1), (new, +1)):
+        for k, v in ((roll or {}).get("counters") or {}).items():
+            if k.startswith("serve.interrupted."):
+                phase = k.split(".", 2)[2]
+                phases[phase] = phases.get(phase, 0) + sign * int(v)
+    phases = {p: d for p, d in phases.items() if d}
+    if phases:
+        serve_detail["interrupted_by_phase"] = phases
+    serve_events = [e for e in (new or {}).get("events", [])
+                    if e.get("category") == "serve"
+                    and e.get("name") in ("cancelled",
+                                          "deadline_exceeded",
+                                          "rejected")]
+    if serve_events:
+        serve_detail["events"] = serve_events[:3]
+    qd.buckets.append(Bucket("cancellation", 0.0, serve_detail))
+
+
+def _attribute_legacy(qd: QueryDiff, old_entry: dict,
+                      new_entry: dict) -> None:
+    """Coarse per-lane attribution when per-query telemetry is absent
+    (legacy rounds): the rules-OFF lane runs the same engine minus the
+    index rewrite, so the slowdown BOTH lanes paid is framework/
+    environment-common; only the remainder is index-path-specific."""
+    old_off = old_entry.get("rules_off_s")
+    new_off = new_entry.get("rules_off_s")
+    delta = qd.delta or 0.0
+    common = 0.0
+    detail: dict = {}
+    if old_off and new_off and qd.old_wall:
+        off_ratio = new_off / old_off
+        common = qd.old_wall * (off_ratio - 1.0)
+        detail = {"rules_off_s": [old_off, new_off],
+                  "rules_off_ratio": round(off_ratio, 3)}
+        qd.notes.append(
+            f"rules-off lane moved x{off_ratio:.2f} "
+            f"({old_off:.1f}s -> {new_off:.1f}s): shared framework/"
+            "environment cost, not index-path work")
+    qd.buckets.append(Bucket("framework_common", common, detail))
+    qd.buckets.append(Bucket("residual", delta - common))
+    old_cpu = old_entry.get("pandas_s")
+    new_cpu = new_entry.get("pandas_s")
+    if old_cpu and new_cpu:
+        qd.notes.append(
+            f"pandas baseline moved x{new_cpu / old_cpu:.2f} "
+            f"({old_cpu:.1f}s -> {new_cpu:.1f}s) — vs_baseline shifts "
+            "independently of the framework's own wall")
+    qd.notes.append("no per-query telemetry in at least one artifact "
+                    "(legacy round): attribution is per-lane only")
+
+
+def _entry_block(entry: dict):
+    """Best telemetry block in a per-query artifact entry: the full
+    tree when the round committed one, else the summary digest."""
+    return entry.get("tree") or entry.get("metrics")
+
+
+def _tree_critpath(tree) -> Optional[dict]:
+    if isinstance(tree, dict):
+        return tree.get("critical_path")
+    return getattr(tree, "critical_path", None)
+
+
+def diff_trees(old_tree, new_tree, name: str = "query") -> QueryDiff:
+    """Diff two `QueryMetrics` trees (instances or `to_dict()` dicts)
+    directly — e.g. a flight-recorder dump against a live re-run.
+    When both trees carry a stamped critical-path decomposition
+    (`telemetry/critical_path.py`), the biggest segment movements ride
+    along as a note: the differ's bucket attribution and the anatomy's
+    closed-set view of the same delta, side by side."""
+    old_roll = _rollup(old_tree)
+    new_roll = _rollup(new_tree)
+    qd = QueryDiff(name,
+                   (old_roll or {}).get("wall"),
+                   (new_roll or {}).get("wall"))
+    _attribute_from_rollups(qd, old_roll, new_roll)
+    old_cp, new_cp = _tree_critpath(old_tree), _tree_critpath(new_tree)
+    if old_cp and new_cp:
+        deltas = {
+            seg: (new_cp.get("segments", {}).get(seg, 0.0)
+                  - old_cp.get("segments", {}).get(seg, 0.0))
+            for seg in (set(old_cp.get("segments", {}))
+                        | set(new_cp.get("segments", {})))}
+        movers = sorted(deltas.items(), key=lambda kv: -abs(kv[1]))[:3]
+        if movers and any(abs(d) > 1e-9 for _, d in movers):
+            qd.notes.append(
+                "critical path moved: " + ", ".join(
+                    f"{seg} {d:+.4f}s" for seg, d in movers
+                    if abs(d) > 1e-9))
+    return qd
+
+
+def _diff_query_entry(name: str, old_entry: dict,
+                      new_entry: dict) -> QueryDiff:
+    old_roll = _rollup(_entry_block(old_entry))
+    new_roll = _rollup(_entry_block(new_entry))
+    old_wall = old_entry.get("rules_on_s",
+                             (old_roll or {}).get("wall"))
+    new_wall = new_entry.get("rules_on_s",
+                             (new_roll or {}).get("wall"))
+    qd = QueryDiff(name, old_wall, new_wall)
+    if old_roll and new_roll:
+        _attribute_from_rollups(qd, old_roll, new_roll)
+    else:
+        _attribute_legacy(qd, old_entry, new_entry)
+    return qd
+
+
+class ArtifactDiff:
+    """Attribution of a whole round-over-round artifact pair."""
+
+    def __init__(self, old_doc: dict, new_doc: dict,
+                 old_name: str = "old", new_name: str = "new"):
+        self.old_name = old_name
+        self.new_name = new_name
+        self.old_vs_baseline = old_doc.get("vs_baseline")
+        self.new_vs_baseline = new_doc.get("vs_baseline")
+        self.old_value = old_doc.get("value")
+        self.new_value = new_doc.get("value")
+        self.metric = new_doc.get("metric") or old_doc.get("metric")
+        self.queries: List[QueryDiff] = []
+        self.only_old: List[str] = []
+        self.only_new: List[str] = []
+        self.notes: List[str] = []
+
+        old_q = old_doc.get("queries") or {}
+        new_q = new_doc.get("queries") or {}
+        # bench.py artifacts carry rungs instead of queries; their
+        # device_s walls and metrics digests diff the same way.
+        if not old_q and not new_q:
+            old_q = {k: self._rung_entry(v)
+                     for k, v in (old_doc.get("rungs") or {}).items()}
+            new_q = {k: self._rung_entry(v)
+                     for k, v in (new_doc.get("rungs") or {}).items()}
+        for name in sorted(set(old_q) | set(new_q)):
+            if name not in old_q:
+                self.only_new.append(name)
+                continue
+            if name not in new_q:
+                self.only_old.append(name)
+                continue
+            self.queries.append(
+                _diff_query_entry(name, old_q[name], new_q[name]))
+
+        self._environment_notes(old_doc, new_doc)
+
+    @staticmethod
+    def _rung_entry(rung: dict) -> dict:
+        entry = dict(rung)
+        if "rules_on_s" not in entry and "device_s" in entry:
+            entry["rules_on_s"] = entry["device_s"]
+        if "pandas_s" not in entry and "cpu_s" in entry:
+            entry["pandas_s"] = entry["cpu_s"]
+        return entry
+
+    def _environment_notes(self, old_doc: dict, new_doc: dict) -> None:
+        op = (old_doc.get("link_probe") or {})
+        np_ = (new_doc.get("link_probe") or {})
+        if op.get("h2d_mb_s") and np_.get("h2d_mb_s"):
+            self.notes.append(
+                f"link probe: h2d {op['h2d_mb_s']} -> "
+                f"{np_['h2d_mb_s']} MB/s, sync floor "
+                f"{op.get('sync_latency_s')} -> "
+                f"{np_.get('sync_latency_s')}s")
+        for doc, label in ((old_doc, self.old_name),
+                           (new_doc, self.new_name)):
+            if doc.get("legacy"):
+                self.notes.append(
+                    f"{label} is a migrated legacy round: no telemetry "
+                    "sections; attribution is per-lane only")
+        ot, nt = old_doc.get("platform"), new_doc.get("platform")
+        if ot and nt and ot != nt:
+            self.notes.append(
+                f"PLATFORM CHANGED {ot} -> {nt}: walls are not "
+                "hardware-comparable; read ratios, not seconds")
+        os_, ns = old_doc.get("scale"), new_doc.get("scale")
+        if os_ is not None and ns is not None and os_ != ns:
+            self.notes.append(
+                f"SCALE CHANGED {os_} -> {ns}: walls are not "
+                "workload-comparable; read ratios, not seconds")
+
+    def ranked_queries(self) -> List[QueryDiff]:
+        return sorted(self.queries,
+                      key=lambda q: -abs(q.delta or 0.0))
+
+    def to_dict(self) -> dict:
+        return {
+            "old": self.old_name,
+            "new": self.new_name,
+            "metric": self.metric,
+            "vs_baseline": [self.old_vs_baseline, self.new_vs_baseline],
+            "value": [self.old_value, self.new_value],
+            "queries": [q.to_dict() for q in self.ranked_queries()],
+            "only_in_old": self.only_old,
+            "only_in_new": self.only_new,
+            "notes": list(self.notes),
+        }
+
+    def to_json(self, indent: Optional[int] = 2) -> str:
+        return json.dumps(self.to_dict(), indent=indent, default=str)
+
+    def format_tree(self) -> str:
+        lines = [f"Attribution: {self.old_name} -> {self.new_name}"]
+        if self.old_vs_baseline is not None \
+                and self.new_vs_baseline is not None:
+            ch = (self.new_vs_baseline / self.old_vs_baseline - 1.0
+                  if self.old_vs_baseline else 0.0)
+            lines.append(
+                f"  headline vs_baseline {self.old_vs_baseline:.3f} -> "
+                f"{self.new_vs_baseline:.3f} ({ch:+.1%})")
+        if isinstance(self.old_value, (int, float)) \
+                and isinstance(self.new_value, (int, float)):
+            lines.append(f"  {self.metric or 'value'} "
+                         f"{self.old_value:.3f} -> {self.new_value:.3f}")
+        for note in self.notes:
+            lines.append(f"  note: {note}")
+        for qd in self.ranked_queries():
+            head = f"+- {qd.name}"
+            if qd.old_wall is not None and qd.new_wall is not None:
+                head += (f"  {qd.old_wall:.3f}s -> {qd.new_wall:.3f}s"
+                         f"  ({qd.delta:+.3f}s"
+                         + (f", x{qd.ratio:.2f}" if qd.ratio else "")
+                         + ")")
+            if qd.dominant:
+                head += f"  dominant: {qd.dominant}"
+            lines.append(head)
+            for b in qd.ranked():
+                detail = ""
+                if b.detail:
+                    detail = "  " + json.dumps(b.detail, default=str,
+                                               sort_keys=True)
+                    if len(detail) > 140:
+                        detail = detail[:137] + "..."
+                lines.append(f"   +- {b.name:16s} {b.seconds:+9.3f}s"
+                             f"{detail}")
+            for note in qd.notes:
+                lines.append(f"   |  note: {note}")
+        for name in self.only_old:
+            lines.append(f"+- {name}  (only in {self.old_name})")
+        for name in self.only_new:
+            lines.append(f"+- {name}  (only in {self.new_name})")
+        return "\n".join(lines)
+
+
+def diff_artifacts(old_doc: dict, new_doc: dict, old_name: str = "old",
+                   new_name: str = "new") -> ArtifactDiff:
+    """Diff two canonical (or migrated) artifact documents. Callers
+    loading from disk should go through `telemetry.artifact.load` so
+    command envelopes are unwrapped and legacy rounds are explicit."""
+    return ArtifactDiff(old_doc, new_doc, old_name=old_name,
+                        new_name=new_name)

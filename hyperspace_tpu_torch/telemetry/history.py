@@ -1,0 +1,552 @@
+"""Durable on-lake telemetry history: trend memory that survives the
+process.
+
+Every other observability surface — registry, sampler ring, flight
+recorder — is in-process and evaporates on exit, so trend questions
+("is warm p99 creeping week over week?", "when did the cache hit rate
+collapse?") need a record that outlives the process. The source paper's core discipline is
+that ALL index data and metadata live on the lake with no side
+services; telemetry history is metadata and gets the same treatment:
+
+- **Writer** — `TelemetryHistory.flush()` assembles one append-only,
+  schema-versioned SEGMENT document (registry snapshot, the sampler
+  samples since the previous flush, a flight-ring digest, and any incidents the alert manager handed over) and
+  publishes it atomically (tmp + rename via
+  `file_utils.atomic_publish`, the action-report discipline — a
+  reader never sees a torn segment from a live writer) under
+  `spark.hyperspace.telemetry.history.dir`
+  (default `<warehouse>/.hyperspace_telemetry`). The sampler's tick
+  hook calls `maybe_flush()` (interval-gated); incident capture calls
+  `flush(reason="incident")` immediately. Old segments are pruned by
+  age (`history.keep.seconds`) and by total byte budget
+  (`history.keep.bytes`), oldest first — the same keep-N discipline as
+  the slowlog dumps, but budgeted in time and bytes because history is
+  long-lived.
+- **Reader** — `read_segments()` loads every segment in a directory,
+  SKIPPING unparseable files (a crash mid-write before the rename
+  leaves a `.tmp` the reader never selects; a torn file from a foreign
+  writer is skipped and counted, never fatal) and `merge()` folds
+  segments from any number of process lifetimes into one
+  time-ordered view (samples ordered by wall time, incidents
+  deduplicated by id, per-process provenance retained).
+- **CLI** — `python -m hyperspace_tpu_torch.telemetry.history report
+  [--dir D] [--window S] [--series NAME] [--baseline ARTIFACT]`
+  renders per-series windows and rate deltas from the merged history,
+  and regression vs a named baseline round (a committed canonical
+  bench artifact: its `process_metrics` counters against the history's
+  latest cumulative values).
+
+This module is the ONE place history segments are written. The
+segment format is the JAX package's (`kind`
+"hyperspace-telemetry-history", `SCHEMA_VERSION` 1), so either package
+merges the other's segments; the serving plane's SLO snapshot, which
+the JAX package adds to each segment, waits for a scheduler here.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+from hyperspace_tpu_torch.telemetry import registry as _registry
+
+__all__ = ["TelemetryHistory", "get_history", "set_history",
+           "reset_history", "configure", "read_segments", "merge",
+           "trend_report", "SCHEMA_VERSION", "SEGMENT_PREFIX"]
+
+SCHEMA_VERSION = 1
+SEGMENT_PREFIX = "history-"
+SEGMENT_KIND = "hyperspace-telemetry-history"
+
+DEFAULT_INTERVAL_S = 60.0
+DEFAULT_KEEP_SECONDS = 7 * 24 * 3600.0
+DEFAULT_KEEP_BYTES = 64 * 1024 * 1024
+
+
+def _file_size(path: str) -> int:
+    try:
+        return os.path.getsize(path)
+    except OSError:
+        from hyperspace_tpu_torch.utils import storage
+        if storage.is_url(path):
+            try:
+                fs, real = storage.get_fs(path)
+                return int(fs.size(real))
+            except Exception:
+                return 0
+        return 0
+
+
+class TelemetryHistory:
+    """The segment writer: one per process (`get_history()`), flushed
+    from the sampler's tick hook. Every public method swallows its own
+    failures into `history.flush_errors` — losing a history segment
+    must never cost a query."""
+
+    def __init__(self, directory: str,
+                 interval_s: float = DEFAULT_INTERVAL_S,
+                 keep_seconds: float = DEFAULT_KEEP_SECONDS,
+                 keep_bytes: int = DEFAULT_KEEP_BYTES):
+        self.directory = directory
+        self.interval_s = max(1.0, float(interval_s))
+        self.keep_seconds = float(keep_seconds)
+        self.keep_bytes = int(keep_bytes)
+        self._lock = threading.Lock()
+        self._seq = 0
+        self._last_flush_t: Optional[float] = None
+        self._last_sample_seq = 0
+
+    # -- writing ---------------------------------------------------------
+
+    def maybe_flush(self, conf=None, now: Optional[float] = None
+                    ) -> Optional[str]:
+        """Interval-gated flush (the tick hook's entry point): writes a
+        segment only when `interval_s` has elapsed since the last one.
+        Returns the segment path when one was written."""
+        now = time.time() if now is None else float(now)
+        with self._lock:
+            due = (self._last_flush_t is None
+                   or now - self._last_flush_t >= self.interval_s)
+        if not due:
+            return None
+        return self.flush(conf=conf, reason="interval", now=now)
+
+    def flush(self, conf=None, reason: str = "manual",
+              now: Optional[float] = None,
+              incidents: Optional[List[dict]] = None) -> Optional[str]:
+        """Write one segment NOW (incident capture and `close()` call
+        this directly). Returns the published path, or None on failure
+        (counted `history.flush_errors`, never raised)."""
+        reg = _registry.get_registry()
+        now = time.time() if now is None else float(now)
+        try:
+            doc = self._segment_doc(conf, reason, now, incidents)
+            with self._lock:
+                self._seq += 1
+                seq = self._seq
+                self._last_flush_t = now
+            fname = (f"{SEGMENT_PREFIX}{int(now * 1000)}-"
+                     f"{os.getpid()}-{seq:06d}.json")
+            path = os.path.join(self.directory, fname)
+            from hyperspace_tpu_torch.utils import file_utils
+            file_utils.create_directory(self.directory)
+            file_utils.atomic_publish(path, json.dumps(doc, default=str))
+            self._prune(now)
+            reg.counter("history.flushes").inc()
+            reg.gauge("history.last_flush_t").set(now)
+            return path
+        except Exception:
+            reg.counter("history.flush_errors").inc()
+            import logging
+            logging.getLogger(__name__).warning(
+                "telemetry history flush failed", exc_info=True)
+            return None
+
+    def _segment_doc(self, conf, reason: str, now: float,
+                     incidents: Optional[List[dict]]) -> dict:
+        from hyperspace_tpu_torch.telemetry import timeseries as _timeseries
+        sampler = _timeseries.get_sampler()
+        with self._lock:
+            since_seq = self._last_sample_seq
+        samples = sampler.samples(since_seq=since_seq)
+        if samples:
+            with self._lock:
+                self._last_sample_seq = max(
+                    self._last_sample_seq,
+                    max(s.get("seq") or 0 for s in samples))
+        doc: dict = {
+            "kind": SEGMENT_KIND,
+            "schema_version": SCHEMA_VERSION,
+            "written_at": round(now, 3),
+            "pid": os.getpid(),
+            "reason": reason,
+            "registry": _registry.get_registry().to_dict(),
+            "samples": samples,
+        }
+        try:
+            doc["flight"] = self._flight_digest()
+        except Exception as exc:
+            doc["flight"] = {"error": repr(exc)}
+        if incidents:
+            doc["incidents"] = list(incidents)
+        return doc
+
+    @staticmethod
+    def _flight_digest(recent: int = 8) -> dict:
+        """A compact digest of the flight ring — enough to correlate a
+        history window with the queries that flew through it, without
+        persisting full operator trees every minute."""
+        from hyperspace_tpu_torch.telemetry import flight
+        rec = flight.get_recorder()
+        entries = []
+        for qm in rec.queries(n=recent):
+            entries.append({
+                "description": getattr(qm, "description", None),
+                "flight_seq": getattr(qm, "flight_seq", None),
+                "wall_s": getattr(qm, "wall_s", None),
+                "tenant": getattr(qm, "tenant", None),
+            })
+        return {"ring": len(rec), "last_seq": rec.last_seq,
+                "recent": entries}
+
+    # -- pruning ---------------------------------------------------------
+
+    def _prune(self, now: float) -> None:
+        """Keep-by-age then keep-by-byte-budget, oldest first. Segment
+        names embed the write-time millisecond, so ordering needs no
+        stat calls and multiple processes sharing a directory prune
+        consistently."""
+        reg = _registry.get_registry()
+        try:
+            names = sorted(
+                f for f in self._listdir()
+                if f.startswith(SEGMENT_PREFIX) and f.endswith(".json"))
+        except Exception:
+            return
+        stale: List[str] = []
+        if self.keep_seconds > 0:
+            cutoff_ms = int((now - self.keep_seconds) * 1000)
+            for f in names:
+                ms = self._name_ms(f)
+                if ms is not None and ms < cutoff_ms:
+                    stale.append(f)
+        survivors = [f for f in names if f not in set(stale)]
+        if self.keep_bytes > 0:
+            sizes = [(f, _file_size(os.path.join(self.directory, f)))
+                     for f in survivors]
+            total = sum(s for _f, s in sizes)
+            for f, s in sizes[:-1]:  # never prune the newest segment
+                if total <= self.keep_bytes:
+                    break
+                stale.append(f)
+                total -= s
+        from hyperspace_tpu_torch.utils import file_utils
+        for f in stale:
+            try:
+                file_utils.delete(os.path.join(self.directory, f))
+                reg.counter("history.segments_pruned").inc()
+            except Exception:
+                pass  # concurrent pruner got it first
+
+    def _listdir(self) -> List[str]:
+        from hyperspace_tpu_torch.utils import storage
+        if storage.is_url(self.directory):
+            return storage.listdir_names(self.directory)
+        try:
+            return os.listdir(self.directory)
+        except OSError:
+            return []
+
+    @staticmethod
+    def _name_ms(fname: str) -> Optional[int]:
+        try:
+            return int(fname[len(SEGMENT_PREFIX):].split("-", 1)[0])
+        except (ValueError, IndexError):
+            return None
+
+
+# ---------------------------------------------------------------------------
+# Reading + merging (any process, any replica)
+# ---------------------------------------------------------------------------
+
+
+def read_segments(directory: str) -> Tuple[List[dict], int]:
+    """Every parseable segment in `directory`, ordered by
+    `written_at`, plus the count of files SKIPPED: `.tmp` leftovers of
+    a crashed writer are excluded by name, and a torn/foreign file
+    that fails to parse (or isn't a history segment) is skipped and
+    counted (`history.read_skipped`), never fatal — the crash-torn
+    final segment of a dead process must not poison the merge."""
+    from hyperspace_tpu_torch.utils import file_utils, storage
+    if storage.is_url(directory):
+        names = storage.listdir_names(directory)
+    else:
+        try:
+            names = os.listdir(directory)
+        except OSError:
+            names = []
+    segments: List[dict] = []
+    skipped = 0
+    for fname in sorted(names):
+        if not fname.startswith(SEGMENT_PREFIX) \
+                or not fname.endswith(".json"):
+            continue
+        path = os.path.join(directory, fname)
+        try:
+            doc = json.loads(file_utils.read_contents(path))
+            if doc.get("kind") != SEGMENT_KIND:
+                raise ValueError("not a history segment")
+        except Exception:
+            skipped += 1
+            continue
+        doc["_file"] = fname
+        segments.append(doc)
+    if skipped:
+        _registry.get_registry().counter("history.read_skipped").inc(
+            skipped)
+    segments.sort(key=lambda d: d.get("written_at") or 0)
+    return segments, skipped
+
+
+def merge(directory: str) -> dict:
+    """Merge every segment under `directory` — across process
+    lifetimes and replicas — into one time-ordered view: all samples
+    by wall time, incidents deduplicated by id (latest state wins:
+    a resolved incident supersedes its firing record), and the newest
+    registry snapshot per writing process."""
+    segments, skipped = read_segments(directory)
+    samples: List[dict] = []
+    incidents: Dict[str, dict] = {}
+    latest_registry: Dict[str, dict] = {}
+    writers: Dict[str, dict] = {}
+    for seg in segments:
+        pid = str(seg.get("pid"))
+        writers.setdefault(pid, {"segments": 0,
+                                 "first_written_at": seg.get("written_at")})
+        writers[pid]["segments"] += 1
+        writers[pid]["last_written_at"] = seg.get("written_at")
+        samples.extend(seg.get("samples") or [])
+        for inc in seg.get("incidents") or []:
+            iid = inc.get("id")
+            if iid is None:
+                continue
+            prev = incidents.get(iid)
+            if prev is None or (inc.get("resolved_at") or 0) >= \
+                    (prev.get("resolved_at") or 0):
+                incidents[iid] = inc
+        latest_registry[pid] = seg.get("registry") or {}
+    samples.sort(key=lambda s: s.get("t") or 0)
+    return {
+        "directory": directory,
+        "schema_version": SCHEMA_VERSION,
+        "segments": len(segments),
+        "skipped": skipped,
+        "writers": writers,
+        "samples": samples,
+        "incidents": sorted(incidents.values(),
+                            key=lambda i: i.get("opened_at") or 0),
+        "registry_by_pid": latest_registry,
+    }
+
+
+def trend_report(merged: dict, window_s: float = 300.0,
+                 series: Optional[List[str]] = None,
+                 baseline: Optional[dict] = None) -> dict:
+    """Per-series trends over the merged history: for each counter,
+    the rate over the trailing `window_s` next to the all-history
+    rate (the delta is the trend); for each histogram, windowed
+    p50/p90/p99. `baseline` (a canonical bench artifact dict) adds a
+    regression section: the history's latest cumulative counters vs
+    the round's committed `process_metrics`."""
+    from hyperspace_tpu_torch.telemetry.timeseries import (delta_buckets,
+                                                     quantile_from_buckets)
+    samples = merged.get("samples") or []
+    out: dict = {"window_s": window_s, "samples": len(samples),
+                 "counters": {}, "histograms": {},
+                 "incidents": len(merged.get("incidents") or [])}
+    if not samples:
+        return out
+    latest = samples[-1]
+    t_end = latest.get("t") or 0
+    t0 = t_end - window_s
+    base = None          # newest sample at or before the window start
+    first = samples[0]
+    for s in samples:
+        if (s.get("t") or 0) <= t0:
+            base = s
+        else:
+            break
+    names = set()
+    for s in (first, base or first, latest):
+        names.update((s.get("counters") or {}).keys())
+    if series:
+        wanted = set(series)
+        names = {n for n in names if n in wanted
+                 or any(n.startswith(w) for w in wanted)}
+    for name in sorted(names):
+        now_v = (latest.get("counters") or {}).get(name, 0.0)
+        first_v = (first.get("counters") or {}).get(name, 0.0)
+        span = max((latest.get("t") or 0) - (first.get("t") or 0), 1e-9)
+        overall = max(0.0, now_v - first_v) / span
+        row = {"value": round(now_v, 6),
+               "overall_rate": round(overall, 6)}
+        if base is not None:
+            base_v = (base.get("counters") or {}).get(name, 0.0)
+            covered = max(t_end - (base.get("t") or 0), 1e-9)
+            wrate = max(0.0, now_v - base_v) / covered
+            row["window_rate"] = round(wrate, 6)
+            row["rate_delta"] = round(wrate - overall, 6)
+        out["counters"][name] = row
+    hist_names = set((latest.get("histograms") or {}).keys())
+    if series:
+        wanted = set(series)
+        hist_names = {n for n in hist_names if n in wanted
+                      or any(n.startswith(w) for w in wanted)}
+    for name in sorted(hist_names):
+        new_st = _parse_hist((latest.get("histograms") or {}).get(name))
+        old_st = _parse_hist(((base or {}).get("histograms")
+                              or {}).get(name)) if base else None
+        buckets = delta_buckets(new_st, old_st)
+        count = sum(buckets.values())
+        if not count:
+            continue
+        out["histograms"][name] = {
+            "count": count,
+            "p50": quantile_from_buckets(buckets, 0.50),
+            "p90": quantile_from_buckets(buckets, 0.90),
+            "p99": quantile_from_buckets(buckets, 0.99),
+        }
+    if baseline is not None:
+        base_counters = baseline.get("process_metrics") or {}
+        reg = {}
+        for name in sorted(set(base_counters)
+                           & set((latest.get("counters") or {}))):
+            old_v = float(base_counters.get(name) or 0.0)
+            new_v = float((latest.get("counters") or {}).get(name, 0.0))
+            if old_v == 0.0 and new_v == 0.0:
+                continue
+            reg[name] = {"baseline": round(old_v, 6),
+                         "history": round(new_v, 6),
+                         "change": (round(new_v / old_v, 4)
+                                    if old_v else None)}
+        out["vs_baseline"] = {
+            "metric": baseline.get("metric"),
+            "driver": baseline.get("driver"),
+            "counters": reg,
+        }
+    return out
+
+
+def _parse_hist(st: Optional[dict]) -> dict:
+    """A sample's serialized histogram (`to_dict` form: string bucket
+    keys, "-inf" for the non-positive bucket) back into the
+    `bucket_state()` shape `delta_buckets` subtracts."""
+    if not st:
+        return {"count": 0, "sum": 0.0, "buckets": {}}
+    buckets: Dict[Optional[int], int] = {}
+    for key, n in (st.get("buckets") or {}).items():
+        buckets[None if key == "-inf" else int(key)] = n
+    return {"count": st.get("count", 0), "sum": st.get("sum", 0.0),
+            "buckets": buckets}
+
+
+# ---------------------------------------------------------------------------
+# Process-wide writer + session wiring
+# ---------------------------------------------------------------------------
+
+_history: Optional[TelemetryHistory] = None
+_history_lock = threading.Lock()
+
+
+def get_history() -> Optional[TelemetryHistory]:
+    """The process history writer, or None when never configured."""
+    return _history
+
+
+def set_history(history: Optional[TelemetryHistory]
+                ) -> Optional[TelemetryHistory]:
+    """Install a specific writer (tests: fresh directory/intervals)."""
+    global _history
+    with _history_lock:
+        _history = history
+    return history
+
+
+def reset_history() -> None:
+    set_history(None)
+
+
+def configure(conf) -> Optional[TelemetryHistory]:
+    """Session-init wiring (called from `ops_server.configure` next to
+    the sampler): installs the process writer when
+    `telemetry.history.enabled` is true. Failures degrade to a warning
+    — history must never be a startup failure."""
+    global _history
+    try:
+        if conf is None or not conf.telemetry_history_enabled:
+            return _history
+        with _history_lock:
+            if _history is None:
+                _history = TelemetryHistory(
+                    directory=conf.telemetry_history_dir,
+                    interval_s=conf.telemetry_history_interval_seconds,
+                    keep_seconds=conf.telemetry_history_keep_seconds,
+                    keep_bytes=conf.telemetry_history_keep_bytes)
+            else:
+                _history.directory = conf.telemetry_history_dir
+                _history.interval_s = max(
+                    1.0, conf.telemetry_history_interval_seconds)
+                _history.keep_seconds = \
+                    conf.telemetry_history_keep_seconds
+                _history.keep_bytes = conf.telemetry_history_keep_bytes
+            return _history
+    except Exception:
+        import logging
+        logging.getLogger(__name__).warning(
+            "telemetry history configuration failed; durable history "
+            "disabled", exc_info=True)
+        return None
+
+
+def on_tick(conf=None, now: Optional[float] = None) -> None:
+    """The sampler's tick hook: interval-gated flush through the
+    process writer (no-op until `configure` installed one)."""
+    h = _history
+    if h is not None:
+        h.maybe_flush(conf=conf, now=now)
+
+
+# ---------------------------------------------------------------------------
+# CLI: python -m hyperspace_tpu_torch.telemetry.history report
+# ---------------------------------------------------------------------------
+
+
+def _main(argv: List[str]) -> int:
+    import argparse
+    parser = argparse.ArgumentParser(
+        prog="python -m hyperspace_tpu_torch.telemetry.history",
+        description="Render trends from on-lake telemetry history.")
+    sub = parser.add_subparsers(dest="cmd")
+    rep = sub.add_parser("report", help="merged trend report")
+    rep.add_argument("--dir", default=None,
+                     help="history directory (default: "
+                          "<warehouse>/.hyperspace_telemetry via conf)")
+    rep.add_argument("--window", type=float, default=300.0,
+                     help="trailing window seconds (default 300)")
+    rep.add_argument("--series", action="append", default=None,
+                     help="series name or prefix filter (repeatable)")
+    rep.add_argument("--baseline", default=None,
+                     help="canonical bench artifact to regress against")
+    args = parser.parse_args(argv)
+    if args.cmd != "report":
+        parser.print_help()
+        return 2
+    directory = args.dir
+    if directory is None:
+        from hyperspace_tpu_torch.config import HyperspaceConf
+        directory = HyperspaceConf().telemetry_history_dir
+    baseline = None
+    if args.baseline:
+        from hyperspace_tpu_torch.telemetry import artifact
+        baseline = artifact.load(args.baseline, migrate_legacy=True)
+    merged = merge(directory)
+    report = trend_report(merged, window_s=args.window,
+                          series=args.series, baseline=baseline)
+    report["directory"] = directory
+    report["segments"] = merged["segments"]
+    report["skipped_segments"] = merged["skipped"]
+    report["writers"] = merged["writers"]
+    report["incident_list"] = [
+        {k: i.get(k) for k in ("id", "rule", "state", "opened_at",
+                               "resolved_at", "value", "threshold")}
+        for i in merged.get("incidents") or []]
+    print(json.dumps(report, indent=1, default=str))
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+    sys.exit(_main(sys.argv[1:]))

@@ -52,11 +52,18 @@ def _stats_sample() -> Optional[Dict[str, Tuple[int, int]]]:
     if not torch.cuda.is_available():
         return None
     out: Dict[str, Tuple[int, int]] = {}
+    initialized = torch.cuda.is_initialized()
     for i in range(torch.cuda.device_count()):
-        st = torch.cuda.memory_stats(i)
-        in_use = int(st.get("allocated_bytes.all.current", 0))
-        out[f"cuda:{i}"] = (in_use,
-                            int(st.get("allocated_bytes.all.peak", in_use)))
+        # The allocator's nested counters, read directly: this runs up to
+        # every SAMPLE_MIN_INTERVAL_S under a query recorder, and
+        # `torch.cuda.memory_stats` flattens every counter in Python
+        # first, several times the cost of the read itself. Its values
+        # are these (`allocated_bytes.all.current` / `.peak`); like it,
+        # an uninitialized CUDA context reads as empty.
+        st = (torch._C._cuda_memoryStats(i)["allocated_bytes"]["all"]
+              if initialized else {})
+        in_use = int(st.get("current", 0))
+        out[f"cuda:{i}"] = (in_use, int(st.get("peak", in_use)))
     return out or None
 
 

@@ -114,6 +114,16 @@ class Histogram:
             self.min = v if self.min is None else min(self.min, v)
             self.max = v if self.max is None else max(self.max, v)
 
+    def bucket_state(self) -> dict:
+        """Raw cumulative state for delta math (`telemetry/
+        timeseries.py`): bucket counts keyed by the log2 EXPONENT (None
+        = the non-positive bucket), not the rendered upper bound —
+        subtracting two states bucket-by-bucket yields the interval's
+        observation histogram, which is what makes the sliding-window
+        quantiles mergeable."""
+        with self._lock:
+            return {"count": self.count, "sum": self.sum,
+                    "buckets": dict(self._buckets)}
 
     def to_dict(self) -> dict:
         buckets = {("0" if exp is None else repr(float(2 ** exp))): n
@@ -222,6 +232,25 @@ class MetricsRegistry:
         """Counters only — the compact form bench artifacts embed."""
         return self.to_dict()["counters"]
 
+    def series_snapshot(self) -> dict:
+        """Raw series state for the timeseries sampler: unrounded
+        counter/gauge values and full `bucket_state()` histograms, in
+        one pass (one lock acquisition for the metric map; each
+        histogram state is read under the shared metric lock)."""
+        with self._lock:
+            metrics = dict(self._metrics)
+        counters: Dict[str, float] = {}
+        gauges: Dict[str, float] = {}
+        hists: Dict[str, dict] = {}
+        for name, m in metrics.items():
+            if isinstance(m, Counter):
+                counters[name] = m.value
+            elif isinstance(m, Gauge):
+                gauges[name] = m.value
+            else:
+                hists[name] = m.bucket_state()
+        return {"counters": counters, "gauges": gauges,
+                "histograms": hists}
 
     def to_text(self) -> str:
         """Prometheus text exposition format (the `/metrics` payload a

@@ -1,0 +1,558 @@
+"""Rolling time-series telemetry: the operations plane's time axis.
+
+Every telemetry surface before this module is snapshot-shaped — the
+registry accumulates since process start, `QueryMetrics` covers one
+query, bench artifacts cover one round — so "what is p99 over the last
+60 seconds, and is it getting worse?" was unanswerable. This module is
+the flight-recorder discipline applied to the registry itself: a
+background sampler (one daemon thread, `drain()`-able, atexit-stopped —
+the same lifecycle as the slow-dump lane in `telemetry/flight.py`)
+snapshots SELECTED registry series on a fixed interval into a bounded
+ring, and derives from consecutive samples what cumulative metrics
+cannot express:
+
+- **counter rates** — per-interval and trailing-window deltas divided
+  by elapsed time (`window.<counter>.rate` gauges; a scraper gets the
+  same numbers from `/metrics` cumulative counters, an in-process
+  consumer gets them here without one);
+- **histogram interval deltas** — the registry's log2-bucketed
+  histograms are cumulative; subtracting two samples bucket-by-bucket
+  yields the interval's own observation histogram;
+- **mergeable sliding-window quantiles** — summing interval deltas
+  over the trailing window and walking the cumulative bucket counts
+  gives p50/p90/p99 of the last N seconds, published as
+  `window.<series>.{p50,p90,p99,count}` gauges. A log2 bucket bounds
+  the answer to within 2x: the reported quantile is the UPPER bound of
+  the bucket holding the q-th windowed observation, so
+  `true <= reported < 2 * true` — exactly the contract
+  the tests pin against a brute-force oracle.
+
+The ring itself is the `/timeseries` payload of the ops server
+(`telemetry/ops_server.py`). Everything is in-process and pull-based —
+the source paper keeps all index state on the lake with no side
+services, and the operations plane keeps that discipline: no agent,
+no push gateway, nothing to deploy next to the engine. The selection,
+the window math and the gauge names are the JAX package's.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+import time
+from collections import deque
+from typing import Dict, List, Optional, Tuple
+
+from hyperspace_tpu_torch.telemetry import registry as _registry
+
+__all__ = ["TimeSeriesSampler", "get_sampler", "set_sampler",
+           "reset_sampler", "quantile_from_buckets", "delta_buckets"]
+
+# Default selection. Histograms get sliding-window quantile gauges;
+# counters matching the prefixes ride the ring (rates derivable by any
+# consumer); WINDOW_RATE_COUNTERS additionally publish a
+# `window.<name>.rate` gauge each tick.
+DEFAULT_HISTOGRAMS = ("query.wall_s", "serve.queue_wait_s")
+# Histogram names are dynamic when a dimension is embedded in them
+# (`tenant.<id>.query_wall_s`): prefixes select those the same way the
+# counter prefixes do, since the exact names cannot be enumerated ahead
+# of the tenants existing.
+DEFAULT_HISTOGRAM_PREFIXES = ("tenant.",)
+DEFAULT_COUNTER_PREFIXES = ("queries.", "serve.", "compile.", "link.",
+                            "cache.segments.", "resilience.", "flight.",
+                            "device.", "rules.served.", "spmd.",
+                            "tenant.", "critpath.")
+WINDOW_RATE_COUNTERS = ("queries.total", "serve.admitted",
+                        "serve.rejected", "serve.slo.violations",
+                        "serve.slo.shed", "compile.traces")
+DEFAULT_GAUGE_PREFIXES = ("serve.",)
+WINDOW_QUANTILES = (0.50, 0.90, 0.99)
+
+DEFAULT_INTERVAL_S = 1.0
+DEFAULT_CAPACITY = 600          # 10 minutes at 1 Hz
+DEFAULT_WINDOW_S = 60.0
+
+
+def quantile_from_buckets(buckets: Dict[Optional[int], int], q: float
+                          ) -> Optional[float]:
+    """The q-quantile of a log2-bucket histogram: the UPPER bound of
+    the bucket containing the ceil(q * count)-th observation (None =
+    empty). Upper bound, deliberately: every observation v in a bucket
+    satisfies upper/2 < v <= upper, so the reported quantile never
+    understates the true one and overstates it by strictly less than
+    2x — the conservative direction for an SLO consumer."""
+    count = sum(n for n in buckets.values() if n > 0)
+    if count <= 0:
+        return None
+    target = max(1, math.ceil(q * count))
+    cum = 0
+    for exp in sorted((e for e in buckets), key=lambda e: (
+            -(10 ** 9) if e is None else e)):
+        n = buckets.get(exp, 0)
+        if n <= 0:
+            continue
+        cum += n
+        if cum >= target:
+            return 0.0 if exp is None else float(2 ** exp)
+    return None  # unreachable: cum == count >= target
+
+
+def delta_buckets(new: dict, old: Optional[dict]
+                  ) -> Dict[Optional[int], int]:
+    """Per-interval observation histogram: `new` minus `old` bucket
+    state (both `Histogram.bucket_state()` shapes; old=None means
+    everything is new). Negative deltas (a registry reset between
+    samples) clamp to zero."""
+    nb = new.get("buckets") or {}
+    ob = (old or {}).get("buckets") or {}
+    return {exp: max(0, n - ob.get(exp, 0)) for exp, n in nb.items()
+            if n - ob.get(exp, 0) > 0}
+
+
+def _merge_buckets(into: Dict[Optional[int], int],
+                   more: Dict[Optional[int], int]) -> None:
+    for exp, n in more.items():
+        into[exp] = into.get(exp, 0) + n
+
+
+class _Sample:
+    """One tick: wall time, the selected cumulative series, and the
+    per-interval derivations against the previous tick."""
+
+    __slots__ = ("t", "dt", "counters", "gauges", "hists", "rates",
+                 "interval", "seq")
+
+    def __init__(self, t: float, dt: Optional[float], counters, gauges,
+                 hists, rates, interval, seq: int = 0):
+        self.t = t
+        self.dt = dt
+        self.counters = counters   # {name: cumulative value}
+        self.gauges = gauges       # {name: value}
+        self.hists = hists         # {name: bucket_state()}
+        self.rates = rates         # {name: per-second rate this interval}
+        self.interval = interval   # {name: {count, p50, p99, sum_s}}
+        self.seq = seq             # monotonic per-sampler tick number
+
+    def to_dict(self) -> dict:
+        hists = {}
+        for name, st in self.hists.items():
+            hists[name] = {
+                "count": st["count"], "sum": round(st["sum"], 6),
+                "buckets": {("-inf" if exp is None else str(exp)): n
+                            for exp, n in sorted(
+                                st["buckets"].items(),
+                                key=lambda kv: (-(10 ** 9)
+                                                if kv[0] is None
+                                                else kv[0]))}}
+        return {
+            "t": round(self.t, 3),
+            "seq": self.seq,
+            "dt_s": round(self.dt, 6) if self.dt is not None else None,
+            "counters": {k: round(v, 6)
+                         for k, v in sorted(self.counters.items())},
+            "gauges": {k: round(v, 6)
+                       for k, v in sorted(self.gauges.items())},
+            "histograms": hists,
+            "rates": {k: round(v, 4)
+                      for k, v in sorted(self.rates.items())},
+            "interval": self.interval,
+        }
+
+
+class TimeSeriesSampler:
+    """Background registry sampler + sliding-window math (module
+    docstring). One per process (`get_sampler()`); `start()` spawns the
+    daemon thread, `tick()` samples once synchronously (what the tests
+    and the ops server's freshness path call), `drain()` stops the
+    thread and joins it — idempotent, and the atexit hook calls it so
+    interpreter teardown never races a mid-tick sampler."""
+
+    def __init__(self, interval_s: float = DEFAULT_INTERVAL_S,
+                 capacity: int = DEFAULT_CAPACITY,
+                 window_s: float = DEFAULT_WINDOW_S,
+                 histograms: Tuple[str, ...] = DEFAULT_HISTOGRAMS,
+                 counter_prefixes: Tuple[str, ...]
+                 = DEFAULT_COUNTER_PREFIXES,
+                 gauge_prefixes: Tuple[str, ...]
+                 = DEFAULT_GAUGE_PREFIXES,
+                 histogram_prefixes: Tuple[str, ...]
+                 = DEFAULT_HISTOGRAM_PREFIXES):
+        self.interval_s = max(0.01, float(interval_s))
+        self.window_s = max(self.interval_s, float(window_s))
+        self.histograms = tuple(histograms)
+        self.histogram_prefixes = tuple(histogram_prefixes)
+        self.counter_prefixes = tuple(counter_prefixes)
+        self.gauge_prefixes = tuple(gauge_prefixes)
+        self._ring: deque = deque(maxlen=max(2, int(capacity)))
+        self._lock = threading.Lock()
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        self._prev: Optional[_Sample] = None
+        self._seq = 0              # advances on every tick, never rewinds
+        self.conf = None           # set by configure(); the tick hooks'
+        #                            conf (alerts/history need one)
+
+    # -- lifecycle -------------------------------------------------------
+
+    def start(self) -> bool:
+        """Start the background thread (True iff started now; False =
+        already running). Restartable after `drain()`."""
+        with self._lock:
+            if self._thread is not None and self._thread.is_alive():
+                return False
+            self._stop.clear()
+            self._thread = threading.Thread(
+                target=self._run, name="hs-timeseries", daemon=True)
+            self._thread.start()
+        _registry.get_registry().counter("timeseries.starts").inc()
+        return True
+
+    @property
+    def running(self) -> bool:
+        t = self._thread
+        return t is not None and t.is_alive()
+
+    def drain(self) -> None:
+        """Stop the sampler thread and join it (idempotent). The ring
+        and its derived gauges stay readable after a drain — draining
+        stops the clock, it does not erase history."""
+        self._stop.set()
+        t = self._thread
+        if t is not None and t is not threading.current_thread():
+            t.join(timeout=5.0)
+        with self._lock:
+            if self._thread is t:
+                self._thread = None
+
+    def clear(self) -> None:
+        """Empty the ring and forget the previous sample (test
+        isolation)."""
+        with self._lock:
+            self._ring.clear()
+            self._prev = None
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            try:
+                self.tick()
+            except Exception:
+                # The sampler must never take the process down; count
+                # and keep ticking.
+                _registry.get_registry().counter(
+                    "timeseries.tick_errors").inc()
+
+    # -- sampling --------------------------------------------------------
+
+    def _selected(self, snap: dict):
+        counters = {k: v for k, v in snap["counters"].items()
+                    if k.startswith(self.counter_prefixes)}
+        gauges = {k: v for k, v in snap["gauges"].items()
+                  if k.startswith(self.gauge_prefixes)
+                  and not k.startswith("window.")}
+        hists = {k: v for k, v in snap["histograms"].items()
+                 if k in self.histograms
+                 or (self.histogram_prefixes
+                     and k.startswith(self.histogram_prefixes))}
+        return counters, gauges, hists
+
+    def tick(self, t: Optional[float] = None) -> dict:
+        """Take one sample NOW: snapshot the selected series, derive
+        interval rates/deltas against the previous sample, append to
+        the ring, and refresh the `window.*` gauges. Returns the
+        sample as a dict (what `/timeseries` serves per entry). `t`
+        overrides the wall clock for deterministic tests."""
+        now = time.time() if t is None else float(t)
+        snap = _registry.get_registry().series_snapshot()
+        counters, gauges, hists = self._selected(snap)
+        with self._lock:
+            prev = self._prev
+            dt = (now - prev.t) if prev is not None else None
+            rates: Dict[str, float] = {}
+            interval: Dict[str, dict] = {}
+            if dt is not None and dt > 0:
+                for name, v in counters.items():
+                    d = v - prev.counters.get(name, 0.0)
+                    if d:
+                        rates[name] = d / dt
+            for name, st in hists.items():
+                db = delta_buckets(st, prev.hists.get(name)
+                                   if prev is not None else None)
+                dc = sum(db.values())
+                if dc:
+                    interval[name] = {
+                        "count": dc,
+                        "p50": quantile_from_buckets(db, 0.50),
+                        "p99": quantile_from_buckets(db, 0.99),
+                    }
+            self._seq += 1
+            sample = _Sample(now, dt, counters, gauges, hists, rates,
+                             interval, seq=self._seq)
+            self._ring.append(sample)
+            self._prev = sample
+        self._publish_window_gauges(now)
+        self._post_tick_hooks(now)
+        return sample.to_dict()
+
+    def _post_tick_hooks(self, now: float) -> None:
+        """Fan the fresh tick out to the incident plane — alert rule
+        evaluation and the interval-gated history flush — OUTSIDE the
+        sampler lock (both re-enter the window math). A hook failure
+        never breaks sampling: counted `timeseries.hook_errors` and
+        dropped."""
+        reg = _registry.get_registry()
+        try:
+            from hyperspace_tpu_torch.telemetry import alerts as _alerts
+            _alerts.on_tick(self, now=now)
+        except Exception:
+            reg.counter("timeseries.hook_errors").inc()
+        try:
+            from hyperspace_tpu_torch.telemetry import history as _history
+            _history.on_tick(conf=self.conf, now=now)
+        except Exception:
+            reg.counter("timeseries.hook_errors").inc()
+
+    # -- window math -----------------------------------------------------
+
+    def _baseline(self, t0: float) -> Optional[_Sample]:
+        """The newest sample at or before `t0` (the window's start
+        state), or None when the whole ring is younger — the window
+        then covers everything recorded (delta against zero)."""
+        base = None
+        with self._lock:
+            for s in self._ring:
+                if s.t <= t0:
+                    base = s
+                else:
+                    break
+        return base
+
+    def _latest(self) -> Optional[_Sample]:
+        with self._lock:
+            return self._ring[-1] if self._ring else None
+
+    def window_buckets(self, name: str,
+                       window_s: Optional[float] = None,
+                       since_t: Optional[float] = None
+                       ) -> Tuple[Dict[Optional[int], int], float]:
+        """(merged observation buckets, covered seconds) of histogram
+        `name` over the trailing window — latest cumulative state minus
+        the state at the window start (merge = subtract cumulative
+        states; summing per-interval deltas gives the identical answer,
+        which is the mergeability the gauges rely on). `since_t` pins
+        the window start to an absolute time instead (bench scripts
+        isolating one phase)."""
+        latest = self._latest()
+        if latest is None:
+            return {}, 0.0
+        t0 = since_t if since_t is not None \
+            else latest.t - (window_s or self.window_s)
+        base = self._baseline(t0)
+        new = latest.hists.get(name)
+        if new is None:
+            return {}, 0.0
+        old = base.hists.get(name) if base is not None else None
+        covered = latest.t - (base.t if base is not None else t0)
+        return delta_buckets(new, old), max(covered, 0.0)
+
+    def window_quantile(self, name: str, q: float,
+                        window_s: Optional[float] = None,
+                        since_t: Optional[float] = None
+                        ) -> Optional[float]:
+        """Sliding-window q-quantile of histogram `name` (log2-bucket
+        upper bound; None = no observations in the window)."""
+        buckets, _cov = self.window_buckets(name, window_s=window_s,
+                                            since_t=since_t)
+        return quantile_from_buckets(buckets, q)
+
+    def window_rate(self, name: str,
+                    window_s: Optional[float] = None,
+                    since_t: Optional[float] = None) -> Optional[float]:
+        """Trailing-window per-second rate of counter `name` (None =
+        the window has no baseline AND no samples)."""
+        latest = self._latest()
+        if latest is None:
+            return None
+        t0 = since_t if since_t is not None \
+            else latest.t - (window_s or self.window_s)
+        base = self._baseline(t0)
+        now_v = latest.counters.get(name, 0.0)
+        then_v = base.counters.get(name, 0.0) if base is not None else 0.0
+        elapsed = latest.t - (base.t if base is not None else t0)
+        if elapsed <= 0:
+            return None
+        return max(0.0, now_v - then_v) / elapsed
+
+    def window_delta(self, name: str,
+                     window_s: Optional[float] = None,
+                     since_t: Optional[float] = None
+                     ) -> Tuple[float, float]:
+        """(raw counter delta, covered seconds) of counter `name` over
+        the trailing window — the absolute-change primitive the alert
+        rules' delta/ratio/trend predicates are built on (a rate hides
+        "exactly one breaker opened"). covered == 0 means the ring had
+        nothing to diff against."""
+        latest = self._latest()
+        if latest is None:
+            return 0.0, 0.0
+        t0 = since_t if since_t is not None \
+            else latest.t - (window_s or self.window_s)
+        base = self._baseline(t0)
+        now_v = latest.counters.get(name, 0.0)
+        then_v = base.counters.get(name, 0.0) if base is not None else 0.0
+        elapsed = latest.t - (base.t if base is not None else t0)
+        return max(0.0, now_v - then_v), max(elapsed, 0.0)
+
+    def window_count(self, name: str,
+                     window_s: Optional[float] = None) -> int:
+        buckets, _cov = self.window_buckets(name, window_s=window_s)
+        return sum(buckets.values())
+
+    def _publish_window_gauges(self, now: float) -> None:
+        reg = _registry.get_registry()
+        latest = self._latest()
+        # The static selection plus whatever dynamic (prefix-selected,
+        # e.g. per-tenant) histograms the latest tick actually saw.
+        names = list(self.histograms)
+        if latest is not None:
+            names.extend(k for k in latest.hists
+                         if k not in self.histograms)
+        for name in names:
+            buckets, _cov = self.window_buckets(name)
+            count = sum(buckets.values())
+            if not count:
+                continue
+            reg.gauge(f"window.{name}.count").set(count)
+            for q in WINDOW_QUANTILES:
+                v = quantile_from_buckets(buckets, q)
+                if v is not None:
+                    reg.gauge(
+                        f"window.{name}.p{int(q * 100)}").set(v)
+        for name in WINDOW_RATE_COUNTERS:
+            r = self.window_rate(name)
+            if r is not None:
+                reg.gauge(f"window.{name}.rate").set(r)
+        reg.gauge("timeseries.samples").set(len(self._ring))
+        reg.gauge("timeseries.last_sample_age_s").set(
+            max(0.0, time.time() - now))
+
+    # -- export ----------------------------------------------------------
+
+    @property
+    def last_seq(self) -> int:
+        """Highest tick sequence assigned so far (advances even past
+        samples the ring has since rotated out — the same global-cursor
+        contract as the flight recorder's `last_seq`)."""
+        with self._lock:
+            return self._seq
+
+    def samples(self, since_t: Optional[float] = None,
+                since_seq: Optional[int] = None) -> List[dict]:
+        """The ring as JSON-able dicts, oldest first. `since_t` keeps
+        only samples strictly after that time (the bench scripts'
+        phase isolation); `since_seq` keeps only ticks with a strictly
+        greater sequence (the incremental-scraper cursor)."""
+        with self._lock:
+            entries = list(self._ring)
+        return [s.to_dict() for s in entries
+                if (since_t is None or s.t > since_t)
+                and (since_seq is None or s.seq > since_seq)]
+
+    def snapshot(self, since_seq: Optional[int] = None) -> dict:
+        """The `/timeseries` payload: sampler config + the ring.
+        `since_seq` (the `?since=` query parameter) returns only ticks
+        newer than the caller's cursor; `last_seq` in the payload is
+        the cursor to hand back next poll — the flight recorder's
+        `snapshot(since_seq)` contract, applied to the sampler ring."""
+        return {
+            "interval_s": self.interval_s,
+            "window_s": self.window_s,
+            "capacity": self._ring.maxlen,
+            "running": self.running,
+            "histograms": list(self.histograms),
+            "last_seq": self.last_seq,
+            "samples": self.samples(since_seq=since_seq),
+        }
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._ring)
+
+
+# ---------------------------------------------------------------------------
+# Process-wide sampler
+# ---------------------------------------------------------------------------
+
+_sampler: Optional[TimeSeriesSampler] = None
+_sampler_lock = threading.Lock()
+
+
+def get_sampler() -> TimeSeriesSampler:
+    """THE process-wide sampler (sessions and the ops server share
+    it)."""
+    global _sampler
+    if _sampler is None:
+        with _sampler_lock:
+            if _sampler is None:
+                _sampler = TimeSeriesSampler()
+    return _sampler
+
+
+def set_sampler(sampler: TimeSeriesSampler) -> TimeSeriesSampler:
+    """Install a specific sampler (tests: fresh ring/config); the
+    previous one is drained first so no stray thread keeps ticking."""
+    global _sampler
+    with _sampler_lock:
+        old, _sampler = _sampler, sampler
+    if old is not None:
+        old.drain()
+    return sampler
+
+
+def reset_sampler() -> None:
+    global _sampler
+    with _sampler_lock:
+        old, _sampler = _sampler, None
+    if old is not None:
+        old.drain()
+
+
+def configure(conf) -> Optional[TimeSeriesSampler]:
+    """Session-init wiring: when the ops port is set, make sure the
+    process sampler exists with the conf's interval/capacity/window and
+    is running. Returns the sampler when (now) running, else None —
+    starting the operations plane is opt-in, never a startup failure."""
+    try:
+        if conf is None or conf.telemetry_ops_port is None:
+            return None
+        sampler = get_sampler()
+        sampler.conf = conf
+        if not sampler.running:
+            sampler.interval_s = max(0.01,
+                                     conf.timeseries_interval_seconds)
+            sampler.window_s = max(sampler.interval_s,
+                                   conf.serve_slo_window_seconds)
+            cap = max(2, conf.timeseries_capacity)
+            if sampler._ring.maxlen != cap:
+                with sampler._lock:
+                    sampler._ring = deque(sampler._ring, maxlen=cap)
+            sampler.start()
+        return sampler
+    except Exception:
+        import logging
+        logging.getLogger(__name__).warning(
+            "timeseries sampler configuration failed; operations plane "
+            "disabled", exc_info=True)
+        return None
+
+
+def _atexit_drain() -> None:
+    try:
+        if _sampler is not None:
+            _sampler.drain()
+    except Exception:
+        pass
+
+
+import atexit  # noqa: E402
+
+atexit.register(_atexit_drain)

@@ -169,6 +169,10 @@ def record_link_transfer(direction: str, nbytes: int, seconds: float,
     reg.counter(f"link.{direction}.chunks").inc(max(int(chunks), 1))
     reg.histogram(f"link.{direction}.bytes_per_transfer").observe(nbytes)
     from hyperspace_tpu_torch import telemetry
+    # Tenant chargeback at the ONE link seam: mirroring the global inc
+    # here keeps per-tenant link-byte sums exactly equal to the global
+    # `link.<dir>.bytes` counters.
+    telemetry.charge_tenant(f"link.{direction}.bytes", nbytes)
     telemetry.add_seconds(f"link.{direction}_s", seconds)
     telemetry.add_count(f"link.{direction}_bytes", int(nbytes))
     t = _tracer

@@ -573,3 +573,93 @@ def test_card_sketch_blob_equals_host_lane(card, tmp_path, nulls):
         path = tmp_path / lane / "indexes" / "sk" / "v__=0" / "_hs_sketches"
         blobs.append(path.read_bytes())
     assert blobs[0] == blobs[1]
+
+
+# -- the compile and launch seam (telemetry/compilation.py) -----------------
+
+def test_card_event_seconds_resolve_without_a_per_call_sync(card,
+                                                            monkeypatch):
+    from hyperspace_tpu_torch import telemetry
+
+    lanes = torch.randint(-2**31, 2**31 - 1, (2, 1 << 22),
+                          dtype=torch.int32, device=card)
+    from hyperspace_tpu_torch.telemetry import compilation
+
+    # Without a recorder: no events, the dispatch queued for counting.
+    compilation.resolve_pending()
+    hash_kernel.hash_lanes_to_buckets(lanes, 200)
+    assert [c[0] for c in compilation._pending] == [
+        "cuda.hash_lanes_to_buckets"]
+    assert compilation._pending[0][1] is None
+    before = telemetry.get_registry().counters_dict()
+    compilation.resolve_pending()
+    after = telemetry.get_registry().counters_dict()
+    assert after["device.dispatches"] - before.get(
+        "device.dispatches", 0) == 1
+    assert after["device.bytes_accessed"] - before.get(
+        "device.bytes_accessed", 0) == (1 << 22) * 12
+    torch.cuda.synchronize()
+    waits = []
+    real_sync = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **k: (waits.append(1),
+                                         real_sync(*a, **k))[1])
+    real_event_sync = torch.cuda.Event.synchronize
+    monkeypatch.setattr(torch.cuda.Event, "synchronize",
+                        lambda self: (waits.append(1),
+                                      real_event_sync(self))[1])
+    qm = telemetry.QueryMetrics("card")
+    with telemetry.recording(qm):
+        for _ in range(4):
+            hash_kernel.hash_lanes_to_buckets(lanes, 200)
+    assert waits == [] and len(qm._device_events) == 4
+    assert "device.dispatch_s" not in qm.counters
+    qm.finish()
+    assert waits and qm._device_events == []
+    assert qm.counters["device.dispatch_s"] > 0
+    roof = qm.roofline
+    assert roof["bytes_accessed"] == 4 * (1 << 22) * 12
+    assert 0 < roof["device_share"] <= 1
+
+
+def test_card_device_trace_names_the_hash_kernel(card, tmp_path):
+    import json as _json
+
+    from hyperspace_tpu_torch.telemetry import profiler
+
+    lanes = torch.randint(-2**31, 2**31 - 1, (2, 1 << 20),
+                          dtype=torch.int32, device=card)
+    with profiler.device_trace(str(tmp_path / "cap")):
+        hash_kernel.hash_lanes_to_buckets(lanes, 200)
+        torch.cuda.synchronize()
+    with open(tmp_path / "cap" / profiler.TRACE_FILE) as f:
+        kernels = [e["name"] for e in _json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel"]
+    assert any("hash_lanes_to_buckets_kernel" in k for k in kernels)
+
+
+def test_card_failed_nvcc_build_raises(card, tmp_path, monkeypatch):
+    from hyperspace_tpu_torch.exceptions import HyperspaceException
+    from hyperspace_tpu_torch.ops.cuda import build
+
+    (tmp_path / "broken.cu").write_text(
+        "__global__ void k( { }\n")
+    monkeypatch.setattr(build, "CSRC_DIR", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "out"))
+    monkeypatch.setattr(build, "SOURCES", {"broken": "broken.cu"})
+    with pytest.raises(HyperspaceException, match="nvcc failed"):
+        build.build_all(["broken"])
+    assert not [f for f in os.listdir(tmp_path / "out")
+                if f.endswith(".so")]
+
+
+def test_card_memory_sample_reads_the_allocators_counters(card):
+    from hyperspace_tpu_torch.telemetry import memory
+
+    held = torch.empty(1 << 20, dtype=torch.uint8, device="cuda")
+    torch.cuda.synchronize()
+    sample = memory._stats_sample()
+    st = torch.cuda.memory_stats(0)
+    assert sample["cuda:0"] == (st["allocated_bytes.all.current"],
+                                st["allocated_bytes.all.peak"])
+    assert sample["cuda:0"][0] >= held.numel()

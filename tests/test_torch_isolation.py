@@ -145,3 +145,23 @@ def test_kernel_wrapper_never_falls_back_on_a_non_cpu_tensor():
     lanes = torch.zeros((1, 4), dtype=torch.int32, device="meta")
     with pytest.raises(HyperspaceException):
         hash_kernel.hash_lanes_to_buckets(lanes, 8)
+
+
+TELEMETRY = os.path.join(PACKAGE, "telemetry")
+JAX_TELEMETRY = os.path.join(REPO, "hyperspace_tpu", "telemetry")
+
+
+def test_every_telemetry_module_of_the_jax_package_is_ported():
+    def modules(path):
+        return sorted(f for f in os.listdir(path) if f.endswith(".py"))
+
+    assert modules(TELEMETRY) == modules(JAX_TELEMETRY)
+
+
+@pytest.mark.parametrize("module", sorted(
+    f for f in os.listdir(TELEMETRY) if f.endswith(".py")))
+def test_telemetry_module_imports_neither_jax_nor_the_jax_package(module):
+    path = os.path.join(TELEMETRY, module)
+    assert [m for m in _imported_modules(path) if _forbidden(m)] == []
+    with open(path, encoding="utf-8") as f:
+        assert "jax.profiler" not in f.read()
