@@ -56,6 +56,16 @@ entry points:
   followed by a point lookup on the newest blob; and hybrid scan over a
   stale covering index whose appended branch the sketches prune away.
 
+- the serving plane (`phase_serve`): bench_serve.py's data and mix at
+  16,777,216 `facts` rows with a 200-bucket covering index on `g`, every
+  collect through the scheduler — a warm-up lap of the batch lane, closed
+  loops at 1 and 8 clients (QPS, percentiles, batch occupancy, each
+  cohort's `serve.batch` device ms), admission under a budget and a
+  rejected burst, an open-loop Poisson sweep, a tenants lap with join B
+  as the greedy tenant, an ingest lap with an incremental refresh, and a
+  chaos lap with injected faults; each result against its serial run,
+  itself against numpy.
+
 - device-side telemetry, over the filter index and the two right indexes
   of the join rung: the compile seam's counts of the nvcc and g++ builds
   and of the later loads; the range filter and joins A and B with their
@@ -556,16 +566,22 @@ def phase_query(sess, df, root, cols):
     emit("query", **out)
 
 
-def write_right_source(src_dir, seed):
+def right_columns(seed):
     """bench.py's join right side: `key` int64 uniform in [0, N_ROWS/4)
-    (the left key's range), `val` float64; N_RIGHT rows in N_FILES files."""
+    (the left key's range), `val` float64; N_RIGHT rows."""
     import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {"key": rng.integers(0, N_ROWS // 4, N_RIGHT).astype(np.int64),
+            "val": rng.random(N_RIGHT)}
+
+
+def write_right_source(src_dir, seed):
+    """`right_columns(seed)` in N_FILES files."""
     import pyarrow as pa
     import pyarrow.parquet as pq
 
-    rng = np.random.default_rng(seed)
-    cols = {"key": rng.integers(0, N_ROWS // 4, N_RIGHT).astype(np.int64),
-            "val": rng.random(N_RIGHT)}
+    cols = right_columns(seed)
     os.makedirs(src_dir)
     step = N_RIGHT // N_FILES
     for i in range(N_FILES):
@@ -1755,6 +1771,14 @@ def phase_telemetry(hs, sess, df, work, fresh):
     # the device events queued and resolved at finish, the critical path
     # and the flight ring) against the same optimized plan executed with
     # no recorder active (OVERHEAD_TURNS).
+    # What one `stat` costs on this host: the source projection every
+    # collect makes re-stats its files at most every
+    # `footprint.SCAN_BYTES_REVALIDATE_S`.
+    part = os.path.join(work, "src", "part-0.parquet")
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        os.stat(part)
+    stat_us = (time.perf_counter() - t0) * 1e3
     overhead = {}
     for name, turns in OVERHEAD_TURNS.items():
         frame = frames[name]
@@ -1782,7 +1806,8 @@ def phase_telemetry(hs, sess, df, work, fresh):
         check(overhead[name]["ratio"] <= OVERHEAD_LIMIT,
               f"telemetry {name}: the recorder costs {overhead[name]}")
     out["overhead"] = overhead
-    emit("telemetry_overhead", limit=OVERHEAD_LIMIT,
+    out["stat_us"] = stat_us
+    emit("telemetry_overhead", limit=OVERHEAD_LIMIT, stat_us=stat_us,
          **{k: {x: v[x] for x in ("turns", "recorder_ms", "none_ms",
                                   "ratio", "block_ratios")}
             for k, v in overhead.items()})
@@ -1841,7 +1866,7 @@ def phase_telemetry(hs, sess, df, work, fresh):
     finally:
         sess.conf.unset("spark.hyperspace.telemetry.slowlog.seconds")
         sess.conf.unset("spark.hyperspace.telemetry.slowlog.dir")
-    sess.close()
+    sess.flight_recorder().drain()  # the dump lands off the query's thread
     dumps = sorted(f for f in os.listdir(dump_dir) if f.startswith("slow-"))
     check(len(dumps) == 1, f"telemetry: slow-query dumps {dumps}")
     doc = flight.load_dump(os.path.join(dump_dir, dumps[0]))
@@ -1909,6 +1934,741 @@ def phase_telemetry(hs, sess, df, work, fresh):
         "diff": [{"query": q.name, "delta_s": q.delta,
                   "top": [(b.name, b.seconds) for b in q.ranked()[:3]]}
                  for q in delta.ranked_queries()]}
+    out["phase_s"] = time.perf_counter() - phase_t0
+    return out
+
+
+# -- the serving plane ---------------------------------------------------------
+
+SERVE_ROWS = 1 << 24            # facts rows (bench_serve.py's 50,000, scaled up)
+SERVE_FILES = 8
+SERVE_DIMS = SERVE_ROWS // 50   # 335,544 dims rows, bench_serve.py's ratio
+SERVE_QUERIES = 800             # per closed loop (1 client, then 8)
+SERVE_CLIENTS = 8
+SERVE_BURST = 16                # threads of the warm-up lap's burst
+SERVE_RATES = (0.5, 0.75, 1.0, 1.25, 1.5)   # x the serial QPS
+SERVE_OPEN_S = 6.0
+SERVE_OPEN_WORKERS = 64
+SERVE_SLO_MS = 150.0
+SERVE_TENANT_QUERIES = 240      # the victim tenant's point queries per lap
+SERVE_INGEST_FILES = 4
+SERVE_INGEST_ROWS = 1 << 20
+SERVE_CHAOS_QUERIES = 96
+
+
+def write_serve_source(work, seed=SEED + 9):
+    """bench_serve.py's `generate` at SERVE_ROWS: `facts` (k int64 in
+    [0, SERVE_DIMS), g int64 in [0, 32), v float64) in SERVE_FILES files
+    and `dims` (k, w float64, label string). Returns the columns."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rng = np.random.default_rng(seed)
+    facts = {"k": rng.integers(0, SERVE_DIMS, SERVE_ROWS).astype(np.int64),
+             "g": rng.integers(0, 32, SERVE_ROWS).astype(np.int64),
+             "v": rng.random(SERVE_ROWS)}
+    dims = {"k": np.arange(SERVE_DIMS, dtype=np.int64),
+            "w": rng.random(SERVE_DIMS)}
+    os.makedirs(os.path.join(work, "facts"))
+    os.makedirs(os.path.join(work, "dims"))
+    step = SERVE_ROWS // SERVE_FILES
+    for i in range(SERVE_FILES):
+        pq.write_table(pa.table({c: v[i * step:(i + 1) * step]
+                                 for c, v in facts.items()}),
+                       os.path.join(work, "facts", f"part-{i}.parquet"))
+    pq.write_table(pa.table({
+        **dims, "label": pa.array([f"d{i % 100}"
+                                   for i in range(SERVE_DIMS)])}),
+        os.path.join(work, "dims", "part-0.parquet"))
+    return facts, dims
+
+
+def serve_mix(sess, work):
+    """bench_serve.py's `build_workload`: 8 point lookups on `g`, two `v`
+    ranges and two `g` IN lists (one batch signature each, literals
+    free), an aggregate and a join."""
+    from hyperspace_tpu_torch import col, lit
+
+    facts = sess.read_parquet(os.path.join(work, "facts"))
+    dims = sess.read_parquet(os.path.join(work, "dims"))
+    mix = [(f"point_g{g}", facts.filter(col("g") == lit(g))
+            .select("k", "g", "v")) for g in range(8)]
+    for i, (lo, hi) in enumerate(((0.90, 0.95), (0.40, 0.45))):
+        mix.append((f"range_v{i}", facts.filter(
+            (col("v") > lit(lo)) & (col("v") <= lit(hi))).select("k", "v")))
+    mix.append(("in_g0", facts.filter(col("g").isin(3, 11, 19))
+                .select("k", "g")))
+    mix.append(("in_g1", facts.filter(col("g").isin(5, 21))
+                .select("k", "g")))
+    mix.append(("agg", facts.group_by("g").agg(("sum", "v", "total"),
+                                               cnt=("count", "*"))))
+    mix.append(("join", facts.join(dims, on="k").filter(col("w") > lit(0.5))
+                .group_by("g").agg(("avg", "v", "avg_v"))))
+    return mix
+
+
+def serve_oracle(name, facts, dims):
+    """numpy answer of one mix entry as {column: array}, rows in any
+    order (aggregates: one row per `g`, ascending)."""
+    import numpy as np
+
+    g, v = facts["g"], facts["v"]
+    if name.startswith("point_g"):
+        m = g == int(name[len("point_g"):])
+        return {"k": facts["k"][m], "g": g[m], "v": v[m]}
+    if name.startswith("range_v"):
+        lo, hi = ((0.90, 0.95), (0.40, 0.45))[int(name[-1])]
+        m = (v > lo) & (v <= hi)
+        return {"k": facts["k"][m], "v": v[m]}
+    if name.startswith("in_g"):
+        m = np.isin(g, (3, 11, 19) if name == "in_g0" else (5, 21))
+        return {"k": facts["k"][m], "g": g[m]}
+    if name == "agg":
+        keys = np.unique(g)
+        return {"g": keys,
+                "total": np.bincount(g, weights=v, minlength=32)[keys],
+                "cnt": np.bincount(g, minlength=32)[keys]}
+    m = dims["w"][facts["k"]] > 0.5
+    keys = np.unique(g[m])
+    return {"g": keys,
+            "avg_v": (np.bincount(g[m], weights=v[m], minlength=32)[keys]
+                      / np.bincount(g[m], minlength=32)[keys])}
+
+
+def table_digest(table):
+    """An order-insensitive exact digest of an Arrow table: its columns,
+    its row count, and two wrapping uint64 sums over per-row hashes of
+    the values' bits (so rows of equal values in any order digest
+    equal, and a changed, lost or re-paired value does not)."""
+    import numpy as np
+
+    cols = {n: table.column(n).to_numpy() for n in table.column_names}
+    return array_digest(cols)
+
+
+def array_digest(cols):
+    import numpy as np
+
+    names = list(cols)
+    n = len(cols[names[0]]) if names else 0
+    h = np.zeros(n, dtype=np.uint64)
+    with np.errstate(over="ignore"):
+        for i, name in enumerate(names):
+            a = np.ascontiguousarray(cols[name])
+            a = (a.astype(np.float64) if a.dtype.kind == "f"
+                 else a.astype(np.int64)).view(np.uint64)
+            h = (h * np.uint64(0x100000001B3)) ^ (
+                a * np.uint64(0x9E3779B97F4A7C15 + 2 * i))
+        return (tuple(names), n, int(h.sum(dtype=np.uint64)),
+                int((h * h).sum(dtype=np.uint64)))
+
+
+def percentiles(lats_s):
+    import numpy as np
+
+    if not lats_s:
+        return {"p50_ms": None, "p95_ms": None, "p99_ms": None}
+    a = np.asarray(lats_s) * 1e3
+    return {f"p{q}_ms": float(np.percentile(a, q)) for q in (50, 95, 99)}
+
+
+def closed_loop(mix, clients, total, tenant=None, metrics_out=None):
+    """`clients` threads drain `total` queries of `mix` round-robin, each
+    issuing its next the moment the previous returns. Returns (latencies,
+    [(name, table)], errors, wall seconds)."""
+    import threading
+
+    lats, produced, errors = [], [], []
+    nxt = [0]
+    lock = threading.Lock()
+    start = threading.Barrier(clients)
+
+    def client():
+        start.wait()  # every client's first query arrives together
+        while True:
+            with lock:
+                if nxt[0] >= total:
+                    return
+                qi = nxt[0]
+                nxt[0] += 1
+            name, frame = mix[qi % len(mix)]
+            t0 = time.perf_counter()
+            try:
+                table, m = frame.collect(with_metrics=True, tenant=tenant)
+            except Exception as exc:
+                with lock:
+                    errors.append(f"{name}: {exc!r}")
+                continue
+            wall = time.perf_counter() - t0
+            with lock:
+                lats.append(wall)
+                produced.append((name, table))
+                if metrics_out is not None:
+                    metrics_out.append(m)
+
+    threads = [threading.Thread(target=client, name=f"serve-{c}")
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    check(not any(th.is_alive() for th in threads),
+          "serve: a closed-loop client hung")
+    return lats, produced, errors, time.perf_counter() - t0
+
+
+def check_results(tag, produced, expected):
+    bad = [name for name, table in produced
+           if table_digest(table) != expected[name]]
+    check(not bad, f"serve {tag}: {len(bad)} results differ from their "
+                   f"serial runs ({sorted(set(bad))[:4]})")
+
+
+def open_loop(mix, qps, seconds, workers, seed):
+    """Poisson arrivals at `qps` for `seconds`, dispatched on schedule to
+    `workers` logical clients; latency counts from the SCHEDULED arrival.
+    Returns (latencies, produced, errors, achieved QPS)."""
+    import queue
+    import threading
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = max(1, int(qps * seconds))
+    arrivals = np.cumsum(rng.exponential(1.0 / qps, n))
+    q = queue.Queue()
+    lats, produced, errors = [], [], []
+    lock = threading.Lock()
+
+    def worker():
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            i, t_sched = item
+            name, frame = mix[i % len(mix)]
+            try:
+                table = frame.collect()
+            except Exception as exc:
+                with lock:
+                    errors.append(f"{name}: {exc!r}")
+                continue
+            done = time.perf_counter()
+            with lock:
+                lats.append(done - t_sched)
+                produced.append((name, table))
+
+    threads = [threading.Thread(target=worker) for _ in range(workers)]
+    for th in threads:
+        th.start()
+    t0 = time.perf_counter()
+    for i, at in enumerate(arrivals):
+        delay = t0 + at - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        q.put((i, t0 + at))
+    for _ in threads:
+        q.put(None)
+    for th in threads:
+        th.join(timeout=600)
+    check(not any(th.is_alive() for th in threads),
+          "serve: an open-loop client hung")
+    wall = time.perf_counter() - t0
+    return lats, produced, errors, len(lats) / wall
+
+
+def phase_serve(hs, sess, work, df, left_cols):
+    """The serving plane on the card, bench_serve.py's data and mix at
+    SERVE_ROWS = 16,777,216 `facts` rows (bench_serve.py generates
+    50,000 by default; this is a scale-up, its shapes unchanged) in
+    SERVE_FILES files, 335,544 `dims` rows, and one covering index
+    `facts_g` (indexed `g`, included `k, v`, 200 buckets: the hash
+    kernel builds it), so the point and IN entries are index-served
+    through pinned-version signatures. Every collect goes through the
+    scheduler. Seven laps, each result against the serial run of the
+    same query, itself checked against numpy once:
+
+    1. warm-up: `batcher.warmup(df)` on the batchable shapes, then a
+       SERVE_BURST-thread burst adding no library build and no
+       `compile.aot.errors`;
+    2. closed loop, 1 and then SERVE_CLIENTS clients, SERVE_QUERIES each:
+       QPS, percentiles, batch occupancy, each cohort's `serve.batch`
+       CUDA-event ms from the leaders' recorders, solo and batched Scan
+       bytes; no batch-lane or degradation fallback;
+    3. admission: a budget of twice the mix's largest projected footprint
+       (plus the idle baseline) queues without rejecting; a queue.depth+1
+       burst behind a held budget rejects with the typed error;
+    4. open loop: Poisson arrivals at SERVE_RATES x the serial QPS,
+       SERVE_OPEN_S each, SERVE_OPEN_WORKERS logical clients, latency
+       from the scheduled arrival; the highest rate with p99 <=
+       SERVE_SLO_MS;
+    5. tenants (bench_serve.py's `tenants_phase` shape): a victim's point
+       queries solo, then beside a greedy tenant running the join rung's
+       query B (the partition kernel) at `hbm.fraction` 0.25 and a tenant
+       with a 1 ms deadline; `tenant_report()` exact;
+    6. ingest: SERVE_INGEST_FILES files of SERVE_INGEST_ROWS rows land
+       while 4 clients query; `run_once()` refreshes `facts_g`
+       incrementally (the hash kernel); every query then equals numpy
+       over all files;
+    7. chaos: `tests/torch_chaos.py`'s `run_chaos` with transient
+       `parquet.read` and `transfer.put` faults: each query equals its
+       serial run or raises a typed serving error, no thread outlives
+       the lap."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from hyperspace_tpu_torch import IndexConfig, telemetry
+    from hyperspace_tpu_torch.engine import batcher as batcher_mod
+    from hyperspace_tpu_torch.engine import scheduler as sched_mod
+    from hyperspace_tpu_torch.exceptions import (QueryDeadlineExceededError,
+                                                 QueryRejectedError)
+    from hyperspace_tpu_torch.plan import footprint
+    from hyperspace_tpu_torch.utils import faults
+
+    reg = telemetry.get_registry()
+    phase_t0 = time.perf_counter()
+    out = {"facts_rows": SERVE_ROWS, "facts_files": SERVE_FILES,
+           "dims_rows": SERVE_DIMS,
+           "cut": None if SERVE_ROWS == 1 << 24 else
+           f"facts cut to {SERVE_ROWS} rows from 16777216"}
+    swork = os.path.join(work, "serve")
+    t0 = time.perf_counter()
+    facts, dims = write_serve_source(swork)
+    out["source_s"] = time.perf_counter() - t0
+    sess.conf.set("spark.hyperspace.index.num.buckets", "200")
+    t0 = time.perf_counter()
+    hs.create_index(sess.read_parquet(os.path.join(swork, "facts")),
+                    IndexConfig("facts_g", ["g"], ["k", "v"]))
+    out["index_build_s"] = time.perf_counter() - t0
+    was_enabled = sess.is_hyperspace_enabled
+    sess.enable_hyperspace()
+    mix = serve_mix(sess, swork)
+    names = [n for n, _ in mix]
+    sched = sched_mod.get_scheduler()
+
+    def counters(*keys):
+        c = reg.series_snapshot()["counters"]
+        return {k: c.get(k, 0) for k in keys}
+
+    # Serial runs: each against numpy (aggregates at rtol 1e-9: a
+    # device sum's order is not numpy's), then the digest every later
+    # run is held to.
+    expected, frames = {}, dict(mix)
+    solo_scan_bytes = {}
+    for name, frame in mix:
+        table, m = frame.collect(with_metrics=True)
+        want = serve_oracle(name, facts, dims)
+        if name in ("agg", "join"):
+            got = table.sort_by("g")
+            for c, w in want.items():
+                a = got.column(c).to_numpy()
+                check(len(a) == len(w) and (np.array_equal(a, w) if
+                                            a.dtype.kind in "iu" else
+                                            np.allclose(a, w, rtol=1e-9)),
+                      f"serve {name}: column {c} differs from numpy")
+        else:
+            check(table_digest(table) == array_digest(want),
+                  f"serve {name}: rows differ from numpy")
+        expected[name] = table_digest(table)
+        solo_scan_bytes[name] = sum(o.detail.get("bytes_scanned", 0)
+                                    for o in m.operators if o.name == "Scan")
+        if name.startswith(("point_", "in_")):
+            idx = [u["name"] for u in m.index_usage()]
+            check(idx == ["facts_g"], f"serve {name}: index usage {idx}")
+    out["solo_scan_bytes"] = solo_scan_bytes
+
+    # 1. Warm-up lap.
+    batchable = [frames[n] for n in ("point_g0", "range_v0", "in_g0")]
+    w0 = counters("compile.aot.warmups", "compile.aot.errors",
+                  "compile.traces")
+    t0 = time.perf_counter()
+    warmed = [batcher_mod.warmup(f) for f in batchable]
+    warm_s = time.perf_counter() - t0
+    burst_mix = [(n, frames[n]) for n in names
+                 if n.startswith(("point_", "range_", "in_"))]
+    b0 = counters("compile.traces", "compile.aot.errors",
+                  "serve.batch.invocations")
+    lats, produced, errors, _w = closed_loop(burst_mix, SERVE_BURST,
+                                             SERVE_BURST)
+    b1 = counters("compile.traces", "compile.aot.errors",
+                  "serve.batch.invocations", "compile.aot.warmups")
+    check(not errors, f"serve warm-up burst: {errors[:3]}")
+    check_results("warm-up burst", produced, expected)
+    check(b1["compile.traces"] == b0["compile.traces"]
+          and b1["compile.aot.errors"] == w0["compile.aot.errors"],
+          f"serve warm-up: builds {b1['compile.traces'] - b0['compile.traces']}"
+          f", aot errors {b1['compile.aot.errors'] - w0['compile.aot.errors']}")
+    out["warmup"] = {
+        "buckets_dispatched": warmed, "seconds": warm_s,
+        "aot_warmups": b1["compile.aot.warmups"]
+        - w0["compile.aot.warmups"],
+        "burst_invocations": b1["serve.batch.invocations"]
+        - b0["serve.batch.invocations"], **percentiles(lats)}
+
+    # 2. Closed loop.
+    loops = {}
+    keys = ("serve.batch.invocations", "serve.batch.members",
+            "serve.batch.fallbacks", "serve.batch.solo",
+            "resilience.fallbacks", "cache.segments.shared.reads")
+    for clients in (1, SERVE_CLIENTS):
+        c0 = counters(*keys)
+        ms = []
+        lats, produced, errors, wall = closed_loop(
+            mix, clients, SERVE_QUERIES, metrics_out=ms)
+        c1 = counters(*keys)
+        check(not errors, f"serve closed loop x{clients}: {errors[:3]}")
+        check_results(f"closed loop x{clients}", produced, expected)
+        delta = {k: c1[k] - c0[k] for k in keys}
+        cohorts = [m for m in ms if m.cohort and m.cohort.get("leader")]
+        loops[clients] = {
+            "qps": len(lats) / wall, "wall_s": wall, **percentiles(lats),
+            **delta,
+            "occupancy": (delta["serve.batch.members"]
+                          / delta["serve.batch.invocations"]
+                          if delta["serve.batch.invocations"] else None),
+            "cohorts": [{"size": m.cohort["size"],
+                         "serve_batch_ms": m.counters.get(
+                             "device.serve.batch.dispatch_s", 0.0) * 1e3,
+                         "scan_bytes": sum(
+                             o.detail.get("bytes_scanned", 0)
+                             for o in m.operators if o.name == "Scan")}
+                        for m in cohorts],
+            "dispatch_within_wall": all(
+                0 < m.counters.get("device.dispatch_s", 1e-9) <= m.wall_s
+                for m in ms if m.counters.get("device.dispatch_s"))}
+        check(delta["serve.batch.fallbacks"] == 0
+              and delta["resilience.fallbacks"] == 0,
+              f"serve closed loop x{clients}: fallbacks {delta}")
+        check(loops[clients]["dispatch_within_wall"],
+              f"serve closed loop x{clients}: a query's device seconds "
+              "exceed its wall")
+    multi = loops[SERVE_CLIENTS]
+    check(multi["occupancy"] is not None and multi["occupancy"] > 1,
+          f"serve: batch occupancy {multi['occupancy']}")
+    serial_qps = loops[1]["qps"]
+    out["closed_loop"] = {
+        "serial": loops[1], "concurrent": multi,
+        "clients": SERVE_CLIENTS, "queries": SERVE_QUERIES,
+        "ratio": multi["qps"] / serial_qps}
+
+    # 3. Admission.
+    fps = {n: footprint.projected_bytes(f.plan) for n, f in mix}
+    telemetry.memory.sample()
+    baseline = sched._idle_baseline
+    budget = 2 * max(fps.values()) + baseline
+    sess.conf.set("spark.hyperspace.serve.hbm.budget.bytes", str(budget))
+    try:
+        a0 = counters("serve.queued", "serve.rejected")
+        lats, produced, errors, wall = closed_loop(mix, SERVE_CLIENTS,
+                                                   2 * len(mix))
+        a1 = counters("serve.queued", "serve.rejected")
+        check(not errors, f"serve admission: {errors[:3]}")
+        check_results("admission", produced, expected)
+        check(a1["serve.queued"] > a0["serve.queued"]
+              and a1["serve.rejected"] == a0["serve.rejected"],
+              f"serve admission: queued "
+              f"{a1['serve.queued'] - a0['serve.queued']}, rejected "
+              f"{a1['serve.rejected'] - a0['serve.rejected']} (budget "
+              f"{budget}, baseline {baseline}, footprints {fps})")
+        # A budget that admits one query, held: depth + 1 arrivals.
+        depth = 4
+        sess.conf.set("spark.hyperspace.serve.hbm.budget.bytes",
+                      str(max(fps.values())))
+        sess.conf.set("spark.hyperspace.serve.queue.depth", str(depth))
+        holder = sched_mod._QueryEntry("serve-holder",
+                                       sched_mod.Deadline("serve-holder"),
+                                       max(fps.values()), None)
+        with sched._cv:
+            sched._active["serve-holder"] = holder
+            sched._grant(holder, reg)
+        outcomes = []
+        lock = threading.Lock()
+
+        def arrive(i):
+            name, frame = mix[i % 8]
+            try:
+                table = frame.collect()
+                r = ("ok", name, table)
+            except QueryRejectedError as exc:
+                r = ("rejected", exc.phase, None)
+            except Exception as exc:
+                r = ("error", repr(exc), None)
+            with lock:
+                outcomes.append(r)
+
+        threads = [threading.Thread(target=arrive, args=(i,))
+                   for i in range(depth + 1)]
+        for th in threads:
+            th.start()
+        for _ in range(2000):
+            with lock:
+                if outcomes:
+                    break
+            time.sleep(0.005)
+        sched._release(holder)
+        for th in threads:
+            th.join(timeout=300)
+        kinds = sorted(o[0] for o in outcomes)
+        check(kinds == ["ok"] * depth + ["rejected"]
+              and all(o[1] == "queue" for o in outcomes
+                      if o[0] == "rejected"),
+              f"serve admission burst: {[o[:2] for o in outcomes]}")
+        check_results("admission burst", [(o[1], o[2]) for o in outcomes
+                                          if o[0] == "ok"], expected)
+        out["admission"] = {
+            "budget_bytes": budget, "idle_baseline_bytes": baseline,
+            "largest_footprint_bytes": max(fps.values()),
+            "queued": a1["serve.queued"] - a0["serve.queued"],
+            "rejected": 0, "wall_s": wall, **percentiles(lats),
+            "burst": {"depth": depth, "outcomes": kinds}}
+    finally:
+        sess.conf.unset("spark.hyperspace.serve.hbm.budget.bytes")
+        sess.conf.unset("spark.hyperspace.serve.queue.depth")
+
+    # 4. Open loop.
+    rates = []
+    for i, frac in enumerate(SERVE_RATES):
+        qps = frac * serial_qps
+        lats, produced, errors, achieved = open_loop(
+            mix, qps, SERVE_OPEN_S, SERVE_OPEN_WORKERS, SEED + 100 + i)
+        check(not errors, f"serve open loop {frac}: {errors[:3]}")
+        check_results(f"open loop {frac}", produced, expected)
+        rates.append({"fraction": frac, "offered_qps": qps,
+                      "achieved_qps": achieved, "queries": len(lats),
+                      **percentiles(lats)})
+    within = [r for r in rates if r["p99_ms"] is not None
+              and r["p99_ms"] <= SERVE_SLO_MS]
+    out["open_loop"] = {
+        "rates": rates, "slo_ms": SERVE_SLO_MS,
+        "knee_qps": max((r["achieved_qps"] for r in within), default=None)}
+
+    # 5. Tenants.
+    hot = [(n, f) for n, f in mix if n.startswith("point_")]
+    # The join rung's query B: its 64-bucket right index re-bucketed to
+    # 200 through the Exchange (the partition kernel).
+    right = right_columns(SEED + 3)
+    join_b = (df.select("key", "id")
+              .join(sess.read_parquet(os.path.join(work, "right64"))
+                    .select("key", "val"), on="key")
+              .select("id", "val"))
+    from hyperspace_tpu_torch.engine.physical import plan_physical
+    tree = plan_physical(sess.optimize(join_b.plan),
+                         conf=sess.conf).tree_string()
+    check(f"Exchange hashpartitioning(key, {EXCHANGE_BUCKETS})" in tree,
+          f"serve tenants: join B without its Exchange\n{tree}")
+    b_table = join_b.collect()
+    b_want = canonical(*np_join({"key": left_cols["key"],
+                                 "id": left_cols["id"]}, right))
+    b_got = canonical(b_table.column("id").to_numpy(),
+                      b_table.column("val").to_numpy())
+    check(all(torch.equal(a, b) for a, b in zip(b_got, b_want)),
+          "serve tenants: join B differs from numpy")
+    b_digest = table_digest(b_table)
+    del b_table, b_want, b_got
+    lats_solo, produced, errors, _w = closed_loop(
+        hot, 2, SERVE_TENANT_QUERIES, tenant="hot")
+    check(not errors, f"serve tenants solo: {errors[:3]}")
+    check_results("tenants solo", produced, expected)
+    budget = 4 * footprint.projected_bytes(join_b.plan) + sched._idle_baseline
+    sess.conf.set("spark.hyperspace.serve.hbm.budget.bytes", str(budget))
+    sess.conf.set("spark.hyperspace.serve.tenant.cold.hbm.fraction", "0.25")
+    stop = threading.Event()
+    side = {"cold": [], "doomed": [], "errors": []}
+    lock = threading.Lock()
+
+    def greedy():
+        while not stop.is_set():
+            try:
+                table = join_b.collect(tenant="cold")
+                ok = table_digest(table) == b_digest
+                with lock:
+                    side["cold"].append(ok)
+            except Exception as exc:
+                with lock:
+                    side["errors"].append(f"cold: {exc!r}")
+
+    def doomed():
+        i = 0
+        while not stop.is_set():
+            name, frame = hot[i % len(hot)]
+            i += 1
+            try:
+                frame.collect(tenant="doomed", timeout=0.001)
+                kind = "finished"
+            except QueryDeadlineExceededError:
+                kind = "deadline"
+            except Exception as exc:
+                kind = f"error: {exc!r}"
+            with lock:
+                side["doomed"].append(kind)
+
+    try:
+        side_threads = ([threading.Thread(target=greedy) for _ in range(2)]
+                        + [threading.Thread(target=doomed)])
+        p0 = counters("serve.tenant.cold.queued")
+        for th in side_threads:
+            th.start()
+        lats_co, produced, errors, _w = closed_loop(
+            hot, 2, SERVE_TENANT_QUERIES, tenant="hot")
+        stop.set()
+        for th in side_threads:
+            th.join(timeout=300)
+        check(not any(th.is_alive() for th in side_threads),
+              "serve tenants: a side tenant hung")
+        p1 = counters("serve.tenant.cold.queued")
+    finally:
+        sess.conf.unset("spark.hyperspace.serve.hbm.budget.bytes")
+        sess.conf.unset("spark.hyperspace.serve.tenant.cold.hbm.fraction")
+    check(not errors and not side["errors"],
+          f"serve tenants: {(errors + side['errors'])[:3]}")
+    check_results("tenants co-located", produced, expected)
+    check(side["cold"] and all(side["cold"]),
+          f"serve tenants: join B ran {len(side['cold'])} times, "
+          f"{side['cold'].count(False)} wrong")
+    check(side["doomed"] and all(k in ("deadline", "finished")
+                                 for k in side["doomed"]),
+          f"serve tenants: doomed outcomes {side['doomed'][:3]}")
+    report = hs.tenant_report()
+    check(report["exact"], f"serve tenants: tenant_report not exact "
+                           f"{report['totals']} vs {report['global']}")
+    out["tenants"] = {
+        "victim_solo": percentiles(lats_solo),
+        "victim_colocated": percentiles(lats_co),
+        "greedy_join_b_runs": len(side["cold"]),
+        "greedy_queued": p1["serve.tenant.cold.queued"]
+        - p0["serve.tenant.cold.queued"],
+        "doomed": {k: side["doomed"].count(k)
+                   for k in sorted(set(side["doomed"]))},
+        "exact": report["exact"],
+        "usage": {t: v["usage"] for t, v in report["tenants"].items()
+                  if t in ("hot", "cold", "doomed")}}
+
+    # 6. Ingest.
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rng = np.random.default_rng(SEED + 11)
+    new = {c: [] for c in facts}
+    coord = hs.ingest(indexes=["facts_g"])
+    stop = threading.Event()
+    ing = {"n": 0, "errors": []}
+
+    def reader(c):
+        i = c
+        while not stop.is_set():
+            name, frame = hot[i % len(hot)]
+            i += 4
+            try:
+                frame.collect()
+                with lock:
+                    ing["n"] += 1
+            except Exception as exc:
+                with lock:
+                    ing["errors"].append(f"{name}: {exc!r}")
+
+    readers = [threading.Thread(target=reader, args=(c,)) for c in range(4)]
+    for th in readers:
+        th.start()
+    try:
+        t0 = time.perf_counter()
+        for i in range(SERVE_INGEST_FILES):
+            part = {"k": rng.integers(0, SERVE_DIMS, SERVE_INGEST_ROWS
+                                      ).astype(np.int64),
+                    "g": rng.integers(0, 32, SERVE_INGEST_ROWS
+                                      ).astype(np.int64),
+                    "v": rng.random(SERVE_INGEST_ROWS)}
+            path = os.path.join(swork, "facts", f"append-{i}.parquet")
+            pq.write_table(pa.table(part), path)
+            coord.record_append([path])
+            for c in facts:
+                new[c].append(part[c])
+        append_s = time.perf_counter() - t0
+        first_append = time.time() - append_s
+        stale_before = coord.staleness_s()
+        t0 = time.perf_counter()
+        decision = coord.run_once()
+        refresh_s = time.perf_counter() - t0
+        append_to_commit = time.time() - first_append
+    finally:
+        stop.set()
+        for th in readers:
+            th.join(timeout=300)
+    check(not ing["errors"], f"serve ingest: {ing['errors'][:3]}")
+    check(decision["action"] == "refreshed"
+          and decision["refreshes"][0]["action"] == "refreshed",
+          f"serve ingest: {decision}")
+    facts = {c: np.concatenate([facts[c]] + new[c]) for c in facts}
+    # A Scan lists its files once: new frames see the appended files.
+    mix = serve_mix(sess, swork)
+    frames = dict(mix)
+    for name, frame in mix:
+        table = frame.collect()
+        if name in ("agg", "join"):
+            got = table.sort_by("g")
+            want = serve_oracle(name, facts, dims)
+            ok = all(np.allclose(got.column(c).to_numpy(), w, rtol=1e-9)
+                     for c, w in want.items())
+        else:
+            ok = table_digest(table) == array_digest(
+                serve_oracle(name, facts, dims))
+        check(ok, f"serve ingest: {name} differs from numpy over all files")
+        expected[name] = table_digest(table)
+    m = frames["point_g0"].collect(with_metrics=True)[1]
+    usage = m.index_usage()
+    check([u["name"] for u in usage] == ["facts_g"],
+          f"serve ingest: refreshed index not used {m.events}")
+    out["ingest"] = {
+        "files": SERVE_INGEST_FILES, "rows": SERVE_INGEST_FILES
+        * SERVE_INGEST_ROWS, "append_s": append_s, "refresh_s": refresh_s,
+        "staleness_at_refresh_s": stale_before,
+        "first_append_to_commit_s": append_to_commit,
+        "staleness_gauge_s": reg.gauge("ingest.staleness.seconds").value,
+        "staleness_after_s": coord.staleness_s(),
+        "queries_during": ing["n"]}
+
+    # 7. Chaos.
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import torch_chaos
+
+    chaos_expected = {}
+    for name, frame in mix:
+        chaos_expected[name] = torch_chaos.canonical(frame.collect())
+    keys = ("resilience.breaker.opened", "resilience.breaker.closed",
+            "resilience.breaker.half_open", "faults.injected",
+            "serve.rejected", "serve.deadline_exceeded", "serve.cancelled")
+    c0 = counters(*keys)
+    faults.install(faults.FaultInjector([
+        faults.FaultRule("parquet.read", kind="transient", times=-1,
+                         probability=0.05),
+        faults.FaultRule("transfer.put", kind="transient", times=-1,
+                         probability=0.02)], seed=SEED))
+    try:
+        report = torch_chaos.run_chaos(
+            mix, chaos_expected, clients=SERVE_CLIENTS,
+            total_queries=SERVE_CHAOS_QUERIES,
+            timeout_for=lambda i: 0.002 if i % 9 == 0 else None,
+            join_timeout_s=600.0)
+    finally:
+        faults.uninstall()
+    c1 = counters(*keys)
+    left = [t.name for t in threading.enumerate()
+            if t.name.startswith("chaos-")]
+    check(not report.stuck_threads and not left,
+          f"serve chaos: threads left {report.stuck_threads or left}")
+    check(report.outcomes["error"] == 0 and not report.mismatches,
+          f"serve chaos: {report.summary()} {report.errors[:3]}")
+    out["chaos"] = {"outcomes": report.outcomes, "wall_s": report.wall_s,
+                    **{k: c1[k] - c0[k] for k in keys}}
+
+    if not was_enabled:
+        sess.disable_hyperspace()
+    hs.delete_index("facts_g")
+    hs.vacuum_index("facts_g")
+    shutil.rmtree(swork, ignore_errors=True)
     out["phase_s"] = time.perf_counter() - phase_t0
     return out
 
@@ -2010,6 +2770,12 @@ def main():
         emit("telemetry", **out)
         check(tally("telemetry", n)[1] > 0,
               "the telemetry phase never launched the partition kernel")
+        out, n = counted(counters, phase_serve, hs, sess, work, df, cols)
+        emit("serve", **out)
+        hash_n, partition_n = tally("serve", n)
+        check(hash_n > 0 and partition_n > 0,
+              f"the serve phase launched hash {hash_n}, "
+              f"partition {partition_n} times")
         out, n = counted(counters, phase_hybrid, hs, sess, work, cols,
                          right_df, right)
         emit("hybrid", **out)

@@ -37,6 +37,7 @@ from hyperspace_tpu_torch import telemetry
 from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.index.log_entry import LogEntry
 from hyperspace_tpu_torch.index.log_manager import IndexLogManager
+from hyperspace_tpu_torch.utils import faults
 
 logger = logging.getLogger(__name__)
 
@@ -164,6 +165,11 @@ class Action(ABC):
             self._report["detail"].update(detail)
 
     def _timed_phase(self, name: str, fn) -> None:
+        # Fault-injection point at every phase BOUNDARY: a "crash" rule
+        # matching `action.<Class>.<phase>` aborts just before that phase
+        # runs — i.e. between the preceding phase and this one, the
+        # stranded-writer scenario recovery must unwind.
+        faults.fire(f"action.{type(self).__name__}.{name}")
         if self._report is None:  # phase called directly, not via run()
             fn()
             return

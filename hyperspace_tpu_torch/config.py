@@ -220,6 +220,172 @@ class HyperspaceConf:
         return self.get_int(constants.SKIPPING_ZORDER_FILES,
                             constants.SKIPPING_ZORDER_FILES_DEFAULT)
 
+    # -- serving plane (the JAX package's keys and defaults) ---------------
+
+    @property
+    def serve_hbm_budget_bytes(self) -> int:
+        """Serving-plane admission budget: the sum of concurrently
+        admitted queries' projected HBM footprints stays under this; 0
+        (the default) disables budgeting. Process-wide scheduler —
+        co-resident sessions should agree (same caveat as the transfer
+        knobs)."""
+        return self.get_int(constants.SERVE_HBM_BUDGET_BYTES,
+                            constants.SERVE_HBM_BUDGET_BYTES_DEFAULT)
+
+    @property
+    def serve_queue_depth(self) -> int:
+        """How many over-budget queries may WAIT for admission; a query
+        arriving at a full queue gets a typed QueryRejectedError
+        immediately (backpressure to the caller)."""
+        return self.get_int(constants.SERVE_QUEUE_DEPTH,
+                            constants.SERVE_QUEUE_DEPTH_DEFAULT)
+
+    @property
+    def serve_deadline_seconds(self) -> float:
+        """Default per-query deadline (queued time included); 0 = none.
+        `collect(timeout=...)` overrides per call."""
+        return float(self.get(constants.SERVE_DEADLINE_SECONDS,
+                              str(constants.SERVE_DEADLINE_SECONDS_DEFAULT)))
+
+    @property
+    def serve_batch_enabled(self) -> bool:
+        """Inter-query batched execution (`engine/batcher.py`):
+        concurrent same-signature point/filter queries coalesce into
+        one batched predicate evaluation over the shared scan. "false"
+        restores strictly per-query execution."""
+        return (self.get(constants.SERVE_BATCH_ENABLED,
+                         constants.SERVE_BATCH_ENABLED_DEFAULT)
+                or "true").lower() == "true"
+
+    @property
+    def serve_batch_window_ms(self) -> float:
+        """Gather window: how long the first query of a signature waits
+        for cohort joiners before executing. Skipped when nothing else
+        is in flight (serial latency untouched)."""
+        return float(self.get(
+            constants.SERVE_BATCH_WINDOW_MS,
+            str(constants.SERVE_BATCH_WINDOW_MS_DEFAULT)))
+
+    @property
+    def serve_batch_max(self) -> int:
+        """Cohort-size cap per batched invocation; also the top padded
+        constant-lane bucket (cohorts pad to the next power of two up
+        to this, so K is a fixed bucket, not a new shape per K)."""
+        return self.get_int(constants.SERVE_BATCH_MAX,
+                            constants.SERVE_BATCH_MAX_DEFAULT)
+
+    @property
+    def serve_batch_aot_warmup(self) -> bool:
+        """Warm the canonical cohort-size buckets of a batch signature
+        (one real dispatch each) the first time it is seen (and for the
+        explicit `engine.batcher.warmup(df)` API)."""
+        return (self.get(constants.SERVE_BATCH_AOT_WARMUP,
+                         constants.SERVE_BATCH_AOT_WARMUP_DEFAULT)
+                or "true").lower() == "true"
+
+    @property
+    def serve_breaker_failures(self) -> int:
+        """Degraded-fallback count within the window that OPENS a
+        per-index circuit breaker (known-bad index skips straight to
+        the source plan)."""
+        return self.get_int(constants.SERVE_BREAKER_FAILURES,
+                            constants.SERVE_BREAKER_FAILURES_DEFAULT)
+
+    @property
+    def serve_breaker_window_seconds(self) -> float:
+        return float(self.get(
+            constants.SERVE_BREAKER_WINDOW_SECONDS,
+            str(constants.SERVE_BREAKER_WINDOW_SECONDS_DEFAULT)))
+
+    @property
+    def serve_breaker_cooldown_seconds(self) -> float:
+        """Open-state dwell before one half-open probe is allowed."""
+        return float(self.get(
+            constants.SERVE_BREAKER_COOLDOWN_SECONDS,
+            str(constants.SERVE_BREAKER_COOLDOWN_SECONDS_DEFAULT)))
+
+    @property
+    def serve_slo_p99_seconds(self) -> float:
+        """Sliding-window SLO target: 99% of queries must finish under
+        this many seconds. 0 (default) disables SLO tracking."""
+        return float(self.get(constants.SERVE_SLO_P99_SECONDS,
+                              str(constants.SERVE_SLO_P99_SECONDS_DEFAULT)))
+
+    @property
+    def serve_slo_window_seconds(self) -> float:
+        """Span of the sliding window the burn rate is computed over
+        (also the default trailing window of the timeseries sampler's
+        `window.*` quantile gauges)."""
+        return float(self.get(
+            constants.SERVE_SLO_WINDOW_SECONDS,
+            str(constants.SERVE_SLO_WINDOW_SECONDS_DEFAULT)))
+
+    @property
+    def serve_slo_shed_enabled(self) -> bool:
+        """Opt-in load shedding: while the SLO burn rate exceeds 1.0
+        the admission wait queue is tightened to half its configured
+        depth (`serve.slo.shed` counts queries the tightening
+        rejected). Off by default — tracking alone never sheds."""
+        return (self.get(constants.SERVE_SLO_SHED_ENABLED,
+                         constants.SERVE_SLO_SHED_ENABLED_DEFAULT)
+                or "false").lower() == "true"
+
+    # -- multi-tenant serving (tenant id embedded in the conf key) -----
+
+    def serve_tenant_weight(self, tenant: str) -> float:
+        """Deficit-round-robin dequeue weight for `tenant` (default
+        1.0). Relative: a weight-2 tenant drains its wait queue twice
+        as fast as a weight-1 tenant under contention."""
+        v = self.get(f"{constants.SERVE_TENANT_PREFIX}{tenant}.weight")
+        try:
+            w = float(v) if v is not None else \
+                constants.SERVE_TENANT_WEIGHT_DEFAULT
+        except ValueError:
+            w = constants.SERVE_TENANT_WEIGHT_DEFAULT
+        return w if w > 0 else constants.SERVE_TENANT_WEIGHT_DEFAULT
+
+    def serve_tenant_hbm_fraction(self, tenant: str) -> float:
+        """Fraction of `serve.hbm.budget.bytes` the tenant may hold
+        admitted concurrently (0, the default, = unlimited)."""
+        v = self.get(
+            f"{constants.SERVE_TENANT_PREFIX}{tenant}.hbm.fraction")
+        try:
+            f = float(v) if v is not None else \
+                constants.SERVE_TENANT_HBM_FRACTION_DEFAULT
+        except ValueError:
+            f = constants.SERVE_TENANT_HBM_FRACTION_DEFAULT
+        return min(max(f, 0.0), 1.0)
+
+    def serve_tenant_queue_depth(self, tenant: str) -> int:
+        """Per-tenant cap on WAITING queries (0, the default, = only
+        the global `serve.queue.depth` applies)."""
+        return self.get_int(
+            f"{constants.SERVE_TENANT_PREFIX}{tenant}.queue.depth",
+            constants.SERVE_TENANT_QUEUE_DEPTH_DEFAULT)
+
+    @property
+    def ingest_interval_seconds(self) -> float:
+        """Cadence between ingest-coordinator micro-batch ticks; the
+        caller's loop sleeps this long between `run_once` calls (the
+        coordinator never owns a thread)."""
+        return float(self.get(constants.INGEST_INTERVAL_SECONDS,
+                              str(constants.INGEST_INTERVAL_SECONDS_DEFAULT)))
+
+    @property
+    def ingest_serve_headroom(self) -> float:
+        """Fraction of `serve.hbm.budget.bytes` that may be admitted
+        before the ingest coordinator defers index refresh (appends
+        still land; refresh never starves admission)."""
+        return float(self.get(constants.INGEST_SERVE_HEADROOM,
+                              str(constants.INGEST_SERVE_HEADROOM_DEFAULT)))
+
+    @property
+    def ingest_conflict_attempts(self) -> int:
+        """Total refresh tries per tick when the coordinator loses the
+        op-log race to a manual refresher, before it concedes."""
+        return self.get_int(constants.INGEST_CONFLICT_ATTEMPTS,
+                            constants.INGEST_CONFLICT_ATTEMPTS_DEFAULT)
+
     # -- telemetry (the JAX package's keys and defaults) -------------------
 
     @property
@@ -227,15 +393,6 @@ class HyperspaceConf:
         """Directory for `torch.profiler` traces of executed queries
         (None = tracing off)."""
         return self.get(constants.TRACE_DIR)
-
-    @property
-    def serve_slo_window_seconds(self) -> float:
-        """Span of the serving plane's SLO window; here the default
-        trailing window of the timeseries sampler's `window.*`
-        quantile gauges."""
-        return float(self.get(
-            constants.SERVE_SLO_WINDOW_SECONDS,
-            str(constants.SERVE_SLO_WINDOW_SECONDS_DEFAULT)))
 
     @property
     def telemetry_ops_port(self) -> Optional[int]:

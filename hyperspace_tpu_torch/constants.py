@@ -190,10 +190,113 @@ TELEMETRY_TIMESERIES_CAPACITY = \
     "spark.hyperspace.telemetry.timeseries.capacity"
 TELEMETRY_TIMESERIES_CAPACITY_DEFAULT = 600
 
-# The serving plane's key that the telemetry modules read: the sampler's
-# default trailing window.
+# Serving plane (`engine/scheduler.py`): every DataFrame.collect routes
+# through the process-wide QueryScheduler. Admission control budgets
+# concurrent queries' projected HBM footprints against
+# `serve.hbm.budget.bytes` (0, the default, disables budgeting — every
+# query admits immediately); queries that do not fit wait in a bounded
+# FIFO queue of depth `serve.queue.depth`, and when the queue is full
+# the caller gets a typed QueryRejectedError at once — backpressure,
+# not silent pile-up. `serve.deadline.seconds` gives every query a
+# default deadline (0 = none; `collect(timeout=...)` overrides per
+# call), enforced cooperatively at operator / transfer-chunk /
+# segment-fill / sorted-run-write boundaries.
+SERVE_HBM_BUDGET_BYTES = "spark.hyperspace.serve.hbm.budget.bytes"
+SERVE_HBM_BUDGET_BYTES_DEFAULT = 0
+SERVE_QUEUE_DEPTH = "spark.hyperspace.serve.queue.depth"
+SERVE_QUEUE_DEPTH_DEFAULT = 32
+SERVE_DEADLINE_SECONDS = "spark.hyperspace.serve.deadline.seconds"
+SERVE_DEADLINE_SECONDS_DEFAULT = 0.0
+
+# Inter-query batched execution (`engine/batcher.py`): concurrent
+# point/filter queries sharing one execution signature (same scan
+# identity + pinned index version + predicate SHAPE, literals free)
+# coalesce into ONE batched predicate evaluation over the shared
+# resident segments — the segment cache's single-flight fills dedupe the
+# cache FILL, this dedupes the EXECUTION. The first query of a signature gathers joiners for
+# `batch.window.ms` (skipped entirely when nothing else is in flight,
+# so serial latency is untouched), up to `batch.max` cohort members per
+# invocation; predicate constants ride padded power-of-two lanes so the
+# cohort size is a fixed bucket, not a new shape per K.
+# `batch.aot.warmup` warms the canonical cohort-size buckets (one real
+# dispatch each) the first time a signature is seen (and via the
+# explicit `engine.batcher.warmup(df)` API).
+SERVE_BATCH_ENABLED = "spark.hyperspace.serve.batch.enabled"
+SERVE_BATCH_ENABLED_DEFAULT = "true"
+SERVE_BATCH_WINDOW_MS = "spark.hyperspace.serve.batch.window.ms"
+SERVE_BATCH_WINDOW_MS_DEFAULT = 2.0
+SERVE_BATCH_MAX = "spark.hyperspace.serve.batch.max"
+SERVE_BATCH_MAX_DEFAULT = 16
+SERVE_BATCH_AOT_WARMUP = "spark.hyperspace.serve.batch.aot.warmup"
+SERVE_BATCH_AOT_WARMUP_DEFAULT = "true"
+
+# Degradation circuit breaker (per index): after `breaker.failures`
+# IndexDataUnavailableError fallbacks within `breaker.window.seconds`,
+# the breaker OPENS and queries selecting that index skip straight to
+# the source plan without re-paying the failed index scan. After
+# `breaker.cooldown.seconds` one probe query is allowed through
+# (half-open); success closes the breaker, failure re-opens it.
+SERVE_BREAKER_FAILURES = "spark.hyperspace.serve.breaker.failures"
+SERVE_BREAKER_FAILURES_DEFAULT = 3
+SERVE_BREAKER_WINDOW_SECONDS = "spark.hyperspace.serve.breaker.window.seconds"
+SERVE_BREAKER_WINDOW_SECONDS_DEFAULT = 60.0
+SERVE_BREAKER_COOLDOWN_SECONDS = \
+    "spark.hyperspace.serve.breaker.cooldown.seconds"
+SERVE_BREAKER_COOLDOWN_SECONDS_DEFAULT = 30.0
+
+# Sliding-window SLO tracking (`engine/scheduler.py`): when
+# `slo.p99.seconds` > 0, every completed query's wall is folded into a
+# sliding window of `slo.window.seconds`, queries over the target count
+# as `serve.slo.violations`, and the `serve.slo.burn_rate` gauge is the
+# observed violation fraction over the 1% a p99 objective allows
+# (burn 1.0 = burning the error budget exactly as fast as allowed; > 1
+# = the SLO is failing). `slo.shed.enabled` (OFF by default) arms the
+# shedding hook: while the burn rate exceeds 1.0, the admission wait
+# queue is tightened to half its configured depth, and each query
+# rejected by the tightened (rather than the configured) depth counts
+# `serve.slo.shed` — controlled load shedding at the admission door
+# instead of queue collapse under sustained overload.
+SERVE_SLO_P99_SECONDS = "spark.hyperspace.serve.slo.p99.seconds"
+SERVE_SLO_P99_SECONDS_DEFAULT = 0.0
 SERVE_SLO_WINDOW_SECONDS = "spark.hyperspace.serve.slo.window.seconds"
 SERVE_SLO_WINDOW_SECONDS_DEFAULT = 60.0
+SERVE_SLO_SHED_ENABLED = "spark.hyperspace.serve.slo.shed.enabled"
+SERVE_SLO_SHED_ENABLED_DEFAULT = "false"
+
+# Multi-tenant serving (`engine/scheduler.py`): tenant-keyed knobs
+# embed the tenant id in the conf key —
+# `serve.tenant.<id>.weight` (float, default 1.0) is the tenant's
+# deficit-round-robin share of the admission dequeue; a tenant with
+# weight 2 drains its wait queue twice as fast as a weight-1 tenant
+# under contention. `serve.tenant.<id>.hbm.fraction` (float in (0, 1],
+# default 0 = unlimited) caps the tenant's concurrently-admitted
+# footprint at that fraction of `serve.hbm.budget.bytes`;
+# `serve.tenant.<id>.queue.depth` (int, default 0 = share the global
+# depth) caps how many of the tenant's queries may WAIT at once. The
+# default tenant is unlimited unless explicitly configured — existing
+# single-tenant deployments see no behavior change.
+SERVE_TENANT_PREFIX = "spark.hyperspace.serve.tenant."
+SERVE_TENANT_WEIGHT_DEFAULT = 1.0
+SERVE_TENANT_HBM_FRACTION_DEFAULT = 0.0
+SERVE_TENANT_QUEUE_DEPTH_DEFAULT = 0
+
+# Continuous-ingest coordinator (`engine/ingest.py`): cadence between
+# micro-batch ticks when the caller drives `run_once` on a timer. The
+# coordinator itself never spawns threads; this is the interval the
+# owning loop should sleep between ticks.
+INGEST_INTERVAL_SECONDS = "spark.hyperspace.ingest.interval.seconds"
+INGEST_INTERVAL_SECONDS_DEFAULT = 5.0
+# Serving-pressure gate, same shape as the advisor's: refresh work is
+# deferred while queries wait for admission, or while admitted bytes
+# exceed this fraction of `serve.hbm.budget.bytes`. Appends still land
+# (the source is append-only either way); only index refresh yields.
+INGEST_SERVE_HEADROOM = "spark.hyperspace.ingest.serve.headroom"
+INGEST_SERVE_HEADROOM_DEFAULT = 0.5
+# Total tries the coordinator makes when a refresh loses the op-log
+# race to a manual refresher (typed conflict → bounded jittered backoff
+# via `utils/retry.py`, then a clean concession — never an error).
+INGEST_CONFLICT_ATTEMPTS = "spark.hyperspace.ingest.conflict.attempts"
+INGEST_CONFLICT_ATTEMPTS_DEFAULT = 3
 
 # Where the built libraries go (`telemetry/compilation.
 # configure_persistent_cache`): the nvcc and g++ builds of

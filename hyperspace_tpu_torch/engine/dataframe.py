@@ -180,45 +180,34 @@ class DataFrame:
     def _conf(self):
         return self.session.conf if self.session is not None else None
 
-    def collect(self, with_metrics: bool = False):
+    def collect(self, with_metrics: bool = False,
+                timeout: Optional[float] = None,
+                tenant: Optional[str] = None):
         """Execute and return an Arrow table. `with_metrics=True` returns
         `(table, telemetry.QueryMetrics)` instead — per-operator timings
         and row counts, optimizer-rule decision events, and index-usage
         records for THIS query; the last one is also kept as
         `session.last_query_metrics()`.
 
-        A rewritten plan whose index data turns out missing or unreadable
-        (`IndexDataUnavailableError`) is answered from the source plan
-        instead, and the fallback is counted (`resilience.fallbacks`)."""
-        from hyperspace_tpu_torch import telemetry
-        from hyperspace_tpu_torch.engine.executor import execute_plan
-        from hyperspace_tpu_torch.exceptions import IndexDataUnavailableError
-        from hyperspace_tpu_torch.io.columnar import to_arrow
-        from hyperspace_tpu_torch.telemetry import compilation
+        Every collect routes through the process-wide serving plane
+        (`engine/scheduler.py`): admission control against the device
+        memory budget (typed `QueryRejectedError` backpressure when the
+        wait queue is full), a per-query deadline — `timeout` (seconds)
+        overrides `spark.hyperspace.serve.deadline.seconds`; expiry or
+        `session.cancel(query_id)` raises typed
+        `QueryDeadlineExceededError` / `QueryCancelledError` at the
+        next cooperative checkpoint — the inter-query batch lane, and
+        the per-index degradation circuit breaker around the
+        index-fallback path.
 
-        metrics = telemetry.QueryMetrics(
-            description=", ".join(self.schema.names[:6]))
-        conf = self._conf()
-        try:
-            with telemetry.recording(metrics):
-                plan = self._optimized_plan()
-                try:
-                    batch = execute_plan(plan, conf=conf)
-                except IndexDataUnavailableError as exc:
-                    if plan is self.plan:
-                        raise  # no rewrite to fall back from
-                    telemetry.get_registry().counter(
-                        "resilience.fallbacks").inc()
-                    metrics.event("resilience", "degraded",
-                                  index=exc.index_name, reason=str(exc))
-                    batch = execute_plan(self.plan, conf=conf)
-                table = to_arrow(batch)
-        except BaseException:
-            # The device calls queued before the failure ran all the
-            # same: charge them and return their events to the pool.
-            compilation.resolve_query(metrics)
-            raise
-        finish_query(metrics, conf, self.session)
+        `tenant` names the billing identity this query charges
+        (admission quotas, weighted-fair dequeue, per-tenant SLO
+        window, and the `tenant.<id>.*` chargeback counters); default
+        None uses the session's sticky `session.tenant(...)` choice,
+        else the "default" tenant."""
+        from hyperspace_tpu_torch.engine.scheduler import get_scheduler
+        table, metrics = get_scheduler().collect(self, timeout=timeout,
+                                                 tenant=tenant)
         return (table, metrics) if with_metrics else table
 
     def to_pandas(self):
@@ -238,36 +227,6 @@ class DataFrame:
 
     def __repr__(self):
         return f"DataFrame[{', '.join(self.schema.names)}]"
-
-
-def finish_query(metrics, conf, session=None) -> None:
-    """Query-finish bookkeeping, the JAX package's (its scheduler does
-    it at query finish): finish the recorder (which resolves its device
-    seconds), stamp its critical path (`telemetry.critpath.enabled`),
-    count `queries.total`, `queries.seconds` and the `query.wall_s`
-    histograms, count `rules.served.<index>` for each index a rule
-    served the query from, and fold the recorder into the flight ring
-    (which dumps it past `telemetry.slowlog.seconds`). `collect` calls
-    this; the ported scheduler (ROADMAP item 10) takes the call over."""
-    from hyperspace_tpu_torch import telemetry
-    from hyperspace_tpu_torch.telemetry import critical_path
-
-    metrics.finish()
-    metrics.tenant = telemetry._tenant.get()
-    if conf is None or conf.critpath_enabled:
-        critical_path.stamp(metrics)
-    reg = telemetry.get_registry()
-    reg.counter("queries.total").inc()
-    reg.counter("queries.seconds").inc(metrics.wall_s)
-    reg.histogram("query.wall_s").observe(metrics.wall_s)
-    reg.histogram(f"tenant.{telemetry.current_tenant()}.query_wall_s"
-                  ).observe(metrics.wall_s)
-    for use in metrics.index_usage():
-        if use.get("name"):
-            reg.counter(f"rules.served.{use['name']}").inc()
-    telemetry.flight.record(metrics, conf=conf)
-    if session is not None:
-        session._last_query_metrics = metrics
 
 
 class GroupedData:

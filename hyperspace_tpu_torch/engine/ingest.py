@@ -1,0 +1,257 @@
+"""Continuous-ingest coordinator — micro-batch appends + incremental
+refresh WHILE the serve plane runs.
+
+The paper's hybrid-scan story (appended files served as a remainder
+scan until the next refresh) implies a loop nobody owns in the
+reference: something must land source appends on a cadence and drive
+the refresh that folds them into the index — without starving the
+queries it is refreshing FOR. `IngestCoordinator` is that loop's body.
+
+Design rules, in order of importance:
+
+1. **Lease path only.** Every refresh goes through the session's
+   collection manager (`refresh(name, mode='incremental')`), i.e. the
+   exact transactional route a manual `hs.refresh_index` takes:
+   stale-writer lease recovery in validate, one-winner OCC on the
+   op-log slot in begin, commit-marker protocol, action reports.
+   A coordinator that bypassed the lease seam could corrupt an index
+   the moment a manual verb raced it. The coordinator also never calls `recover` — forced recovery
+   cancels LIVE writers; the lease decides staleness, not the cadence.
+2. **Serve pressure defers refresh, never blocks appends.** The same
+   gate shape the advisor uses: while queries wait for admission, or
+   admitted bytes exceed `ingest.serve.headroom` of the serving HBM
+   budget, the tick lands its appends (the source grows either way —
+   hybrid scan keeps results correct) and defers the refresh
+   (`ingest.deferred`). Freshness yields to latency; the staleness
+   gauge and its alert rule make the cost visible.
+3. **Conflicts concede.** Losing the op-log race to a manual refresher
+   is a clean outcome, not an error: the refresh is retried under the
+   shared `utils/retry` policy (bounded attempts, deterministic
+   jittered backoff — no sleep-in-except) and, still losing, concedes
+   with `ingest.conflicts` + a "conceded" decision. Exactly one writer
+   ever wins; the appends are picked up next tick.
+4. **Caller-threaded.** `run_once()` is synchronous; the owner (bench
+   harness, a cron, a test) drives it on `ingest.interval.seconds`;
+   an injected crash (BaseException) propagates to the caller like a
+   process death and the NEXT tick's lease recovery heals the log.
+
+Staleness: `ingest.staleness.seconds` = now − t(newest append not yet
+covered by a committed refresh), 0.0 when every index has caught up.
+An append is covered once a refresh that STARTED after it commits, per
+index; the gauge tracks the least-caught-up index. `telemetry/alerts`
+ships a default `ingest_staleness` rule over this gauge.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+
+from hyperspace_tpu_torch.constants import STABLE_STATES, States
+from hyperspace_tpu_torch.exceptions import HyperspaceException
+
+__all__ = ["IngestCoordinator"]
+
+# Lifecycle states that mean "another writer is mid-flight right now" —
+# a refresh hitting one of these lost a race, it did not fail.
+_TRANSIENT_STATES = tuple(
+    s for s in (States.CREATING, States.DELETING, States.REFRESHING,
+                States.VACUUMING, States.RESTORING, States.CANCELLING,
+                States.OPTIMIZING)
+    if s not in STABLE_STATES)
+
+
+class IngestCoordinator:
+    """One micro-batch ingest loop body: append, gate, refresh, account.
+
+    `producer` is an optional callable invoked once per tick; it appends
+    the tick's micro-batch to the source and returns the appended file
+    paths (empty/None for a quiet tick). External writers can instead
+    report their appends via `record_append` so staleness accounting
+    stays truthful. `indexes` names the indexes to refresh each tick —
+    the collection manager dispatches mode='incremental' by kind
+    (bucketed delta for covering, sketch append for skipping).
+    """
+
+    def __init__(self, session,
+                 producer: Optional[Callable[[], Optional[Iterable[str]]]]
+                 = None,
+                 indexes: Sequence[str] = ()):
+        self.session = session
+        self.conf = session.conf
+        self.producer = producer
+        self.indexes: List[str] = list(indexes)
+        self._lock = threading.Lock()
+        # (t_appended, path) per append not yet trimmed; trimmed once
+        # every index's last covering refresh started after it.
+        self._append_log: List[Tuple[float, str]] = []
+        # Per index: start time of the newest COMMITTED refresh (0.0
+        # until the first one commits — everything is uncovered).
+        self._covered: Dict[str, float] = {n: 0.0 for n in self.indexes}
+
+    # -- gates -------------------------------------------------------------
+
+    def serving_pressure(self) -> Optional[str]:
+        """A human-readable reason to defer refresh this tick, or None
+        when serving is quiet enough (the advisor's gate shape)."""
+        from hyperspace_tpu_torch.engine.scheduler import get_scheduler
+        try:
+            p = get_scheduler().pressure()
+        except Exception:
+            return None
+        if p.get("queue_depth", 0) > 0:
+            return f"{p['queue_depth']} queries waiting for admission"
+        budget = self.conf.serve_hbm_budget_bytes
+        if budget and budget > 0:
+            headroom = max(0.0, min(self.conf.ingest_serve_headroom, 1.0))
+            if p.get("admitted_bytes", 0) > budget * headroom:
+                return (f"admitted {p['admitted_bytes']} B exceeds "
+                        f"{headroom:.0%} of the {budget} B serving "
+                        "budget")
+        return None
+
+    # -- staleness accounting ----------------------------------------------
+
+    def record_append(self, paths: Iterable[str],
+                      at: Optional[float] = None) -> None:
+        """Report externally-landed appends for staleness accounting."""
+        with self._lock:
+            self._record_append(list(paths), at)
+            self._update_staleness()
+
+    def _record_append(self, paths: List[str],
+                       at: Optional[float] = None) -> None:
+        if not paths:
+            return
+        t = time.time() if at is None else float(at)
+        self._append_log.extend((t, p) for p in paths)
+        from hyperspace_tpu_torch import telemetry
+        telemetry.get_registry().counter("ingest.appends").inc(len(paths))
+
+    def staleness_s(self, now: Optional[float] = None) -> float:
+        with self._lock:
+            return self._staleness(now)
+
+    def _staleness(self, now: Optional[float] = None) -> float:
+        now = time.time() if now is None else now
+        floor = min(self._covered.values()) if self._covered else 0.0
+        # Appends older than every index's last refresh start are
+        # covered by a committed version; trim them.
+        self._append_log = [e for e in self._append_log if e[0] > floor]
+        if not self._append_log:
+            return 0.0
+        newest = max(t for t, _ in self._append_log)
+        return max(0.0, now - newest)
+
+    def _update_staleness(self) -> None:
+        from hyperspace_tpu_torch import telemetry
+        telemetry.get_registry().gauge(
+            "ingest.staleness.seconds").set(self._staleness())
+
+    # -- conflict classification -------------------------------------------
+
+    @staticmethod
+    def _is_conflict(exc: BaseException) -> bool:
+        """True when a refresh lost a one-winner race: the OCC op-log
+        slot was taken (begin), or validate saw another writer's
+        transient state. Both are clean concessions, not failures."""
+        if not isinstance(exc, HyperspaceException):
+            return False
+        msg = str(exc)
+        if "operation is in progress" in msg:
+            return True
+        return any(f"current state is {s}" in msg
+                   for s in _TRANSIENT_STATES)
+
+    # -- the tick ----------------------------------------------------------
+
+    def run_once(self) -> dict:
+        """One micro-batch tick: land the producer's appends, defer the
+        refresh under serve pressure, otherwise refresh every owned
+        index through the lease path with conflict concession. Returns
+        a decision dict (the advisor's reporting shape). An injected
+        crash propagates — the caller models process death; the next
+        tick's lease recovery heals the op log."""
+        from hyperspace_tpu_torch import telemetry
+        with self._lock:
+            reg = telemetry.get_registry()
+            reg.counter("ingest.ticks").inc()
+            decision: dict = {"action": "refreshed", "appended": 0,
+                              "refreshes": []}
+            if self.producer is not None:
+                try:
+                    appended = list(self.producer() or [])
+                except Exception as exc:
+                    reg.counter("ingest.failures").inc()
+                    decision.update(action="failed",
+                                    reason=f"producer: {exc!r}")
+                    telemetry.event("ingest", "decision", **decision)
+                    self._update_staleness()
+                    return decision
+                self._record_append(appended)
+                decision["appended"] = len(appended)
+            reason = self.serving_pressure()
+            if reason is not None:
+                reg.counter("ingest.deferred").inc()
+                decision.update(action="deferred", reason=reason)
+                telemetry.event("ingest", "decision", action="deferred",
+                                reason=reason,
+                                appended=decision["appended"])
+                self._update_staleness()
+                return decision
+            for name in self.indexes:
+                decision["refreshes"].append(self._refresh_one(name))
+            if any(r["action"] != "refreshed"
+                   for r in decision["refreshes"]):
+                decision["action"] = "partial"
+            self._update_staleness()
+            return decision
+
+    def _refresh_one(self, name: str) -> dict:
+        from hyperspace_tpu_torch import telemetry
+        from hyperspace_tpu_torch.facade import Hyperspace
+        from hyperspace_tpu_torch.utils import retry
+
+        reg = telemetry.get_registry()
+        # The refresh lists the source when it runs; appends landed
+        # before this point are covered once it commits.
+        listed_at = time.time()
+        manager = Hyperspace.get_context(
+            self.session).index_collection_manager
+        saw_conflict = [False]
+
+        def classify(exc: Exception) -> bool:
+            if self._is_conflict(exc):
+                saw_conflict[0] = True
+                return True
+            return False
+
+        policy = retry.RetryPolicy(
+            attempts=max(1, self.conf.ingest_conflict_attempts),
+            base_ms=self.conf.io_retry_base_ms,
+            max_ms=self.conf.io_retry_max_ms)
+        try:
+            retry.call(lambda: manager.refresh(name, "incremental"),
+                       operation=f"ingest.refresh.{name}",
+                       policy=policy, retryable=classify)
+        except Exception as exc:
+            if self._is_conflict(exc):
+                reg.counter("ingest.conflicts").inc()
+                out = {"index": name, "action": "conceded",
+                       "reason": str(exc)}
+            else:
+                reg.counter("ingest.failures").inc()
+                out = {"index": name, "action": "failed",
+                       "reason": repr(exc)}
+            telemetry.event("ingest", "decision", **out)
+            return out
+        if saw_conflict[0]:
+            # Raced a manual refresher and won after backoff — the
+            # conflict happened even though this tick recovered.
+            reg.counter("ingest.conflicts").inc()
+        reg.counter("ingest.refreshes").inc()
+        self._covered[name] = listed_at
+        out = {"index": name, "action": "refreshed"}
+        telemetry.event("ingest", "decision", **out)
+        return out

@@ -45,18 +45,32 @@ def _batch_rows(out) -> Optional[int]:
 
 def _instrument(fn, bucketed: bool):
     """Wrap an execute/execute_bucketed implementation with the telemetry
-    operator hook: a per-query operator record (active recorder) and a
-    trace span on the executing thread (active tracer). With neither, the
-    cost is one ContextVar read + one global read + None checks. Applied
+    operator hook: a per-query operator record (active recorder), a
+    trace span on the executing thread (active tracer) and the deadline
+    checkpoints at entry and exit. With none active, the cost is a few
+    ContextVar reads + one global read + None checks. Applied
     automatically to every PhysicalNode subclass by
     `PhysicalNode.__init_subclass__`."""
 
     @functools.wraps(fn)
     def wrapper(self, *args):
+        # Cooperative-cancellation checkpoints bracket every operator
+        # (one contextvar read + None check each when no deadline is
+        # active — same always-off contract as the recorder hooks).
+        # BOTH ends matter in a pull-based executor: every operator
+        # STARTS during the initial tree descent (microseconds), so the
+        # entry check alone would see the whole plan before any real
+        # work ran; the finish check below — after the operator's
+        # actual compute, on the way up — is what stops a cancelled
+        # query between operators.
+        phase = "scan" if self.name == "Scan" else "operator"
+        telemetry.check_deadline(phase)
         rec = telemetry.current()
         tr = telemetry.tracer()
         if rec is None and tr is None:
-            return fn(self, *args)
+            out = fn(self, *args)
+            telemetry.check_deadline(phase)
+            return out
         op = None
         if rec is not None:
             op = rec.start_operator(self.name, self, bucketed=bucketed)
@@ -77,6 +91,10 @@ def _instrument(fn, bucketed: bool):
                         args={"rows": _batch_rows(out)})
         if op is not None:
             rec.finish_operator(op, rows_out=_batch_rows(out))
+        # The mid-query cancellation point (see entry comment): the
+        # operator's record is already closed cleanly — the QUERY
+        # aborts before the parent consumes the result.
+        telemetry.check_deadline(phase)
         return out
 
     wrapper.__telemetry_instrumented__ = True
@@ -139,11 +157,18 @@ class ScanExec(PhysicalNode):
     name = "Scan"
 
     def __init__(self, scan: Scan, columns: Sequence[str],
-                 allowed_buckets: Optional[Set[int]] = None, conf=None):
+                 allowed_buckets: Optional[Set[int]] = None, conf=None,
+                 shared_members: int = 0):
         self.scan = scan
         self.columns = list(columns)
         self.out_schema = scan.schema.select(columns)
         self.conf = conf
+        # >0: this scan is the SHARED read of an inter-query batch
+        # cohort (`engine/batcher.py`) — one read serving that many
+        # concurrent queries. Threaded to the segment cache's shared-
+        # read counters and onto the operator record so the differ can
+        # attribute amortized reads.
+        self.shared_members = shared_members
         # Bucket pruning: when a filter above constrains every bucket
         # column to literal values, only these buckets can contain matches
         # (set by the planner, `_prune_buckets`). The index read then
@@ -162,6 +187,8 @@ class ScanExec(PhysicalNode):
                   "files_scanned": len(files),
                   "bytes_scanned": nbytes,
                   "roots": list(self.scan.root_paths)}
+        if self.shared_members:
+            detail["shared_members"] = self.shared_members
         spec = self.scan.bucket_spec
         if spec is not None:
             detail["buckets_total"] = spec.num_buckets
@@ -274,7 +301,8 @@ class ScanExec(PhysicalNode):
             bucketed=bucketed)
         return segcache.read_segment(files, self.columns, self.out_schema,
                                      ref=ref, conf=self.conf,
-                                     budget=self._budget(device=True))
+                                     budget=self._budget(device=True),
+                                     shared_members=self.shared_members)
 
     def _read(self, files: List[str], rows: int, files_total: int,
               nbytes: int, bucketed: bool = False):

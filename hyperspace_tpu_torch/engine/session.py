@@ -51,21 +51,79 @@ class HyperspaceSession:
         self._hyperspace_enabled = False
         self._last_query_metrics = None
         self._views: dict = {}
+        self._default_tenant = None
+        self._closed = False
+
+    # -- serving plane ----------------------------------------------------
+
+    def scheduler(self):
+        """The PROCESS-WIDE query scheduler every `collect` routes
+        through (`engine/scheduler.py`): admission control against the
+        serving HBM budget, the bounded wait queue, per-query deadlines
+        + cancellation, and the per-index degradation circuit breakers.
+        Sessions share it, same caveat as the transfer engine."""
+        from hyperspace_tpu_torch.engine.scheduler import get_scheduler
+        return get_scheduler()
+
+    def tenant(self, tenant=None) -> "HyperspaceSession":
+        """Set this session's STICKY billing tenant: every subsequent
+        `collect` through this session charges `tenant` — admission
+        quotas, weighted-fair dequeue weight, per-tenant SLO window,
+        and the `tenant.<id>.*` chargeback counters all key on it.
+        `collect(tenant=...)` overrides per call; `tenant(None)`
+        reverts to the "default" tenant. Returns self for chaining: `session.tenant("acme").read_parquet(...)`."""
+        self._default_tenant = str(tenant) if tenant else None
+        if self._default_tenant is not None:
+            from hyperspace_tpu_torch import telemetry
+            telemetry._note_tenant(self._default_tenant)
+        return self
+
+    def active_queries(self) -> List[str]:
+        """Ids of queries currently queued or running (process-wide) —
+        the targets `cancel` accepts. A query learns its own id as
+        `metrics.query_id` (`collect(with_metrics=True)`)."""
+        return self.scheduler().active_queries()
+
+    def cancel(self, query_id: str) -> bool:
+        """Cooperatively cancel a queued or running query: its
+        `collect` raises a typed `QueryCancelledError` at the next
+        checkpoint (operator / transfer-chunk / segment-fill / write
+        boundary). True iff the id was live. Cancellation is a request,
+        not preemption — in-flight device work unwinds through the
+        normal release paths."""
+        return self.scheduler().cancel(query_id)
+
+    def close(self, timeout_s: float = 10.0) -> None:
+        """Shut this session down, IDEMPOTENTLY: cancel its live
+        queries, wait (bounded) for them to drain from the scheduler,
+        and flush the flight recorder's pending slow-query dumps. The
+        process-wide executors (scheduler, transfer engine, IO pool)
+        stay up for co-resident sessions; interpreter teardown drains
+        them via their atexit hooks. A closed session refuses new
+        collects."""
+        if self._closed:
+            return
+        self._closed = True
+        sched = self.scheduler()
+        sched.cancel_session(self)
+        sched.drain_session(self, timeout_s=timeout_s)
+        from hyperspace_tpu_torch import telemetry
+        telemetry.flight.get_recorder().drain()
 
     def last_query_metrics(self):
         """`telemetry.QueryMetrics` of the most recent query collected
         through this session, or None."""
         return self._last_query_metrics
 
-    def close(self) -> None:
-        """Flush the flight recorder's pending slow-query dumps
-        (idempotent). The process-wide executors stay up for
-        co-resident sessions; interpreter teardown drains them via their
-        atexit hooks. (The JAX package's close also cancels the
-        session's live queries through its scheduler, which this package
-        has not got yet.)"""
+    def flight_recorder(self):
+        """The PROCESS-WIDE query flight recorder: the bounded ring of
+        the last-K completed `QueryMetrics` across every session
+        (always on), plus the slow-query dump policy driven by
+        `spark.hyperspace.telemetry.slowlog.{seconds,dir,keep}` on the
+        executing session's conf. `recorder.queries(5)` is the last
+        five finished queries, newest last."""
         from hyperspace_tpu_torch import telemetry
-        telemetry.flight.get_recorder().drain()
+        return telemetry.get_recorder()
 
     def metrics_registry(self):
         """The PROCESS-WIDE metrics registry (counters, gauges,

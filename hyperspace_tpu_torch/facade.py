@@ -5,8 +5,9 @@ the index collection manager and the `indexes` catalog view, plus the
 session-keyed context holding a CachingIndexCollectionManager
 (`Hyperspace.scala:107-133`). This package carries create, refresh
 (full and incremental), optimize, delete, restore, vacuum, cancel and
-recover, `explain` (the plan diff with rules on vs off), and the
-observability verbs `index_usage`, `incidents`, `export_trace` and
+recover, `explain` (the plan diff with rules on vs off), the
+continuous-ingest coordinator `ingest`, and the observability verbs
+`index_usage`, `tenant_report`, `incidents`, `export_trace` and
 `device_memory`.
 """
 
@@ -139,11 +140,66 @@ class Hyperspace:
         """Catalog as a pandas DataFrame (reference `Hyperspace.scala:33-36`)."""
         return self._manager.indexes_df()
 
+    def ingest(self, producer=None, indexes=()):
+        """A continuous-ingest coordinator (`engine/ingest.py`) bound
+        to this session: each `run_once()` tick lands `producer`'s
+        micro-batch appends, defers under serve pressure, and drives
+        mode='incremental' refresh of `indexes` through the lease-gated
+        manager path with typed conflict concession. Caller-threaded —
+        drive it on `spark.hyperspace.ingest.interval.seconds`; the
+        coordinator never owns a thread. Fresh instance per call (the
+        staleness ledger belongs to one append stream)."""
+        from hyperspace_tpu_torch.engine.ingest import IngestCoordinator
+        return IngestCoordinator(self.session, producer=producer,
+                                 indexes=indexes)
+
     def metrics_registry(self):
         """The process-wide metrics registry (build phase seconds,
         action reports, counters)."""
         from hyperspace_tpu_torch import telemetry
         return telemetry.get_registry()
+
+    def tenant_report(self) -> dict:
+        """Per-tenant usage/cost chargeback report: for every tenant
+        seen since process start, the device cost it was billed
+        (modeled flops + bytes accessed and measured dispatch-seconds
+        from the device seam's per-call charges), the link bytes
+        it moved, the segment-cache fills it paid for, and its serving
+        state (admitted bytes, in-flight/queued counts, SLO window,
+        configured quota knobs). EXACT by construction: every charge
+        site mirrors its global counter inc onto the active tenant's
+        `tenant.<id>.*` series at the same line, so `totals` (the
+        per-tenant sums) equals `global` (the process counters) to the
+        bit. Unscoped
+        work bills the "default" tenant; nothing is ever dropped."""
+        from hyperspace_tpu_torch import telemetry
+
+        usage = telemetry.tenant_digest()
+        # Unrounded, like the digest: the sums are compared bit for bit.
+        counters = telemetry.get_registry().series_snapshot()["counters"]
+        totals = {name: sum(u.get(name, 0) for u in usage.values())
+                  for name in telemetry.TENANT_CHARGE_COUNTERS}
+        global_ = {name: counters.get(name, 0)
+                   for name in telemetry.TENANT_CHARGE_COUNTERS}
+        sched = self.session.scheduler()
+        serving = sched.tenant_snapshot(self.session.conf)
+        tenants = {}
+        for t in sorted(set(usage) | set(serving)):
+            tenants[t] = {"usage": usage.get(t, {})}
+            if t in serving:
+                tenants[t]["serving"] = serving[t]
+        return {
+            "tenants": tenants,
+            "totals": totals,
+            "global": global_,
+            # Byte/flop/fill counters are integer-valued and sum
+            # exactly; dispatch-seconds is the one genuinely fractional
+            # series, where float summation order costs at most a few
+            # ulps — hence the relative epsilon instead of ==.
+            "exact": all(abs(totals[n] - global_[n])
+                         <= 1e-9 * max(1.0, abs(global_[n]))
+                         for n in totals),
+        }
 
     def index_usage(self, last_n: Optional[int] = None):
         """Per-index rule-usage report: for every index in this

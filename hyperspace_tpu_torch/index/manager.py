@@ -9,7 +9,9 @@ IndexSummary rows), `index/CachingIndexCollectionManager.scala:37-99`
 from __future__ import annotations
 
 import logging
+import threading
 from abc import ABC, abstractmethod
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
@@ -285,53 +287,72 @@ class IndexCollectionManager(IndexManager):
 
 class CachingIndexCollectionManager(IndexCollectionManager):
     """Caches `get_indexes`; mutating APIs clear the cache (reference
-    `CachingIndexCollectionManager.scala:37-99`)."""
+    `CachingIndexCollectionManager.scala:37-99`) before AND after they
+    run. A listing that began before a clear is not cached: a query
+    planning while a refresh is mid-flight reads the transient state, and
+    caching that read after the refresh committed would hide the new
+    version until the cache expired (the reference clears only before)."""
 
     def __init__(self, conf: HyperspaceConf, **kwargs):
         super().__init__(conf, **kwargs)
         self._cache: Cache = IndexCacheFactory().create(conf)
+        self._generation = 0
+        self._generation_lock = threading.Lock()
 
     def clear_cache(self) -> None:
-        self._cache.clear()
+        with self._generation_lock:
+            self._generation += 1
+            self._cache.clear()
 
     def get_indexes(self, states: Optional[Sequence[str]] = None) -> List[IndexLogEntry]:
         if states is None:
             cached = self._cache.get()
             if cached is not None:
                 return cached
+            generation = self._generation
             entries = super().get_indexes()
-            self._cache.set(entries)
+            with self._generation_lock:
+                if generation == self._generation:
+                    self._cache.set(entries)
             return entries
         return [e for e in self.get_indexes() if e.state in states]
 
-    def create(self, df, index_config) -> None:
+    @contextmanager
+    def _mutating(self):
         self.clear_cache()
-        super().create(df, index_config)
+        try:
+            yield
+        finally:
+            self.clear_cache()
+
+    def create(self, df, index_config) -> None:
+        with self._mutating():
+            super().create(df, index_config)
 
     def delete(self, index_name: str) -> None:
-        self.clear_cache()
-        super().delete(index_name)
+        with self._mutating():
+            super().delete(index_name)
 
     def restore(self, index_name: str) -> None:
-        self.clear_cache()
-        super().restore(index_name)
+        with self._mutating():
+            super().restore(index_name)
 
     def vacuum(self, index_name: str) -> None:
-        self.clear_cache()
-        super().vacuum(index_name)
+        with self._mutating():
+            super().vacuum(index_name)
 
     def refresh(self, index_name: str, mode: str = "full") -> None:
-        self.clear_cache()
-        super().refresh(index_name, mode)
+        with self._mutating():
+            super().refresh(index_name, mode)
 
     def optimize(self, index_name: str) -> None:
-        self.clear_cache()
-        super().optimize(index_name)
+        with self._mutating():
+            super().optimize(index_name)
 
     def cancel(self, index_name: str) -> None:
-        self.clear_cache()
-        super().cancel(index_name)
+        with self._mutating():
+            super().cancel(index_name)
 
     def recover(self, index_name: str) -> bool:
-        self.clear_cache()
-        return super().recover(index_name)
+        with self._mutating():
+            return super().recover(index_name)

@@ -111,10 +111,18 @@ def _write_sorted_runs(table, perm, starts, ends, path: str,
             fut.result()
         pending.clear()
 
+    from hyperspace_tpu_torch import telemetry
+
     t0 = time.perf_counter()
     fetch_s = 0.0
     try:
         for (lo, hi), view in zip(pieces, views):
+            # Piece-boundary cancellation checkpoint: a cancelled query
+            # (or a deadline-capped maintenance caller) stops WITHOUT
+            # queueing further writes — the finally drain below leaves
+            # already-submitted files landed, the partial-dir story the
+            # `_committed` marker already makes crash-safe.
+            telemetry.check_deadline("write")
             f0 = time.perf_counter()
             piece = engine.fetch(view)
             fetch_s += time.perf_counter() - f0

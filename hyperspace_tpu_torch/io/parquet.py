@@ -49,7 +49,7 @@ def bucket_of_file(path: str) -> Optional[int]:
 def _read_one(path: str, cols):
     import pyarrow.parquet as pq
 
-    from hyperspace_tpu_torch.utils import retry
+    from hyperspace_tpu_torch.utils import faults, retry
 
     # partitioning=None: the index layout's `v__=N` version directories
     # LOOK like hive partitions, and newer pyarrow infers a synthetic
@@ -57,6 +57,7 @@ def _read_one(path: str, cols):
     # reads) — which is not data, collides with files that were written
     # while such inference was active, and must never enter a batch.
     def read():
+        faults.fire("parquet.read", path)
         if storage.is_url(path):
             fs, real = storage.get_fs(path)
             return pq.read_table(real, columns=cols, filesystem=fs,
@@ -407,7 +408,7 @@ def write_table(table, path: str) -> None:
     import pyarrow as pa
     import pyarrow.parquet as pq
 
-    from hyperspace_tpu_torch.utils import retry
+    from hyperspace_tpu_torch.utils import faults, retry
 
     string_cols = [f.name for f in table.schema
                    if pa.types.is_string(f.type) or pa.types.is_large_string(f.type)
@@ -416,6 +417,7 @@ def write_table(table, path: str) -> None:
                   write_statistics=False, compression="snappy")
 
     def write():
+        faults.fire("parquet.write", path)
         if storage.is_url(path):
             fs, real = storage.get_fs(path)
             fs.makedirs(os.path.dirname(real), exist_ok=True)

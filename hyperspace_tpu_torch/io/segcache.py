@@ -103,6 +103,17 @@ _VERSION_DIR_RE = re.compile(
     re.escape(constants.INDEX_VERSION_DIRECTORY_PREFIX) + r"=(\d+)$")
 
 
+def index_roots(root_paths) -> set:
+    """The index roots (parents of the `v__=N` dirs) among a scan's
+    root paths."""
+    roots = set()
+    for r in root_paths:
+        root = r.rstrip("/\\")
+        if _VERSION_DIR_RE.search(os.path.basename(root)):
+            roots.add(os.path.dirname(root))
+    return roots
+
+
 @dataclass(frozen=True)
 class SegmentRef:
     """Identity of one cacheable index segment: WHICH committed bytes a
@@ -273,6 +284,10 @@ class SegmentCache:
         self._entries: "OrderedDict[tuple, _Entry]" = OrderedDict()
         self._fills: Dict[tuple, _Fill] = {}
         self._bytes_held = 0
+        # Device-tier bytes per index root, kept with `_bytes_held` by
+        # `_put`/`_pop`: the serving plane's admission credit reads it
+        # on every collect, without a walk of the entries.
+        self._root_bytes: Dict[str, int] = {}
         self._reserved = 0
         self._default_budget = (SEGMENT_CACHE_BYTES if budget_bytes is None
                                 else int(budget_bytes))
@@ -287,7 +302,7 @@ class SegmentCache:
 
     # -- budget math ------------------------------------------------------
 
-    def _budget(self, conf, override: Optional[int]) -> int:
+    def _configured_budget(self, conf, override: Optional[int]) -> int:
         if override is not None:
             return int(override)
         if conf is not None:
@@ -296,12 +311,52 @@ class SegmentCache:
                 return int(value)
         return self._default_budget
 
+    def _effective_budget(self, conf, override: Optional[int]) -> int:
+        """The configured budget, CAPPED by what the serving budget
+        leaves after non-cache device residency — the accountant's live
+        gauges are the shared truth between this cache and the
+        admission controller (`engine/scheduler.py` derives headroom
+        from the same numbers)."""
+        budget = self._configured_budget(conf, override)
+        serve = conf.serve_hbm_budget_bytes if conf is not None else 0
+        if serve and serve > 0:
+            try:
+                from hyperspace_tpu_torch import telemetry
+                live = sum(telemetry.get_accountant().live.values())
+            except Exception:
+                live = 0
+            non_cache = max(0, live - self._bytes_held - self._reserved)
+            budget = min(budget, max(0, serve - non_cache))
+        return budget
+
     def _host_budget(self, conf) -> int:
         if conf is not None:
             return int(conf.segment_cache_host_bytes)
         return self._default_host_budget
 
     # -- residency accounting --------------------------------------------
+
+    def _put(self, key: tuple, ent: "_Entry") -> None:
+        # Caller holds the cv lock; `key` is not in the device tier.
+        self._entries[key] = ent
+        self._bytes_held += ent.nbytes
+        if ent.ref is not None:
+            root = ent.ref.index_root
+            self._root_bytes[root] = \
+                self._root_bytes.get(root, 0) + ent.nbytes
+
+    def _pop(self, key: tuple) -> "_Entry":
+        # Caller holds the cv lock.
+        ent = self._entries.pop(key)
+        self._bytes_held -= ent.nbytes
+        if ent.ref is not None:
+            root = ent.ref.index_root
+            left = self._root_bytes.get(root, 0) - ent.nbytes
+            if left > 0:
+                self._root_bytes[root] = left
+            else:
+                self._root_bytes.pop(root, None)
+        return ent
 
     def _publish_stats(self) -> None:
         # Caller holds the cv lock.
@@ -369,8 +424,7 @@ class SegmentCache:
                                if not e.pinned), None)  # LRU order
             if victim_key is None:
                 break  # only pinned residency left
-            ent = self._entries.pop(victim_key)
-            self._bytes_held -= ent.nbytes
+            ent = self._pop(victim_key)
             self._demote(victim_key, ent, conf)
             evictions += 1
         return evictions
@@ -380,41 +434,25 @@ class SegmentCache:
         """Insert one filled entry, evicting LRU for room. Caller holds
         the cv lock. Returns evictions."""
         evictions = self._evict_until(nbytes, budget, conf)
-        self._entries[key] = _Entry(
+        self._put(key, _Entry(
             batch, nbytes, ref,
             pinned=(ref is not None
                     and ref.index_name in _pinned_indexes(conf)),
-            stamps=stamps)
-        self._bytes_held += nbytes
+            stamps=stamps))
         return evictions
 
     def bytes_held(self) -> int:
         with self._cv:
             return self._bytes_held
 
-    def resident_bytes_for_plan(self, plan) -> int:
-        """Bytes already device-resident for `plan`'s index scans (the
-        serving plane's admission credit reads this)."""
-        from hyperspace_tpu_torch.plan.nodes import Scan
-
-        roots: set = set()
-
-        def visit(node):
-            if isinstance(node, Scan) and getattr(node, "index_name",
-                                                  None):
-                for r in node.root_paths:
-                    root = r.rstrip("/\\")
-                    if _VERSION_DIR_RE.search(os.path.basename(root)):
-                        roots.add(os.path.dirname(root))
-            for c in node.children:
-                visit(c)
-
-        visit(plan)
+    def resident_bytes_for_roots(self, roots) -> int:
+        """Bytes device-resident under the index roots `roots` (parents
+        of `v__=N` dirs, as `index_roots` gives them): the serving
+        plane's admission credit reads this on every collect."""
         if not roots:
             return 0
         with self._cv:
-            return sum(e.nbytes for e in self._entries.values()
-                       if e.ref is not None and e.ref.index_root in roots)
+            return sum(self._root_bytes.get(r, 0) for r in roots)
 
     # -- the read path ----------------------------------------------------
 
@@ -453,8 +491,7 @@ class SegmentCache:
                     if ent.stamps is not None and ent.stamps != stamps:
                         # Rewritten since caching: stale — drop and fall
                         # through to a fresh fill.
-                        self._bytes_held -= ent.nbytes
-                        del self._entries[key]
+                        self._pop(key)
                         self._publish_stats()
                     else:
                         self._entries.move_to_end(key)
@@ -466,10 +503,13 @@ class SegmentCache:
                                  else None)
                     self._fills[key] = fill
                     break
-            # Another thread owns the fill: wait on IT, not the link.
+            # Another thread owns the fill: wait on IT, not the link —
+            # deadline-checkpointed so a cancelled waiter leaves the
+            # queue promptly (the filler keeps going for its own query).
             t_wait0 = time.perf_counter()
             try:
                 while not fill.event.is_set():
+                    telemetry.check_deadline("cache.fill")
                     fill.event.wait(_FILL_WAIT_QUANTUM_S)
             finally:
                 telemetry.add_seconds("cache.fill_wait_s",
@@ -560,7 +600,7 @@ class SegmentCache:
             batch, nbytes = promoted
             evictions = 0
             with self._cv:
-                budget = self._budget(conf, budget_override)
+                budget = self._effective_budget(conf, budget_override)
                 if not fill.doomed and 0 < nbytes <= budget:
                     evictions = self._insert(key, batch, nbytes, ref, conf,
                                              stamps, budget)
@@ -571,7 +611,7 @@ class SegmentCache:
 
         table = parquet.read_table(paths, columns=list(cols) if cols
                                    else None)
-        budget = self._budget(conf, budget_override)
+        budget = self._effective_budget(conf, budget_override)
         # Reserve the projected device bytes BEFORE the transfer: the
         # Arrow nbytes is a close proxy for the decoded device batch.
         # Without a reservation, K concurrent fills each under budget
@@ -596,7 +636,7 @@ class SegmentCache:
         with self._cv:
             self._reserved -= fill.reserved
             fill.reserved = 0
-            budget = self._budget(conf, budget_override)
+            budget = self._effective_budget(conf, budget_override)
             if not fill.doomed and nbytes <= budget:
                 evictions = self._insert(key, batch, nbytes, ref, conf,
                                          stamps, budget)
@@ -613,7 +653,7 @@ class SegmentCache:
             victims = [k for k, e in self._entries.items()
                        if e.ref is not None and predicate(e.ref)]
             for k in victims:
-                self._bytes_held -= self._entries.pop(k).nbytes
+                self._pop(k)
             host_victims = [k for k, e in self._host.items()
                             if e.ref is not None and predicate(e.ref)]
             for k in host_victims:
@@ -664,12 +704,11 @@ class SegmentCache:
                         tier[new_key] = tier.pop(key)
                         rekeyed += 1
                         continue
-                    victim = tier.pop(key)
                     if tier is self._entries:
-                        self._bytes_held -= victim.nbytes
+                        self._pop(key)
                         dropped += 1
                     else:
-                        self._host_bytes -= victim.nbytes
+                        self._host_bytes -= tier.pop(key).nbytes
                         host_dropped += 1
             for f in self._fills.values():
                 if f.index_root == root:
@@ -708,6 +747,7 @@ class SegmentCache:
             n, nh = len(self._entries), len(self._host)
             self._entries.clear()
             self._bytes_held = 0
+            self._root_bytes.clear()
             self._host.clear()
             self._host_bytes = 0
             for f in self._fills.values():
@@ -765,8 +805,21 @@ def clear() -> None:
 
 
 def read_segment(paths, columns, schema, ref=None, conf=None,
-                 budget=None, device=None):
-    """Module-level convenience: `get_cache().read(...)`."""
+                 budget=None, device=None, shared_members: int = 0):
+    """Module-level convenience: `get_cache().read(...)`.
+
+    `shared_members > 1` marks the SHARED read of an inter-query batch
+    cohort (`engine/batcher.py`): one pass through the cache — one hit,
+    or one single-flight fill — serves that many concurrent queries.
+    Counted as `cache.segments.shared.{reads,members}` so the
+    amortization is scrape-able next to the hit/miss series (the
+    single-flight fill dedupes concurrent fills of one key; the batch
+    lane goes further and dedupes the LOOKUP to one caller)."""
+    if shared_members > 1:
+        from hyperspace_tpu_torch import telemetry
+        reg = telemetry.get_registry()
+        reg.counter("cache.segments.shared.reads").inc()
+        reg.counter("cache.segments.shared.members").inc(shared_members)
     return get_cache().read(paths, columns, schema, ref=ref, conf=conf,
                             budget=budget, device=device)
 

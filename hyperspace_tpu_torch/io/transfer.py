@@ -243,9 +243,22 @@ class TransferEngine:
     # -- the raw copy -----------------------------------------------------
 
     def _raw_put(self, view: np.ndarray, device, staging=None, out=None):
-        """ONE host->device copy of `view` (or of its staging buffer).
-        Returns (device array, completion handle or None when the copy
-        already completed). `out`, when given, is the destination."""
+        """ONE guarded host->device copy of `view` (or of its staging
+        buffer): fault-injectable at the `transfer.put` seam and
+        transiently retried (a retried attempt re-copies the same host
+        view into the same destination, so chunk order cannot be
+        corrupted). Returns (device array, completion handle or None
+        when the copy already completed). `out`, when given, is the
+        destination."""
+        from hyperspace_tpu_torch.utils import faults, retry
+
+        def attempt():
+            faults.fire("transfer.put")
+            return self._copy(view, device, staging, out)
+
+        return retry.call(attempt, operation="transfer.put")
+
+    def _copy(self, view: np.ndarray, device, staging, out):
         if self._put_fn is not None:
             dev = self._put_fn(view, device)
             return dev, dev
@@ -510,7 +523,13 @@ class TransferEngine:
         lookahead = max(1, self.threads) + 1
         pool = self._staging_pool()
 
+        from hyperspace_tpu_torch import telemetry
+
         def emit():
+            # Chunk-boundary cancellation checkpoint: a cancelled query
+            # stops shipping chunks here; already-issued copies complete
+            # and release through the window sweep.
+            telemetry.check_deadline("transfer")
             idx, fut = pending.popleft()
             view, buf, conv_s = fut.result()
             timings["convert_s"] += conv_s
@@ -609,11 +628,15 @@ class TransferEngine:
         `tag="fill"`, which lands the group in `transfer.fill.{bytes,
         seconds,chunks}` counters alongside the shared `link.h2d.*`
         series (fills share the link, the window and the staging pool
-        with live queries' transfers — only the accounting is split)."""
+        with live queries' transfers — only the accounting is split). The
+        cancellation checkpoints carry the `transfer.fill` phase then,
+        so an interrupted fill is distinguishable from an interrupted
+        query transfer in `serve.interrupted.*`."""
         if not jobs:
             return []
         from hyperspace_tpu_torch import telemetry
         pool = self._staging_pool()
+        phase = f"transfer.{tag}" if tag else "transfer"
         t = telemetry.tracer()
         ts = t.now_us() if t is not None else None
         t0 = time.perf_counter()
@@ -629,6 +652,10 @@ class TransferEngine:
         total_bytes = 0
         results: List[dict] = []
         for fut in futs:
+            # Per-column checkpoint: remaining decodes still run on the
+            # pool (futures are not revoked) but their results are
+            # plain host arrays — nothing device-side leaks.
+            telemetry.check_deadline(phase)
             produced, job_s = fut.result()
             decode_s += job_s
             placed = {}
@@ -661,6 +688,14 @@ class TransferEngine:
         return results
 
     # -- lifecycle --------------------------------------------------------
+
+    def sweep(self) -> None:
+        """Public probe-and-release pass over the in-flight window:
+        completed copies give back their bytes and staging buffers NOW
+        (the scheduler calls this after a cancellation so a dead
+        query's window share does not wait for the next caller's
+        put)."""
+        self._sweep()
 
     def drain(self) -> None:
         """Block (bounded by the acquire timeout per entry) until every

@@ -262,6 +262,12 @@ class Project(LogicalPlan):
                 out |= c.references()
         return out
 
+    def is_simple(self) -> bool:
+        """True when every entry is a plain column name (the shape the
+        rewrite rules, bucketed chains and the batch lane reason
+        about)."""
+        return all(isinstance(c, str) for c in self.columns)
+
     @property
     def schema(self) -> Schema:
         memo = self.__dict__.get("_schema_memo")

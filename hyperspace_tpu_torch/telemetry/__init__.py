@@ -36,9 +36,9 @@ decomposed into a closed segment set), `flight` (the ring of recent
 queries and the slow-query dump), `artifact` and `diff` (the canonical
 bench artifact and the regression differ), `timeseries`, `alerts`,
 `history`, `profiler` (host stack sampling and `torch.profiler`
-captures) and `ops_server` (the pull-based HTTP endpoints). Deadlines
-belong to the serving plane and are not part of this package yet
-(`ROADMAP.md`).
+captures) and `ops_server` (the pull-based HTTP endpoints). The active query's
+deadline rides the same contextvar scoping as the recorder
+(`deadline_scope`, `check_deadline`).
 """
 
 from __future__ import annotations
@@ -76,6 +76,7 @@ from hyperspace_tpu_torch.telemetry.memory import (DeviceMemoryAccountant,
 
 __all__ = [
     "QueryMetrics", "OperatorRecord", "current", "recording",
+    "current_deadline", "deadline_scope", "check_deadline",
     "propagating", "event", "annotate", "add_seconds", "add_count",
     "DEFAULT_TENANT", "current_tenant", "tenant_scope", "charge_tenant",
     "known_tenants", "tenant_digest", "TENANT_CHARGE_COUNTERS",
@@ -91,6 +92,18 @@ __all__ = [
 
 _current: contextvars.ContextVar[Optional["QueryMetrics"]] = \
     contextvars.ContextVar("hyperspace_query_metrics", default=None)
+
+# The active query's Deadline (`engine/scheduler.Deadline`) rides the
+# SAME contextvar scoping as the recorder: set by the scheduler around
+# execution, carried across the engine's pool threads by
+# `propagating(...)`, read by the cooperative-cancellation checkpoints
+# (`check_deadline`) at operator / transfer-chunk / segment-fill /
+# sorted-run-write boundaries. The var lives HERE (not in the
+# scheduler) because every checkpoint module already imports telemetry
+# — the hooks stay one ContextVar read + None check when serving
+# features are off, the same always-off contract as the recorder.
+_deadline: contextvars.ContextVar = \
+    contextvars.ContextVar("hyperspace_query_deadline", default=None)
 
 # The active TENANT identity rides the same contextvar scoping as the
 # recorder: set by `tenant_scope`, carried across pool threads by
@@ -113,6 +126,35 @@ _known_tenants_lock = threading.Lock()
 def current() -> Optional["QueryMetrics"]:
     """The recorder of the query executing on this thread, or None."""
     return _current.get()
+
+
+def current_deadline():
+    """The Deadline of the query executing on this thread, or None."""
+    return _deadline.get()
+
+
+@contextmanager
+def deadline_scope(deadline):
+    """Make `deadline` the active cancellation token for the calling
+    context (None is allowed and makes the scope a no-op carrier)."""
+    token = _deadline.set(deadline)
+    try:
+        yield deadline
+    finally:
+        _deadline.reset(token)
+
+
+def check_deadline(phase: str) -> None:
+    """Cooperative-cancellation checkpoint: raises the active
+    deadline's typed error (QueryCancelledError /
+    QueryDeadlineExceededError, tagged with `phase`) when the query
+    was cancelled or its deadline passed; no-op without an active
+    deadline. `phase` names what the raise would interrupt —
+    scan/operator/transfer/write — so timeout clusters are
+    attributable to a bucket (`telemetry/diff.py`), not `residual`."""
+    d = _deadline.get()
+    if d is not None:
+        d.check(phase)
 
 
 @contextmanager
@@ -174,8 +216,11 @@ def tenant_digest() -> Dict[str, Dict[str, float]]:
     """{tenant: {charge counter: value}} for every known tenant, read
     from the registry's `tenant.<id>.*` mirrors. Tenants with zero
     usage are included (the default tenant always appears), so a
-    consumer can verify the exactness contract by summing columns."""
-    counters = get_registry().counters_dict()
+    consumer can verify the exactness contract by summing columns.
+    Values are the registry's unrounded counters (`series_snapshot`):
+    a rounded seconds counter would break the sums it exists to
+    check."""
+    counters = get_registry().series_snapshot()["counters"]
     out: Dict[str, Dict[str, float]] = {}
     for t in known_tenants():
         out[t] = {name: counters.get(f"tenant.{t}.{name}", 0)
@@ -199,15 +244,19 @@ def propagating(fn):
     """Wrap `fn` for execution on another thread (the engine's pools),
     carrying over the active recorder, the caller's position in the
     operator tree and the active tenant — contextvars do not cross
-    thread boundaries on their own."""
+    thread boundaries on their own. The active Deadline rides along
+    too: a cancelled query's pool-side subtree hits the same
+    cooperative checkpoints its main thread does."""
     rec = _current.get()
+    deadline = _deadline.get()
     tenant = _tenant.get()
-    if rec is None and tenant is None:
+    if rec is None and deadline is None and tenant is None:
         return fn
     parent = rec._current_op_id() if rec is not None else None
 
     def run(*args, **kwargs):
         token = _current.set(rec)
+        dtoken = _deadline.set(deadline)
         ttoken = _tenant.set(tenant)
         if rec is not None:
             rec._adopt_parent(parent)
@@ -217,6 +266,7 @@ def propagating(fn):
             if rec is not None:
                 rec._clear_adoption()
             _tenant.reset(ttoken)
+            _deadline.reset(dtoken)
             _current.reset(token)
 
     return run
@@ -334,8 +384,12 @@ class QueryMetrics:
         # (`telemetry/memory.py` samples at link transfers).
         self.peak_hbm_bytes = 0
         self.peak_hbm_per_device: Dict[str, int] = {}
-        # The tenant billed for the query (None = default tenant / no
-        # tenant scope); the flight ring inherits it.
+        # Serving dimensions, stamped by the scheduler and the batch
+        # lane: the batched-execution cohort this query rode ({"id",
+        # "size", ...}, None = solo) and the tenant billed for the query
+        # (None = default tenant / no tenant scope). The flight ring
+        # inherits both.
+        self.cohort: Optional[dict] = None
         self.tenant: Optional[str] = None
         # Latency anatomy, stamped at query finish by
         # `telemetry/critical_path.py`: the wall decomposed into the
@@ -546,6 +600,8 @@ class QueryMetrics:
             "compile": self.compile,
             "roofline": self.roofline,
         }
+        if self.cohort is not None:
+            out["cohort"] = dict(self.cohort)
         if self.tenant is not None:
             out["tenant"] = self.tenant
         if self.critical_path is not None:

@@ -1,7 +1,7 @@
 """Rule-driven alerting with evidence-bundled incidents.
 
-The operations plane OBSERVES — counters, windows, flight entries —
-but deciding "this is bad, look now" was left to a
+The operations plane so far OBSERVES — counters, windows, burn rates,
+flight entries — but deciding "this is bad, look now" was left to a
 human watching `/metrics`. This module closes that gap in-process, the
 same no-side-services discipline as everything else: declarative rules
 over the sampler's windowed series, evaluated on every tick, opening
@@ -17,21 +17,19 @@ dips below `threshold` — no flapping at the boundary). Every knob is
 conf-tunable and every rule conf-disableable via
 `spark.hyperspace.telemetry.alerts.rule.<name>.*`.
 
-**Default rules** (the JAX package's whose series this package sets):
-segment-cache hit-rate collapse and rebuild storms (`compile.traces`
-still rising while warm). Its other rules (SLO burn, admission
-headroom, breaker opens, queue saturation, ingest staleness) read what
-only the serving and ingest planes set; they arrive with those planes.
-Every rule kind but `burn` is here, so a conf or test can declare such
-rules over any series.
+**Default rules** (the JAX package's): SLO burn > 1
+(eating error budget faster than earned), segment-cache hit-rate
+collapse, retrace storms (`compile.traces` still rising while warm),
+HBM admission headroom exhausted, breaker opens, and queue-depth
+saturation.
 
 **Incidents.** A firing rule opens ONE incident (repeat breaches while
 it is open are counted `alerts.suppressed`, not duplicated), attaches
 an evidence bundle — registry snapshot, sliding-window quantiles,
 recent flight entries with critical paths, a slowlog-style dump of the
 slowest recent query, and a rate-limited `profiler.request_capture`
-device trace (`torch.profiler`) — transitions firing→resolved with
-exact counter agreement (`alerts.fired - alerts.resolved == active incidents`,
+device trace (`torch.profiler`) — transitions firing→resolved with exact counter
+agreement (`alerts.fired - alerts.resolved == active incidents`,
 always), and persists into the durable history store
 (`telemetry/history.py`) at both transitions. Live state is served at
 the `/alerts` ops endpoint and as the `incidents` section of
@@ -59,10 +57,9 @@ RECENT_INCIDENTS = 32
 
 
 class AlertRule:
-    """One declarative rule. `kind` selects the value source (the JAX
-    package's kinds; its ``burn`` kind reads the serving plane's SLO
-    burn rate and waits for a scheduler here):
+    """One declarative rule. `kind` selects the value source:
 
+    - ``burn``         — scheduler SLO burn rate (decayed live read)
     - ``window_rate``  — per-second rate of counter `series` over
                          `window_s`
     - ``window_delta`` — raw counter delta of `series` over `window_s`
@@ -119,12 +116,25 @@ class AlertRule:
                 "description": self.description}
 
 
+def _hbm_budget(conf) -> float:
+    return float(conf.serve_hbm_budget_bytes) if conf is not None else 0.0
+
+
+def _queue_bound(conf) -> float:
+    return float(conf.serve_queue_depth) if conf is not None else 0.0
+
+
 # The shipped rule set. Thresholds are starting points, each tunable
 # via `telemetry.alerts.rule.<name>.{threshold,clear,sustain.seconds,
 # window.seconds,enabled}`. Names, series, thresholds and descriptions
 # are the JAX package's, so both packages open the same incidents on
 # the same ticks.
 DEFAULT_RULES: List[AlertRule] = [
+    AlertRule(
+        "slo_burn", "burn", "serve.slo.burn_rate",
+        threshold=1.0, clear=0.5, sustain_s=3.0,
+        description="SLO error budget burning faster than earned "
+                    "(burn rate > 1 over the SLO window)"),
     AlertRule(
         "segcache_hit_collapse", "hit_ratio", "cache.segments",
         threshold=0.5, clear=0.75, direction="below", sustain_s=5.0,
@@ -137,6 +147,29 @@ DEFAULT_RULES: List[AlertRule] = [
         warm_counter="queries.total", warm_min=50,
         description="compilation still tracing while warm — shape "
                     "churn defeating the executable cache"),
+    AlertRule(
+        "hbm_headroom", "gauge_frac", "serve.admitted_bytes",
+        threshold=0.95, clear=0.80, sustain_s=5.0,
+        capacity_of=_hbm_budget,
+        description="admitted HBM bytes above 95% of the serving "
+                    "budget — admission about to reject"),
+    AlertRule(
+        "breaker_open", "window_delta", "resilience.breaker.opened",
+        threshold=0.0, clear=0.5, sustain_s=0.0,
+        description="an index degradation circuit breaker opened in "
+                    "the window"),
+    AlertRule(
+        "queue_saturation", "gauge_frac", "serve.queue_depth",
+        threshold=0.9, clear=0.5, sustain_s=5.0,
+        capacity_of=_queue_bound,
+        description="wait queue above 90% of its bound — next "
+                    "arrivals will be rejected"),
+    AlertRule(
+        "ingest_staleness", "gauge", "ingest.staleness.seconds",
+        threshold=30.0, clear=10.0, sustain_s=5.0,
+        description="index staleness above 30 s sustained — appends "
+                    "outrunning incremental refresh (coordinator "
+                    "deferred, conceding, or failing)"),
 ]
 
 
@@ -202,6 +235,9 @@ class AlertManager:
         if rule.warm_counter and \
                 reg.counter(rule.warm_counter).value < rule.warm_min:
             return None  # not warm yet: the rule is not meaningful
+        if rule.kind == "burn":
+            from hyperspace_tpu_torch.engine.scheduler import get_scheduler
+            return get_scheduler().slo.refresh(conf)
         if rule.kind == "gauge":
             return reg.gauge(rule.series).value
         if rule.kind == "gauge_frac":
@@ -428,11 +464,16 @@ class AlertManager:
             return profiler.request_capture(
                 conf, reason=f"incident:{rule.name}")
 
+        def _slo():
+            from hyperspace_tpu_torch.engine.scheduler import get_scheduler
+            return get_scheduler().slo_snapshot(conf)
+
         section("registry", _registry.get_registry().to_dict)
         section("window_quantiles", _windows)
         section("flight", _flight)
         section("slowlog", _slowlog)
         section("device_profile", _capture)
+        section("slo", _slo)
         return evidence
 
     def _persist(self, incident: dict, conf) -> None:

@@ -139,7 +139,8 @@ def tenant_cost_digest() -> dict:
 
     telemetry.compilation.resolve_pending()
     usage = telemetry.tenant_digest()
-    counters = telemetry.get_registry().counters_dict()
+    # Unrounded, like the digest: the sums are compared bit for bit.
+    counters = telemetry.get_registry().series_snapshot()["counters"]
     totals = {name: sum(u.get(name, 0) for u in usage.values())
               for name in telemetry.TENANT_CHARGE_COUNTERS}
     global_ = {name: counters.get(name, 0)

@@ -55,7 +55,8 @@ from hyperspace_tpu_torch.telemetry import registry as _registry
 
 __all__ = ["instrumented_device", "record_build", "record_cache_hit",
            "REGISTRY", "entry_point_costs", "configure_persistent_cache",
-           "persistent_cache_dir", "resolve_query", "resolve_pending"]
+           "persistent_cache_dir", "resolve_query", "resolve_pending",
+           "aot_warmup", "reset_aot_memo"]
 
 # name -> instrumented wrapper.
 REGISTRY: Dict[str, object] = {}
@@ -206,12 +207,15 @@ def _event_pair():
 def _settle(calls, rec) -> None:
     """Charge a batch of finished calls, each (name, timing, tenant,
     cost): timing is seconds, an event pair, or None for an untimed
-    call; cost is (flops, bytes) or None. One counter update per series: device seconds, dispatches and modeled cost, to
-    the process, to each call's tenant and, with `rec`, to that query.
+    call; cost is (flops, bytes) or None. One counter update per series:
+    device seconds, dispatches and modeled cost, to the process, to each
+    call's tenant and, with `rec`, to that query (which also gets each
+    entry point's own seconds as `device.<name>.dispatch_s`).
     An event pair is waited for, read and returned to the pool."""
     from hyperspace_tpu_torch import telemetry
 
     seconds: Dict[str, float] = {}
+    named_seconds: Dict[str, float] = {}
     costs: Dict[Tuple[str, str], list] = {}
     dispatches: Dict[str, int] = {}
     for name, timing, tenant, cost in calls:
@@ -222,6 +226,7 @@ def _settle(calls, rec) -> None:
             _free_events.append((start, end))
         if timing is not None:
             seconds[tenant] = seconds.get(tenant, 0.0) + timing
+            named_seconds[name] = named_seconds.get(name, 0.0) + timing
         dispatches[name] = dispatches.get(name, 0) + 1
         if cost is not None:
             acc = costs.setdefault((name, tenant), [0.0, 0.0])
@@ -249,6 +254,8 @@ def _settle(calls, rec) -> None:
     rec.add_count("device.dispatches", sum(dispatches.values()))
     for name, n in dispatches.items():
         rec.add_count(f"device.{name}.dispatches", n)
+    for name, sec in named_seconds.items():
+        rec.add_seconds(f"device.{name}.dispatch_s", sec)
     for (name, _tenant), (flops, nbytes) in costs.items():
         rec.add_seconds("device.flops", flops)
         rec.add_seconds("device.bytes_accessed", nbytes)
@@ -273,6 +280,51 @@ def resolve_pending() -> None:
         _pending.clear()
     if calls:
         _settle(calls, None)
+
+
+# Warm-start keys already primed this process (one per (index root,
+# version, predicate shape, rows, cohort bucket, dtypes, device) for the
+# batched serve lane). The memo makes priming idempotent — a server
+# warming on every index open never re-pays an executed warmup.
+_aot_keys: set = set()
+_aot_lock = threading.Lock()
+
+
+def reset_aot_memo() -> None:
+    """Forget which warmup keys ran (tests simulating a fresh
+    process)."""
+    with _aot_lock:
+        _aot_keys.clear()
+
+
+def aot_warmup(key: tuple, fn, args_fn) -> bool:
+    """Prime an entry point for one canonical shape, once per `key`:
+    call `fn(*args_fn())` now — at index-open time — instead of inside
+    the first serving query. The JAX package's counterpart makes jax
+    trace and compile the program here; eager torch has no program to
+    compile, so the call is one real dispatch of the entry point on
+    dummy arguments: it warms the CUDA caching allocator for the
+    shape's [K, N] outputs and the device seam's timing events, and
+    compiles nothing (it counts no `compile.traces`). Returns True iff
+    the warmup ran (False: memo hit, or the attempt failed — warm-start
+    is an optimization, never a failure). Counted under the JAX
+    package's names as `compile.aot.{warmups,memo_hits,errors}`."""
+    with _aot_lock:
+        if key in _aot_keys:
+            _registry.get_registry().counter("compile.aot.memo_hits").inc()
+            return False
+        _aot_keys.add(key)
+    try:
+        fn(*args_fn())
+        _registry.get_registry().counter("compile.aot.warmups").inc()
+        return True
+    except Exception:
+        import logging
+        logging.getLogger(__name__).warning(
+            "warmup failed for %r (serving proceeds; the first query of "
+            "this shape runs cold)", key, exc_info=True)
+        _registry.get_registry().counter("compile.aot.errors").inc()
+        return False
 
 
 def instrumented_device(name: str, fn: Optional[Callable] = None, *,

@@ -1,8 +1,8 @@
 """Per-query critical-path extraction: where did this query's wall GO.
 
 The recorder (`telemetry/__init__.py`) captures every timed fact about
-one execution — cache-fill waits, library builds, device seconds, link
-transfers — as a flat counter bag. This module turns that bag into a
+one execution — queue wait, batch gather, cache-fill waits, library
+builds, device seconds, link transfers — as a flat counter bag. This module turns that bag into a
 LATENCY ANATOMY: every completed query's wall is decomposed into a
 CLOSED set of segments (the same set as the JAX package's, so the two
 packages' decompositions compare key for key),
@@ -19,8 +19,8 @@ packages' decompositions compare key for key),
     host_python      the residual: host orchestration the other
                      segments cannot claim (decode, planning, python)
 
-The first three are fed by the serving plane, which this package does
-not have yet; they stay 0.0 here. The segments sum EXACTLY to the
+The first three are fed by the serving plane (`engine/scheduler.py`,
+`engine/batcher.py`). The segments sum EXACTLY to the
 measured query wall, because the residual is defined as wall minus the
 attributed segments. The residual is SIGNED — a query whose device
 work overlaps its link transfers can attribute more seconds than its
@@ -29,9 +29,8 @@ overlap is also reported as `overlap_s`).
 
 Three surfaces:
 
-- **per query**: `stamp(metrics)` (called at query finish,
-  `engine/dataframe.finish_query`) attaches the decomposition as
-  `metrics.critical_path`, so flight-ring entries, slow-query dumps,
+- **per query**: `stamp(metrics)` (called by the scheduler at query
+  finish) attaches the decomposition as `metrics.critical_path`, so flight-ring entries, slow-query dumps,
   and `to_dict()` trees carry their own anatomy;
 - **windowed**: each stamped query feeds `critpath.<segment>.seconds`
   registry counters (plus `critpath.wall.seconds`); the timeseries

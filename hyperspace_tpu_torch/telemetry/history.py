@@ -1,8 +1,8 @@
 """Durable on-lake telemetry history: trend memory that survives the
 process.
 
-Every other observability surface — registry, sampler ring, flight
-recorder — is in-process and evaporates on exit, so trend questions
+Every other observability surface — registry, sampler ring, SLO burn,
+flight recorder — is in-process and evaporates on exit, so trend questions
 ("is warm p99 creeping week over week?", "when did the cache hit rate
 collapse?") need a record that outlives the process. The source paper's core discipline is
 that ALL index data and metadata live on the lake with no side
@@ -10,7 +10,8 @@ services; telemetry history is metadata and gets the same treatment:
 
 - **Writer** — `TelemetryHistory.flush()` assembles one append-only,
   schema-versioned SEGMENT document (registry snapshot, the sampler
-  samples since the previous flush, a flight-ring digest, and any incidents the alert manager handed over) and
+  samples since the previous flush, SLO/burn state, a flight-ring
+  digest, and any incidents the alert manager handed over) and
   publishes it atomically (tmp + rename via
   `file_utils.atomic_publish`, the action-report discipline — a
   reader never sees a torn segment from a live writer) under
@@ -39,8 +40,7 @@ services; telemetry history is metadata and gets the same treatment:
 This module is the ONE place history segments are written. The
 segment format is the JAX package's (`kind`
 "hyperspace-telemetry-history", `SCHEMA_VERSION` 1), so either package
-merges the other's segments; the serving plane's SLO snapshot, which
-the JAX package adds to each segment, waits for a scheduler here.
+merges the other's segments.
 """
 
 from __future__ import annotations
@@ -166,6 +166,14 @@ class TelemetryHistory:
             "registry": _registry.get_registry().to_dict(),
             "samples": samples,
         }
+        # SLO/burn state rides every segment so a post-hoc reader can
+        # place an incident in its burn context without the sampler
+        # having been running.
+        try:
+            from hyperspace_tpu_torch.engine.scheduler import get_scheduler
+            doc["slo"] = get_scheduler().slo_snapshot(conf)
+        except Exception as exc:
+            doc["slo"] = {"error": repr(exc)}
         try:
             doc["flight"] = self._flight_digest()
         except Exception as exc:

@@ -15,12 +15,13 @@ read-only endpoints, at the same paths:
   scrape first takes a fresh sampler tick when the last one is older
   than the sampling interval, so the window gauges a scraper reads are
   never staler than its own scrape period.
-- **`/healthz`** — one JSON document of engine state: segment-cache
-  residency, the flight ring grouped by tenant, the incident plane,
-  and the per-index usage report. The JAX package's serving-plane
-  sections (scheduler pressure and SLO burn, breakers, replica routing,
-  tenant admission) wait for the ported scheduler and replica router;
-  the document leaves those keys out.
+- **`/healthz`** — one JSON document of serving-plane state: scheduler
+  pressure and SLO burn, per-index breaker states, segment-cache
+  residency, per-tenant admission and usage, the flight ring grouped
+  by tenant, the incident plane, and the per-index usage report. The
+  JAX package's replica-routing section belongs to multi-device
+  serving, which this package has not got; the document leaves it
+  out.
 - **`/timeseries`** — the sampler's ring as JSON (the raw material of
   the `/metrics` window gauges, for dashboards that want the history
   rather than the trailing point). `?since=<seq>` returns only ticks
@@ -87,6 +88,19 @@ def healthz_doc() -> dict:
         except Exception as exc:
             doc[name] = {"error": repr(exc)}
 
+    def _scheduler():
+        from hyperspace_tpu_torch.engine.scheduler import get_scheduler
+        sched = get_scheduler()
+        out = sched.pressure()
+        out["active_queries"] = sched.active_queries()
+        out["peak_admitted_bytes"] = sched.peak_admitted_bytes
+        out["slo"] = sched.slo_snapshot()
+        return out
+
+    def _breakers():
+        from hyperspace_tpu_torch.engine.scheduler import get_scheduler
+        return get_scheduler().breakers.snapshot()
+
     def _segments():
         from hyperspace_tpu_torch.io import segcache
         return segcache.get_cache().snapshot()
@@ -101,6 +115,15 @@ def healthz_doc() -> dict:
             by_tenant[t] = by_tenant.get(t, 0) + 1
         return {"ring": len(entries), "last_seq": rec.last_seq,
                 "by_tenant": by_tenant}
+
+    def _tenants():
+        from hyperspace_tpu_torch.engine.scheduler import get_scheduler
+        from hyperspace_tpu_torch.telemetry import tenant_digest
+        sched = get_scheduler()
+        out = sched.tenant_snapshot()
+        for t, usage in tenant_digest().items():
+            out.setdefault(t, {})["usage"] = usage
+        return out
 
     def _incidents():
         from hyperspace_tpu_torch.telemetry import alerts
@@ -126,8 +149,11 @@ def healthz_doc() -> dict:
         return {"indexes": rows,
                 "unused": [r["index"] for r in rows if r["unused"]]}
 
+    section("scheduler", _scheduler)
+    section("breakers", _breakers)
     section("segments", _segments)
     section("flight", _flight)
+    section("tenants", _tenants)
     section("incidents", _incidents)
     section("index_usage", _index_usage)
     return doc

@@ -419,8 +419,8 @@ def maybe_capture_on_burn(conf, burn_rate: float) -> Optional[str]:
     (eating error budget faster than earning it), grab a device profile
     of the incident while it is still happening. The rate limit in
     `request_capture` makes a sustained burn produce a trickle of
-    captures, not a flood. (The burn rate is the serving plane's; this
-    package has no caller yet.)"""
+    captures, not a flood. The scheduler calls it at query finish
+    (`engine/scheduler.py`)."""
     if burn_rate is None or burn_rate <= 1.0:
         return None
     return request_capture(conf, reason=f"slo-burn:{burn_rate:.2f}")

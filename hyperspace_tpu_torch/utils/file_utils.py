@@ -1,7 +1,7 @@
 """Filesystem utilities: local/posix fast paths + fsspec URLs.
 
 Parity: reference `util/FileUtils.scala:37-116` (createFile, readContents,
-getDirectorySize, createDirectory, delete) — the
+getDirectorySize, createDirectory, delete, save/loadByteArray) — the
 reference goes through the Hadoop FileSystem API, which is what lets it
 run on HDFS/ABFS unchanged; here plain paths use os/posix directly and
 `scheme://` paths route through fsspec (`utils/storage.py`). Atomicity
@@ -14,11 +14,15 @@ import os
 import shutil
 import uuid
 
-from hyperspace_tpu_torch.utils import storage
+from hyperspace_tpu_torch.utils import faults, storage
 
 
 def create_file(path: str, contents: str) -> None:
+    directive = faults.fire("file.create", path)
     data = contents.encode("utf-8")
+    if directive == faults.TORN:
+        # Writer "dies" mid-write: a prefix of the payload lands.
+        data = data[:max(1, len(data) // 2)]
     if storage.is_url(path):
         fs, real = storage.get_fs(path)
         fs.makedirs(os.path.dirname(real), exist_ok=True)
@@ -28,9 +32,12 @@ def create_file(path: str, contents: str) -> None:
         create_directory(os.path.dirname(path))
         with open(path, "wb") as f:
             f.write(data)
+    if directive == faults.TORN:
+        raise faults.TornWriteError(f"injected torn write at {path}")
 
 
 def read_contents(path: str) -> str:
+    faults.fire("file.read", path)
     if storage.is_url(path):
         fs, real = storage.get_fs(path)
         with fs.open(real, "rb") as f:
@@ -85,6 +92,7 @@ def is_file(path: str) -> bool:
 
 
 def delete(path: str) -> None:
+    faults.fire("file.delete", path)
     if storage.is_url(path):
         fs, real = storage.get_fs(path)
         if fs.exists(real):
@@ -97,11 +105,35 @@ def delete(path: str) -> None:
 
 
 def remove_file(path: str) -> None:
+    faults.fire("file.delete", path)
     if storage.is_url(path):
         fs, real = storage.get_fs(path)
         fs.rm_file(real)
         return
     os.remove(path)
+
+
+def save_byte_array(path: str, data: bytes) -> None:
+    faults.fire("file.write", path)
+    if storage.is_url(path):
+        fs, real = storage.get_fs(path)
+        fs.makedirs(os.path.dirname(real), exist_ok=True)
+        with fs.open(real, "wb") as f:
+            f.write(data)
+        return
+    create_directory(os.path.dirname(path))
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def load_byte_array(path: str) -> bytes:
+    faults.fire("file.read", path)
+    if storage.is_url(path):
+        fs, real = storage.get_fs(path)
+        with fs.open(real, "rb") as f:
+            return f.read()
+    with open(path, "rb") as f:
+        return f.read()
 
 
 def atomic_publish(path: str, contents: str) -> None:
@@ -121,15 +153,26 @@ def atomic_publish(path: str, contents: str) -> None:
     writer finishes; a half-written latestStable used to parse as
     corruption)."""
     data = contents.encode("utf-8")
+    directive = faults.fire("file.publish", path)
     if storage.is_url(path):
         fs, real = storage.get_fs(path)
         fs.makedirs(os.path.dirname(real), exist_ok=True)
+        if directive == faults.TORN:
+            # The torn upload never completes: no object materializes,
+            # the previous one (if any) stays intact.
+            raise faults.TornWriteError(f"injected torn publish at {path}")
         fs.pipe_file(real, data)
         return
     create_directory(os.path.dirname(path))
     tmp = path + ".tmp" + uuid.uuid4().hex
     try:
         with open(tmp, "wb") as f:
+            if directive == faults.TORN:
+                f.write(data[:max(1, len(data) // 2)])
+                f.flush()
+                os.fsync(f.fileno())
+                raise faults.TornWriteError(
+                    f"injected torn publish at {path}")
             f.write(data)
             f.flush()
             os.fsync(f.fileno())
@@ -158,6 +201,7 @@ def atomic_write_if_absent(path: str, contents: str,
     check-then-create semantics.
     Returns True iff this caller won the write.
     """
+    faults.fire("file.write_if_absent", path)
     if storage.is_url(path):
         from hyperspace_tpu_torch.exceptions import HyperspaceException
         try:

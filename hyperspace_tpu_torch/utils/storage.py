@@ -147,6 +147,9 @@ def exclusive_create(path: str, data: bytes) -> bool:
     (reference `IndexLogManager.scala:139-156`)."""
     import os
 
+    from hyperspace_tpu_torch.utils import faults
+
+    faults.fire("storage.exclusive_create", path)
     fs, real = get_fs(path)
     fs.makedirs(posixpath.dirname(real) or os.path.dirname(real),
                 exist_ok=True)

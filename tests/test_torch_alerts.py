@@ -2,7 +2,8 @@
 (`telemetry/alerts.py`, `telemetry/history.py`) against the JAX
 package: the same scripted gauge and counter ticks make both packages'
 `AlertManager`s open and resolve the same incidents on the same ticks
-(every rule kind the port has: all but the serving plane's `burn`), and
+(every rule kind; the serving plane's `burn` kind reads each
+package's own scheduler), and
 `history.merge` / `trend_report` give equal results on the same segment
 files, whichever package wrote them.
 
@@ -57,18 +58,17 @@ def _counters(reg, *names):
     return tuple(c.get(n, 0) for n in names)
 
 
-# The JAX package's default rules whose series the port sets; the rest
-# read the serving and ingest planes' gauges and arrive with them.
-PORTED_RULES = ("segcache_hit_collapse", "retrace_storm")
-
-
 def test_default_rules_are_the_jax_packages_but_burn():
-    want = [r.to_dict() for r in jalerts.DEFAULT_RULES
-            if r.name in PORTED_RULES]
+    # Since the serving plane is ported, every default rule is the JAX
+    # package's, `slo_burn` and the serving and ingest rules included
+    # (each reads a series the port's scheduler or ingest coordinator
+    # sets); the scripted rules below drive every kind but `burn`,
+    # which reads each package's own scheduler.
+    want = [r.to_dict() for r in jalerts.DEFAULT_RULES]
     assert [r.to_dict() for r in alerts.DEFAULT_RULES] == want
-    assert {r.kind for r in alerts.DEFAULT_RULES} == {
-        "hit_ratio", "window_rate"}
-    # Every kind but `burn` is ported: the scripted rules below drive them.
+    assert {r.name for r in alerts.DEFAULT_RULES} >= {
+        "slo_burn", "hbm_headroom", "queue_saturation", "breaker_open",
+        "ingest_staleness"}
     assert ({r.kind for r in jalerts.DEFAULT_RULES} - {"burn"}
             <= set(KINDS))
 
@@ -220,7 +220,7 @@ def test_evidence_bundle_and_incident_persistence(tmp_path):
         (incident,) = m.evaluate(now=50.0)
         ev = incident["evidence"]
         assert set(ev) == {"captured_at", "registry", "window_quantiles",
-                           "flight", "slowlog", "device_profile"}
+                           "flight", "slowlog", "slo", "device_profile"}
         assert ev["slowlog"]["kind"] == "hyperspace-slowlog"
         assert ev["flight"][-1]["critical_path"]["segments"]
         assert ev["device_profile"] is None   # capture not armed
@@ -230,7 +230,7 @@ def test_evidence_bundle_and_incident_persistence(tmp_path):
         assert skipped == 0
         assert [s["incidents"][0]["state"] for s in segs] == \
             ["firing", "resolved"]
-        assert "slo" not in segs[0]
+        assert set(segs[0]["slo"]) >= {"window_queries", "burn_rate"}
         hs = ths.Hyperspace(ths.HyperspaceSession(HyperspaceConf({
             "spark.hyperspace.warehouse.dir": str(tmp_path / "wh")}),
             device="cpu"))

@@ -663,3 +663,83 @@ def test_card_memory_sample_reads_the_allocators_counters(card):
     assert sample["cuda:0"] == (st["allocated_bytes.all.current"],
                                 st["allocated_bytes.all.peak"])
     assert sample["cuda:0"][0] >= held.numel()
+
+
+@pytest.mark.parametrize("kb", [2, 16])
+def test_card_batched_masks_equal_the_cpu_evaluation(card, kb):
+    """The batch lane's [K_b, N] masks on the card (every term kind,
+    float32/float64/int columns, int and float literals, validity)
+    equal the same program evaluated on the CPU, and stay on the
+    card."""
+    from hyperspace_tpu_torch.parallel import spmd
+
+    rng = np.random.default_rng(kb)
+    n = 100_003
+    datas = ((rng.integers(-9, 9, n) / 4.0).astype(np.float32),
+             rng.integers(-9, 9, n).astype(np.int64),
+             rng.random(n), rng.integers(-9, 9, n).astype(np.int32))
+    valids = (rng.random(n) > 0.2, None, rng.random(n) > 0.5, None)
+    shape = (("cmp", "ge", 0, "f"), ("cmp", "ne", 1, "i"),
+             ("cmp", "lt", 2, "f"), ("in", 3, 4), ("cmp", "gt", 3, "f"),
+             ("notnull", 2), ("isnull", 1))
+    iconst = rng.integers(-9, 9, (kb, 5)).astype(np.int64)
+    fconst = rng.random((kb, 3)) * 4 - 2
+    want = spmd.batched_predicate_masks(shape, datas, valids, iconst,
+                                        fconst)
+    got = spmd.batched_predicate_masks(
+        shape, tuple(torch.from_numpy(d).to(card) for d in datas),
+        tuple(None if v is None else torch.from_numpy(v).to(card)
+              for v in valids), iconst, fconst)
+    assert got.device.type == "cuda" and got.shape == (kb, n)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_card_concurrent_collect_burst_coalesces(card, tmp_path):
+    """A burst of same-shape point queries on a CUDA session goes through
+    the scheduler and the batch lane: every result equals its solo run,
+    at least one cohort formed, nothing fell back."""
+    import threading
+
+    from hyperspace_tpu_torch import (HyperspaceConf, HyperspaceSession,
+                                      col, lit, telemetry)
+    from hyperspace_tpu_torch.engine import batcher, scheduler
+
+    scheduler.set_scheduler(scheduler.QueryScheduler())
+    batcher.set_batcher(batcher.QueryBatcher())
+    rng = np.random.default_rng(9)
+    n = 1 << 20
+    src = tmp_path / "facts"
+    src.mkdir()
+    pq.write_table(pa.table({
+        "k": rng.integers(0, 1000, n).astype(np.int64),
+        "g": rng.integers(0, 32, n).astype(np.int64),
+        "v": rng.random(n)}), str(src / "part-0.parquet"))
+    sess = HyperspaceSession(HyperspaceConf({
+        "spark.hyperspace.warehouse.dir": str(tmp_path / "wh"),
+        "spark.hyperspace.execution.min.device.rows": "0",
+        "spark.hyperspace.serve.batch.window.ms": "200"}))
+    facts = sess.read_parquet(str(src))
+    frames = [facts.filter(col("g") == lit(i)).select("k", "v")
+              for i in range(8)]
+    solo = [f.collect().sort_by([("k", "ascending"), ("v", "ascending")])
+            for f in frames]
+    reg = telemetry.get_registry()
+    inv0 = reg.counter("serve.batch.invocations").value
+    fb0 = reg.counter("serve.batch.fallbacks").value
+    got = [None] * len(frames)
+
+    def run(i):
+        got[i] = frames[i].collect()
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(frames))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(120)
+    assert not any(th.is_alive() for th in threads)
+    for a, b in zip(got, solo):
+        assert a.sort_by([("k", "ascending"), ("v", "ascending")]).equals(b)
+    assert reg.counter("serve.batch.invocations").value > inv0
+    assert reg.counter("serve.batch.fallbacks").value == fb0
+    assert scheduler.get_scheduler().admitted_bytes() == 0

@@ -56,6 +56,26 @@ def test_no_module_imports_jax_or_the_jax_package():
     assert offenders == []
 
 
+SERVING_MODULES = ("engine/scheduler.py", "engine/batcher.py",
+                   "engine/ingest.py", "utils/faults.py",
+                   "parallel/spmd.py")
+
+
+def test_serving_modules_stand_alone():
+    """The serving plane's modules are the package's own, and so is the
+    chaos harness `chip_smoke.py` loads on the machine without JAX; the
+    port's `parallel/spmd.py` holds only the batched predicate."""
+    files = set(_package_files())
+    for rel in SERVING_MODULES:
+        path = os.path.join(PACKAGE, *rel.split("/"))
+        assert path in files, rel
+        assert not [m for m in _imported_modules(path) if _forbidden(m)]
+    chaos = os.path.join(REPO, "tests", "torch_chaos.py")
+    assert not [m for m in _imported_modules(chaos) if _forbidden(m)]
+    from hyperspace_tpu_torch.parallel import spmd
+    assert spmd.__all__ == ["batched_predicate_masks"]
+
+
 def test_fresh_import_loads_neither_jax_nor_the_jax_package():
     modules = sorted(
         os.path.relpath(p, REPO)[:-3].replace(os.sep, ".")
