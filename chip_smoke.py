@@ -79,6 +79,22 @@ entry points:
   server's endpoints; and a cold and a warm pass of the three queries
   as canonical artifacts with their diff.
 
+- whole-stage fusion (`engine/fusion.py`, on by default as in the JAX
+  package, so every phase above runs fused): the warm range filter,
+  joins A and B, hybrid H3 and all 22 TPC-H and 99 TPC-DS queries also
+  run rules on with `execution.fusion.enabled` true and false, in
+  turns (twice each side, ABBA; the joins and H3 once), each against
+  its phase's oracle and fused against unfused
+  (one `fusion_query` line each: ms both ways, the stage count, fusion
+  lanes, stage-sync seconds, `fusion.run_stage` device seconds), summed
+  per rung on the `fusion` line — a record, not a speed gate;
+- the self-driving index advisor (`phase_advisor`): bench_advisor.py's
+  workload at 16,777,216 `facts` rows (its 40,000, scaled up; 2,097,152
+  `dims` rows), the filter and the join 4 times with no index,
+  `advisor().run_once()`, then 4 times again: at least one index built
+  (through the hash kernel), rules applied after, strictly fewer bytes
+  scanned, every result equal before and after and to numpy.
+
 Around the main path it also drives the host I/O layer: the native host
 library (built with `g++` from `hyperspace_tpu_torch/native/`; a `native`
 line with its build time and the time to hash TPC-H `o_comment`'s
@@ -529,6 +545,120 @@ def build_lanes(src_dir, card):
             "faster": min(best, key=best.get)}
 
 
+# -- whole-stage fusion: every rung's queries fused and unfused -------------
+
+FUSION_KEY = "spark.hyperspace.execution.fusion.enabled"
+# One record per query the phases ran both ways (`fusion_turns`), by rung;
+# the `fusion` line sums them.
+FUSION = []
+
+
+def same_result(a, b):
+    """(equal, identical): two result tables hold the same rows — floats
+    at rtol 1e-9, the port's float64 parity tolerance — and whether they
+    are the same table byte for byte, row order included."""
+    import pandas as pd
+
+    if a.equals(b):
+        return True, True
+    if a.schema.names != b.schema.names or a.num_rows != b.num_rows:
+        return False, False
+    names = list(a.schema.names)
+
+    def norm(t):
+        return (t.to_pandas().sort_values(names, na_position="last")
+                .reset_index(drop=True))
+
+    try:
+        pd.testing.assert_frame_equal(norm(a), norm(b), check_dtype=False,
+                                      check_exact=False, rtol=1e-9,
+                                      atol=0.0)
+    except AssertionError:
+        return False, False
+    return True, False
+
+
+def fusion_turns(rung, name, sess, frame, check_result, turn, rounds=2):
+    """Run `frame` rules on with whole-stage fusion on and off, in turns:
+    `rounds` runs each, ABBA (which side leads alternates with `turn`);
+    each result goes through the phase's own oracle check
+    `check_result(table, tag)`, and fused and unfused must hold the same
+    rows. Prints one `fusion_query` line: each side's runs and its
+    fastest, the fused run's stage count, fusion lanes, stage-sync
+    seconds and `fusion.run_stage` / `fusion.finalize_lazy` device
+    seconds."""
+    sess.enable_hyperspace()
+    lead = turn % 2 == 0
+    order = [lead, not lead, not lead, lead][:2 * rounds]
+    runs = {True: [], False: []}
+    for fused in order:
+        sess.conf.set(FUSION_KEY, "true" if fused else "false")
+        try:
+            t0 = time.perf_counter()
+            table, metrics = frame.collect(with_metrics=True)
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            sess.conf.unset(FUSION_KEY)
+        check_result(table, f"{rung} {name} fusion={'on' if fused else 'off'}")
+        runs[fused].append((ms, table, metrics))
+    equal, identical = same_result(runs[True][0][1], runs[False][0][1])
+    check(equal, f"{rung} {name}: fused and unfused results differ")
+    m = runs[True][-1][2]
+    c = m.counters
+    line = {"rung": rung, "name": name,
+            "fused_ms": min(r[0] for r in runs[True]),
+            "unfused_ms": min(r[0] for r in runs[False]),
+            "fused_runs_ms": [r[0] for r in runs[True]],
+            "unfused_runs_ms": [r[0] for r in runs[False]],
+            "rows": runs[True][0][1].num_rows,
+            "stages": sum(o.name == "FusedStage" for o in m.operators),
+            "fusion_lanes": m.summary()["fusion_lanes"],
+            "sync_s": c.get("fusion.sync_s", 0.0),
+            "run_stage_s": c.get("device.fusion.run_stage.dispatch_s", 0.0),
+            "finalize_s": c.get("device.fusion.finalize_lazy.dispatch_s",
+                                0.0),
+            "unfused_stages": sum(o.name == "FusedStage"
+                                  for o in runs[False][-1][2].operators),
+            "identical": identical}
+    check(line["unfused_stages"] == 0,
+          f"{rung} {name}: fusion off still ran fused stages")
+    emit("fusion_query", **line)
+    FUSION.append(line)
+    return line
+
+
+def fusion_summary():
+    """The `fusion` line: per rung, the fused and unfused sums and how
+    many queries got faster and slower fused. A record, not a speed
+    gate; it fails only if a rung is missing or no stage ran masked."""
+    rungs = {}
+    for q in FUSION:
+        r = rungs.setdefault(q["rung"], {
+            "queries": 0, "fused_ms": 0.0, "unfused_ms": 0.0, "faster": 0,
+            "slower": 0, "identical": 0, "stages": 0, "masked_device": 0,
+            "sync_s": 0.0, "run_stage_s": 0.0})
+        r["queries"] += 1
+        r["fused_ms"] += q["fused_ms"]
+        r["unfused_ms"] += q["unfused_ms"]
+        r["faster"] += q["fused_ms"] < q["unfused_ms"]
+        r["slower"] += q["fused_ms"] > q["unfused_ms"]
+        r["identical"] += q["identical"]
+        r["stages"] += q["stages"]
+        r["masked_device"] += q["fusion_lanes"].get("masked-device", 0)
+        r["sync_s"] += q["sync_s"]
+        r["run_stage_s"] += q["run_stage_s"]
+    check(rungs.get("tpch", {}).get("queries") == 22
+          and rungs.get("tpcds", {}).get("queries") == 99
+          and {"filter", "join", "hybrid"} <= set(rungs),
+          f"fusion: rungs {sorted((k, v['queries']) for k, v in rungs.items())}")
+    masked = sum(r["masked_device"] for r in rungs.values())
+    check(masked > 0, "fusion: no stage ran on the masked device lane")
+    return {"rungs": rungs, "queries": len(FUSION),
+            "faster": sum(r["faster"] for r in rungs.values()),
+            "slower": sum(r["slower"] for r in rungs.values()),
+            "masked_device_stages": masked}
+
+
 def phase_query(sess, df, root, cols):
     import numpy as np
 
@@ -551,13 +681,20 @@ def phase_query(sess, df, root, cols):
               f"{name} query not index-served: {roots}")
         table, metrics = frame.collect(with_metrics=True)
         (op,) = [o for o in metrics.operators if o.name == "Scan"]
-        ids = table.column("id").to_numpy()
-        order = np.argsort(ids)
         want = np.nonzero(mask)[0]
-        check(np.array_equal(ids[order], want), f"{name}: wrong rows")
-        check(np.array_equal(table.column("score").to_numpy()[order],
-                             cols["score"][want]), f"{name}: wrong scores")
+
+        def check_rows(table, tag, want=want):
+            ids = table.column("id").to_numpy()
+            order = np.argsort(ids)
+            check(np.array_equal(ids[order], want), f"{tag}: wrong rows")
+            check(np.array_equal(table.column("score").to_numpy()[order],
+                                 cols["score"][want]), f"{tag}: wrong scores")
+
+        check_rows(table, name)
+        ids = table.column("id").to_numpy()
         warm = wall_ms(frame.collect)
+        if name == "range":
+            fusion_turns("filter", name, sess, frame, check_rows, 0)
         out[name] = {"rows": len(ids), "lane": op.detail.get("lane"),
                      "buckets_scanned": op.detail.get("buckets_scanned"),
                      "warm_ms": warm}
@@ -692,6 +829,15 @@ def phase_join(hs, sess, df, work, cols):
               f"query {name}: rows differ from numpy")
         ops = operator_ms(metrics)
 
+        def check_rows(table, tag, want=want):
+            check(all(torch.equal(a, b) for a, b in zip(
+                canonical(table.column("id").to_numpy(),
+                          table.column("val").to_numpy()), want)),
+                  f"{tag}: rows differ from numpy")
+
+        fusion_turns("join", name, sess, frame, check_rows,
+                     buckets == EXCHANGE_BUCKETS, rounds=1)
+
         sess.disable_hyperspace()
         plain = frame.collect()
         check(all(torch.equal(a, b) for a, b in zip(
@@ -817,6 +963,9 @@ def phase_hybrid(hs, sess, work, cols, right_df, right):
         check((launched > 0) == (name == "H3"),
               f"hybrid {name}: partition kernel launched {launched} times")
         check_rows(name, table)
+        if name == "H3":
+            fusion_turns("hybrid", name, sess, frame,
+                         lambda t, _tag: check_rows("H3", t), 0, rounds=1)
         if name != "H1":
             sess.disable_hyperspace()
             check(all(torch.equal(a, b) for a, b in zip(
@@ -1065,7 +1214,7 @@ def phase_tpch(hs, sess, work):
     oracle_s = 0.0
     queries = {}
     passes = {p: {} for p in PASSES}
-    for name, (build, oracle) in QUERIES.items():
+    for turn, (name, (build, oracle)) in enumerate(QUERIES.items()):
         t0 = time.perf_counter()
         expected = oracle(pdfs)
         oracle_s += time.perf_counter() - t0
@@ -1095,6 +1244,9 @@ def phase_tpch(hs, sess, work):
         if name == "q1":
             check(_ipc_bytes(runs[0][1]) == _ipc_bytes(runs[1][1]),
                   "tpch q1: two rules-on runs gave different bytes")
+        fusion_turns("tpch", name, sess, frame,
+                     lambda table, tag: same(table.to_pandas(), expected,
+                                             tag), turn)
 
         ops = sorted(operator_ms(metrics), key=lambda o: -o["self_ms"])
         line = {"name": name, "rows": table.num_rows, "on_ms": on_ms,
@@ -1247,7 +1399,7 @@ def phase_tpcds(hs, sess, work):
     oracle_s = 0.0
     queries = {}
     passes = {p: {} for p in PASSES}
-    for name, (build, oracle) in QUERIES.items():
+    for turn, (name, (build, oracle)) in enumerate(QUERIES.items()):
         t0 = time.perf_counter()
         expected = oracle(pdfs)
         oracle_s += time.perf_counter() - t0
@@ -1272,6 +1424,9 @@ def phase_tpcds(hs, sess, work):
                            if o.name in TPCDS_DEVICE_OPERATORS
                            and o.detail.get("lane") == "host"})
         check(not host_ops, f"tpcds {name}: {host_ops} ran on a host batch")
+        fusion_turns("tpcds", name, sess, frame,
+                     lambda table, tag: same(table.to_pandas(), expected,
+                                             tag), turn)
 
         ops = sorted(operator_ms(metrics), key=lambda o: -o["self_ms"])
         line = {"name": name, "rows": table.num_rows, "on_ms": on_ms,
@@ -1722,11 +1877,13 @@ def phase_telemetry(hs, sess, df, work, fresh):
                   f"telemetry {name}: bytes_accessed "
                   f"{m.counters['device.bytes_accessed']} != {modeled}")
             # The gathers against this script's own formula (every
-            # column is int64 or float64): the range filter gathers its
-            # survivors of the four scanned columns; each join gathers
-            # the left `id` and the right `val` of every output row, and
-            # join B's Exchange reorders the right side's `key` and `val`.
-            want = {"range": gather_bytes(table.num_rows, [8] * 4),
+            # column is int64 or float64): the range filter's fused stage
+            # (its Filter a mask, its Project a selection, one
+            # compaction) gathers its survivors of the two projected
+            # columns; each join gathers the left `id` and the right
+            # `val` of every output row, and join B's Exchange reorders
+            # the right side's `key` and `val`.
+            want = {"range": gather_bytes(table.num_rows, [8] * 2),
                     "join_A": 2 * gather_bytes(table.num_rows, [8]),
                     "join_B": 2 * gather_bytes(table.num_rows, [8])
                     + gather_bytes(N_RIGHT, [8, 8])}[name]
@@ -2673,6 +2830,171 @@ def phase_serve(hs, sess, work, df, left_cols):
     return out
 
 
+# -- the self-driving index advisor (bench_advisor.py's workload) -----------
+
+ADVISOR_ROWS = 1 << 24          # facts rows (bench_advisor.py's 40,000, scaled up)
+ADVISOR_REPEATS = 4             # workload passes before and after the advisor
+ADVISOR_BUCKETS = 8
+ADVISOR_MAX_BUILDS = 6
+
+
+def write_advisor_source(work, seed=SEED + 11):
+    """bench_advisor.py's tables at ADVISOR_ROWS: facts(k int64 in
+    [0, ROWS/8), v float64, tag int32 in [0, 50)) and dims(k = 0..ROWS/8-1,
+    label int64 in [0, 9)), one file each."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rng = np.random.default_rng(seed)
+    facts = {"k": rng.integers(0, ADVISOR_ROWS // 8,
+                               ADVISOR_ROWS).astype(np.int64),
+             "v": rng.random(ADVISOR_ROWS),
+             "tag": rng.integers(0, 50, ADVISOR_ROWS).astype(np.int32)}
+    dims = {"k": np.arange(ADVISOR_ROWS // 8, dtype=np.int64),
+            "label": rng.integers(0, 9, ADVISOR_ROWS // 8).astype(np.int64)}
+    paths = {}
+    for name, cols in (("facts", facts), ("dims", dims)):
+        paths[name] = os.path.join(work, "advisor", name)
+        os.makedirs(paths[name])
+        pq.write_table(pa.table(cols),
+                       os.path.join(paths[name], "part-0.parquet"))
+    return paths, facts, dims
+
+
+def sorted_columns(table, names):
+    """`table`'s columns `names` on the card, rows ordered by the first
+    two (two stable sorts): the canonical form results compare in."""
+    import numpy as np
+    import torch
+
+    cols = [torch.from_numpy(np.require(table.column(n).to_numpy(),
+                                        requirements="W")).cuda()
+            for n in names]
+    perm = torch.sort(cols[1], stable=True).indices
+    perm = perm[torch.sort(cols[0][perm], stable=True).indices]
+    return [c[perm] for c in cols]
+
+
+def phase_advisor(work):
+    """bench_advisor.py's workload at ADVISOR_ROWS on the card: the
+    filter (`tag == 7` -> k, v, tag) and the join (facts JOIN dims ON k
+    -> k, v, label) ADVISOR_REPEATS times with no index, one
+    `advisor().run_once()`, then the workload again. Gates: an index
+    built, rules applied after, strictly fewer bytes scanned after,
+    every result equal before and after and to numpy."""
+    import numpy as np
+    import torch
+
+    from hyperspace_tpu_torch import (Hyperspace, HyperspaceConf,
+                                      HyperspaceSession, col, telemetry)
+
+    t0 = time.perf_counter()
+    paths, facts, dims = write_advisor_source(work)
+    out = {"rows": ADVISOR_ROWS, "dims_rows": ADVISOR_ROWS // 8,
+           "repeats": ADVISOR_REPEATS, "source_s": time.perf_counter() - t0}
+    sess = HyperspaceSession(HyperspaceConf({
+        "spark.hyperspace.warehouse.dir": os.path.join(work, "advisor",
+                                                       "wh"),
+        "spark.hyperspace.index.num.buckets": str(ADVISOR_BUCKETS),
+        "spark.hyperspace.advisor.max.builds": str(ADVISOR_MAX_BUILDS)}))
+    sess.enable_hyperspace()
+    hs = Hyperspace(sess)
+    # The advisor mines the process flight ring: only this workload.
+    telemetry.get_recorder().clear()
+    f = sess.read_parquet(paths["facts"])
+    d = sess.read_parquet(paths["dims"])
+    queries = {"filter": (f.filter(col("tag") == 7).select("k", "v", "tag"),
+                          ["k", "v", "tag"]),
+               "join": (f.join(d, on="k").select("k", "v", "label"),
+                        ["k", "v", "label"])}
+    sel = facts["tag"] == 7
+    oracle = {"filter": {"k": facts["k"][sel], "v": facts["v"][sel],
+                         "tag": facts["tag"][sel]},
+              "join": {"k": facts["k"], "v": facts["v"],
+                       "label": dims["label"][facts["k"]]}}
+
+    def workload():
+        wall, nbytes, applied, results = 0.0, 0, 0, {}
+        for name, (frame, names) in queries.items():
+            t0 = time.perf_counter()
+            table, m = frame.collect(with_metrics=True)
+            wall += time.perf_counter() - t0
+            nbytes += sum(o.detail.get("bytes_scanned", 0)
+                          for o in m.operators if o.name == "Scan")
+            applied += sum(1 for e in m.events
+                           if e.get("category") == "rule"
+                           and e.get("action") == "applied")
+            results[name] = sorted_columns(table, names)
+        return wall, nbytes, applied, results
+
+    def passes():
+        wall = nbytes = applied = 0
+        results = None
+        for _ in range(ADVISOR_REPEATS):
+            w, b, a, r = workload()
+            if results is not None:
+                check(all(all(torch.equal(x, y) for x, y in
+                              zip(r[q], results[q])) for q in r),
+                      "advisor: a repeat gave different rows")
+            results = r
+            wall, nbytes, applied = wall + w, nbytes + b, applied + a
+        return wall, nbytes, applied, results
+
+    before_wall, before_bytes, before_applied, before = passes()
+    for name, (_frame, names) in queries.items():
+        want = sorted_columns(pa_table(oracle[name]), names)
+        check(all(torch.equal(x, y) for x, y in zip(before[name], want)),
+              f"advisor {name}: rows differ from numpy")
+    check(before_applied == 0, "advisor: an index served before any build")
+
+    advisor = hs.advisor()
+    builds = []
+    build_one = advisor.executor._build_one
+
+    def timed_build(config, scan):
+        t0 = time.perf_counter()
+        build_one(config, scan)
+        builds.append({"index": config.index_name,
+                       "kind": type(config).__name__,
+                       "seconds": time.perf_counter() - t0})
+
+    advisor.executor._build_one = timed_build
+    t0 = time.perf_counter()
+    summary = advisor.run_once()
+    out["advise_s"] = time.perf_counter() - t0
+    built = [dec for dec in summary["decisions"]
+             if dec.get("action") == "built"]
+    check(built, f"advisor: nothing built: {summary['decisions']}")
+
+    after_wall, after_bytes, after_applied, after = passes()
+    check(after_applied > 0, "advisor: no rule applied after the builds")
+    check(after_bytes < before_bytes,
+          f"advisor: {after_bytes} bytes scanned after, {before_bytes} "
+          "before")
+    check(all(all(torch.equal(x, y) for x, y in zip(after[q], before[q]))
+              for q in queries),
+          "advisor: results differ before and after the builds")
+    out.update(
+        signatures=len(summary["signatures"]),
+        recommended=len(summary["recommendations"]),
+        built=sum(len(dec.get("indexes", ())) for dec in built),
+        builds=builds, build_s=sum(b["seconds"] for b in builds),
+        bytes_before=before_bytes, bytes_after=after_bytes,
+        wall_before_s=before_wall, wall_after_s=after_wall,
+        rules_applied_after=after_applied,
+        decisions=[{k: dec.get(k) for k in ("name", "kind", "action",
+                                            "score", "est_index_bytes",
+                                            "indexes", "reason")}
+                   for dec in summary["decisions"]])
+    return out
+
+
+def pa_table(cols):
+    import pyarrow as pa
+    return pa.table(cols)
+
+
 def counted(counters, fn, *args):
     """Run one phase of the main path with every kernel's launch count
     set to 0 just before it; returns (result, launches per kernel)."""
@@ -2799,6 +3121,11 @@ def main():
                          torch.device("cuda"))
         emit("skipping", **out)
         tally("skipping", n)
+        out, n = counted(counters, phase_advisor, work)
+        emit("advisor", **out)
+        check(tally("advisor", n)[0] > 0,
+              "the advisor's builds never launched the hash kernel")
+        emit("fusion", **fusion_summary())
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for row, count in zip(rows, launches):

@@ -78,6 +78,27 @@ class HyperspaceConf:
                             constants.MIN_DEVICE_ROWS_DEFAULT)
 
     @property
+    def fusion_enabled(self) -> bool:
+        """Whole-stage fusion (`engine/fusion.py`): Filter/Project/
+        BroadcastHashJoin chains run as one masked stage."""
+        return (self.get(constants.FUSION_ENABLED,
+                         constants.FUSION_ENABLED_DEFAULT)
+                or "true").lower() == "true"
+
+    @property
+    def fusion_promote_cache_bytes(self) -> int:
+        """Byte budget for the fusion promotion cache (host source
+        columns held on the device between executions)."""
+        return self.get_int(constants.FUSION_PROMOTE_CACHE_BYTES,
+                            constants.FUSION_PROMOTE_CACHE_BYTES_DEFAULT)
+
+    @property
+    def fusion_bcast_cache_bytes(self) -> int:
+        """Byte budget for the broadcast direct-address table cache."""
+        return self.get_int(constants.FUSION_BCAST_CACHE_BYTES,
+                            constants.FUSION_BCAST_CACHE_BYTES_DEFAULT)
+
+    @property
     def broadcast_threshold(self) -> int:
         """Join sides estimated under this many bytes broadcast as a
         direct-address table (`ops/broadcast_join.py`); <= 0 disables
@@ -362,6 +383,66 @@ class HyperspaceConf:
         return self.get_int(
             f"{constants.SERVE_TENANT_PREFIX}{tenant}.queue.depth",
             constants.SERVE_TENANT_QUEUE_DEPTH_DEFAULT)
+
+    def advisor_tenant_budget_bytes(self, tenant: str) -> int:
+        """Per-tenant cap on summed estimated index bytes the advisor
+        may build for that tenant's mined candidates (0, the default,
+        = only the global advisor budget applies)."""
+        return self.get_int(
+            f"{constants.ADVISOR_TENANT_PREFIX}{tenant}.budget.bytes",
+            constants.ADVISOR_TENANT_BUDGET_BYTES_DEFAULT)
+
+    # -- the advisor (the JAX package's keys and defaults) ------------------
+
+    @property
+    def advisor_enabled(self) -> bool:
+        """"false" makes `IndexAdvisor.run_once` mine and score only."""
+        return (self.get(constants.ADVISOR_ENABLED,
+                         constants.ADVISOR_ENABLED_DEFAULT)
+                or "true").lower() == "true"
+
+    @property
+    def advisor_build_budget_bytes(self) -> int:
+        """Per-run cap on summed ESTIMATED index bytes the advisor may
+        build."""
+        return self.get_int(constants.ADVISOR_BUILD_BUDGET_BYTES,
+                            constants.ADVISOR_BUILD_BUDGET_BYTES_DEFAULT)
+
+    @property
+    def advisor_max_builds(self) -> int:
+        """How many builds one advisor run may start."""
+        return self.get_int(constants.ADVISOR_MAX_BUILDS,
+                            constants.ADVISOR_MAX_BUILDS_DEFAULT)
+
+    @property
+    def advisor_serve_headroom(self) -> float:
+        """Fraction of `serve.hbm.budget.bytes` that may be admitted
+        before the advisor defers its builds."""
+        return float(self.get(
+            constants.ADVISOR_SERVE_HEADROOM,
+            str(constants.ADVISOR_SERVE_HEADROOM_DEFAULT)))
+
+    @property
+    def advisor_min_benefit_bytes(self) -> int:
+        """Minimum amortized bytes-avoided estimate before a candidate
+        is recommended."""
+        return self.get_int(constants.ADVISOR_MIN_BENEFIT_BYTES,
+                            constants.ADVISOR_MIN_BENEFIT_BYTES_DEFAULT)
+
+    @property
+    def advisor_skipping_prune_fraction(self) -> float:
+        """Assumed prune fraction of a hypothetical data-skipping index
+        (used until one has been measured)."""
+        return float(self.get(
+            constants.ADVISOR_SKIPPING_PRUNE_FRACTION,
+            str(constants.ADVISOR_SKIPPING_PRUNE_FRACTION_DEFAULT)))
+
+    @property
+    def advisor_min_repeats(self) -> int:
+        """Observed repeat count below which a workload signature is
+        not considered recurring."""
+        return self.get_int(constants.ADVISOR_MIN_REPEATS,
+                            constants.ADVISOR_MIN_REPEATS_DEFAULT)
 
     @property
     def ingest_interval_seconds(self) -> float:

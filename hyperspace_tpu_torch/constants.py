@@ -147,6 +147,23 @@ DEVICE = "spark.hyperspace.device"
 MIN_DEVICE_ROWS = "spark.hyperspace.execution.min.device.rows"
 MIN_DEVICE_ROWS_DEFAULT = 4_194_304
 
+# Whole-stage fusion: run Filter/Project/BroadcastHashJoin chains as one
+# masked stage with one host sync (`engine/fusion.py`). "false" restores
+# eager per-operator execution.
+FUSION_ENABLED = "spark.hyperspace.execution.fusion.enabled"
+FUSION_ENABLED_DEFAULT = "true"
+
+# Fusion caches: the promotion cache (host source columns held on the
+# device, keyed by host-array identity) and the broadcast-table cache
+# (direct-address join tables, keyed by build-column identity) evict
+# dead-source entries first, then oldest-inserted, until held bytes fit
+# the budget. Both hold device memory; their residency reads as
+# `cache.fusion_promote.*` / `cache.fusion_bcast.*` in the registry.
+FUSION_PROMOTE_CACHE_BYTES = "spark.hyperspace.fusion.cache.promote.bytes"
+FUSION_PROMOTE_CACHE_BYTES_DEFAULT = 1 * 1024 ** 3
+FUSION_BCAST_CACHE_BYTES = "spark.hyperspace.fusion.cache.broadcast.bytes"
+FUSION_BCAST_CACHE_BYTES_DEFAULT = 256 * 1024 * 1024
+
 # Broadcast-join size threshold in estimated decoded bytes; <= 0 disables
 # (the analog of Spark's `spark.sql.autoBroadcastJoinThreshold`, which
 # the reference leans on for dimension joins and its E2E suite pins to
@@ -279,6 +296,11 @@ SERVE_TENANT_PREFIX = "spark.hyperspace.serve.tenant."
 SERVE_TENANT_WEIGHT_DEFAULT = 1.0
 SERVE_TENANT_HBM_FRACTION_DEFAULT = 0.0
 SERVE_TENANT_QUEUE_DEPTH_DEFAULT = 0
+# `advisor.tenant.<id>.budget.bytes` (default 0 = share the global
+# advisor budget) caps auto-built index bytes attributed to that
+# tenant's mined candidates.
+ADVISOR_TENANT_PREFIX = "spark.hyperspace.advisor.tenant."
+ADVISOR_TENANT_BUDGET_BYTES_DEFAULT = 0
 
 # Continuous-ingest coordinator (`engine/ingest.py`): cadence between
 # micro-batch ticks when the caller drives `run_once` on a timer. The
@@ -303,6 +325,38 @@ INGEST_CONFLICT_ATTEMPTS_DEFAULT = 3
 # `ops/cuda/build.py` and `native/`. Empty (default) = the package's
 # `_build/` directory.
 COMPILE_CACHE_DIR = "spark.hyperspace.compile.cache.dir"
+
+# Self-driving index advisor (`hyperspace_tpu_torch/advisor/`): mines the
+# query flight ring for recurring un-indexed filter/join signatures,
+# what-if scores hypothetical covering and data-skipping indexes by
+# replaying recorded plans through the real rewrite rules, and builds
+# the winners through the normal Create path (lease, OCC, reports).
+ADVISOR_ENABLED = "spark.hyperspace.advisor.enabled"
+ADVISOR_ENABLED_DEFAULT = "true"
+# Per-run ceiling on the summed ESTIMATED on-disk bytes of indexes the
+# advisor may build; candidates past it are recorded as rejected.
+ADVISOR_BUILD_BUDGET_BYTES = "spark.hyperspace.advisor.build.budget.bytes"
+ADVISOR_BUILD_BUDGET_BYTES_DEFAULT = 1 * 1024 ** 3
+# How many index builds one advisor run may start.
+ADVISOR_MAX_BUILDS = "spark.hyperspace.advisor.max.builds"
+ADVISOR_MAX_BUILDS_DEFAULT = 2
+# Serving-pressure gate: builds defer while queries wait in the
+# scheduler queue, or while admitted bytes exceed this fraction of
+# `serve.hbm.budget.bytes`.
+ADVISOR_SERVE_HEADROOM = "spark.hyperspace.advisor.serve.headroom"
+ADVISOR_SERVE_HEADROOM_DEFAULT = 0.5
+# Minimum estimated bytes avoided (amortized over the observed repeat
+# count) before a candidate is recommended at all.
+ADVISOR_MIN_BENEFIT_BYTES = "spark.hyperspace.advisor.min.benefit.bytes"
+ADVISOR_MIN_BENEFIT_BYTES_DEFAULT = 0
+# Assumed fraction of scan bytes a hypothetical data-skipping index
+# prunes, used until the filter rule has measured one.
+ADVISOR_SKIPPING_PRUNE_FRACTION = \
+    "spark.hyperspace.advisor.skipping.prune.fraction"
+ADVISOR_SKIPPING_PRUNE_FRACTION_DEFAULT = 0.5
+# Observed repeat count before a workload signature counts as recurring.
+ADVISOR_MIN_REPEATS = "spark.hyperspace.advisor.min.repeats"
+ADVISOR_MIN_REPEATS_DEFAULT = 2
 
 # Device profiler integration: when set to a directory, every executed
 # query is captured as a `torch.profiler` trace under it (one

@@ -37,9 +37,32 @@ _TORCH_DTYPES = {"bool": torch.bool, "int8": torch.int8,
                  "timestamp": torch.int64, "string": torch.int32}
 
 
+def _host_literal(v):
+    """A Python literal as a numpy scalar array. A Python float is
+    float64, as numpy makes it: torch's default float32 would round it
+    (0.2 -> 0.20000000298) before any widening."""
+    return np.asarray(v, dtype=np.float64 if isinstance(v, float) else None)
+
+
+def _literal_value(v, dtype: str):
+    """A Python literal cast to the logical dtype `dtype` on the host, as
+    a Python scalar (what `full` broadcasts; no device round trip)."""
+    from hyperspace_tpu_torch.io.columnar import HOST_NP_DTYPES
+    return _host_literal(v).astype(HOST_NP_DTYPES[dtype]).item()
+
+
+def _is_array(v) -> bool:
+    return isinstance(v, (np.ndarray, torch.Tensor))
+
+
 class _Arrays:
     """The few array operations the compiler needs, in the batch's
-    residence: numpy for the host lane, torch on `device` otherwise."""
+    residence: numpy for the host lane, torch on `device` otherwise.
+
+    On a CUDA device, host constants (literals, IN lists, dictionary
+    tables) cross through pinned memory without blocking the host: a
+    pageable copy would synchronize the stream, and a fused stage
+    (`engine/fusion.py`) waits on the device once, at its end."""
 
     def __init__(self, device: Optional[torch.device]):
         self.device = device
@@ -48,16 +71,21 @@ class _Arrays:
     def host(self) -> bool:
         return self.device is None
 
+    def _upload(self, arr: np.ndarray):
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
     def asarray(self, v):
         if self.host:
             return np.asarray(v)
         if isinstance(v, torch.Tensor):
             return v
         if isinstance(v, np.ndarray):
-            return torch.from_numpy(v).to(self.device)
-        # A Python float literal is float64, as numpy makes it: torch's
-        # default float32 would round it (0.2 -> 0.20000000298) before any
-        # widening.
+            return self._upload(v)
+        if self.device.type == "cuda":
+            return self._upload(_host_literal(v))
         return torch.as_tensor(v, device=self.device,
                                dtype=torch.float64 if isinstance(v, float)
                                else None)
@@ -189,6 +217,8 @@ class ExpressionCompiler:
                 "String-valued CASE is not supported yet.")
 
         def as_wide(v):
+            if not _is_array(v):  # a literal branch value
+                return xp.full(n, _literal_value(v, out_dtype), out_dtype)
             arr = xp.cast(v, out_dtype)
             return xp.full(n, arr.item(), out_dtype) if arr.ndim == 0 else arr
 
@@ -275,9 +305,13 @@ class ExpressionCompiler:
                     f"{out_dtype}.")
             return s
         data, validity = self.value(e)
-        data = self.xp.cast(data, out_dtype)
-        if data.ndim == 0:  # literal broadcast
-            data = self.xp.full(self.batch.num_rows, data.item(), out_dtype)
+        n = self.batch.num_rows
+        if not _is_array(data):  # literal broadcast
+            data = self.xp.full(n, _literal_value(data, out_dtype), out_dtype)
+        else:
+            data = self.xp.cast(data, out_dtype)
+            if data.ndim == 0:
+                data = self.xp.full(n, data.item(), out_dtype)
         return DeviceColumn(data, out_dtype, validity=validity)
 
     @staticmethod

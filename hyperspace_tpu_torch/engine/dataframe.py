@@ -223,7 +223,8 @@ class DataFrame:
         from hyperspace_tpu_torch.engine.executor import compile_plan
         optimized = self._optimized_plan()
         return self.plan, optimized, compile_plan(optimized,
-                                                  conf=self._conf())
+                                                  conf=self._conf(),
+                                                  fuse=False)
 
     def __repr__(self):
         return f"DataFrame[{', '.join(self.schema.names)}]"

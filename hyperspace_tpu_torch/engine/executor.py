@@ -22,14 +22,21 @@ _trace_run_id = uuid.uuid4().hex[:8]
 
 def compile_plan(plan: LogicalPlan,
                  projection: Optional[Sequence[str]] = None,
-                 conf=None) -> PhysicalNode:
+                 conf=None, fuse: Optional[bool] = None) -> PhysicalNode:
     """Logical -> executable physical plan (output cut to `projection`
-    when given). The operator tree is also explain's display contract
-    (the Exchange/Sort elision diff)."""
+    when given). `fuse=None` follows the conf (whole-stage fusion on by
+    default); explain/analysis paths pass fuse=False — the operator tree
+    IS the display contract (the Exchange/Sort elision diff), and fusion
+    groups operators without changing them."""
     required = set(projection) if projection is not None else None
     physical = plan_physical(plan, required, conf)
     if projection is not None:
         physical = ProjectExec(list(projection), physical)
+    if fuse is None:
+        fuse = conf is None or conf.fusion_enabled
+    if fuse:
+        from hyperspace_tpu_torch.engine.fusion import fuse_physical
+        physical = fuse_physical(physical, conf=conf)
     return physical
 
 

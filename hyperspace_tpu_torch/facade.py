@@ -140,6 +140,23 @@ class Hyperspace:
         """Catalog as a pandas DataFrame (reference `Hyperspace.scala:33-36`)."""
         return self._manager.indexes_df()
 
+    # -- self-driving indexes ---------------------------------------------
+
+    def advisor(self):
+        """The session's self-driving index advisor
+        (`hyperspace_tpu_torch/advisor/`): mines the flight ring for
+        recurring un-indexed filter/join shapes, what-if scores
+        hypothetical indexes by replaying recorded plans through the
+        real rewrite rules, and builds winners through the normal
+        lease-gated Create path. `advisor().run_once()` is one
+        mine→score→build cycle; `advisor().start(interval_s)` runs it
+        in the background. One advisor per facade instance (the miner
+        holds an incremental cursor over the process flight ring)."""
+        if not hasattr(self, "_advisor"):
+            from hyperspace_tpu_torch.advisor import IndexAdvisor
+            self._advisor = IndexAdvisor(self.session)
+        return self._advisor
+
     def ingest(self, producer=None, indexes=()):
         """A continuous-ingest coordinator (`engine/ingest.py`) bound
         to this session: each `run_once()` tick lands `producer`'s

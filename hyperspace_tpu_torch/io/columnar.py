@@ -156,7 +156,9 @@ class ColumnBatch:
         """The device of the batch's tensors; None on the host lane."""
         for c in self.columns.values():
             if not c.is_host:
-                return c.data.device
+                # A fused stage's deferred build column names its device
+                # without gathering (`engine/fusion._LazyGatherColumn`).
+                return getattr(c, "device", None) or c.data.device
         return None
 
     def take(self, indices) -> "ColumnBatch":

@@ -121,7 +121,8 @@ def build_broadcast_table(build: ColumnBatch, build_keys: Sequence[str]):
 def _probe_lookup(probe: ColumnBatch, probe_keys: Sequence[str], table,
                   mins, ranges):
     """(build_row_or_minus1, matched) per probe row, on the probe's lane.
-    None when a probe key is outside the integer family."""
+    None when a probe key is outside the integer family. On the device
+    lane `table` may be a host array or a tensor on the probe's device."""
     prep = _int_key_arrays(probe, probe_keys, to_numpy=probe.is_host)
     if prep is None:
         return None
@@ -141,7 +142,10 @@ def _probe_lookup(probe: ColumnBatch, probe_keys: Sequence[str], table,
                        np.int32(-1)).astype(np.int32)
         return hit, hit >= 0
     device = probe.device
-    table_t = torch.from_numpy(table).to(device)
+    # A fused stage passes the table already on the device
+    # (`engine/fusion._to_device`); the eager join passes the host table.
+    table_t = (table if isinstance(table, torch.Tensor)
+               else torch.from_numpy(table).to(device))
     ok = (torch.ones(n, dtype=torch.bool, device=device) if valid is None
           else valid)
     idx = torch.zeros(n, dtype=torch.int64, device=device)

@@ -632,6 +632,9 @@ class QueryMetrics:
             ent["rows_out"] += op.rows_out or 0
         for ent in per_op.values():
             ent["self_s"] = round(ent["self_s"], 4)
+        lanes: Dict[str, int] = {}
+        for e in self.events_of("fusion", "lane"):
+            lanes[e.get("lane", "?")] = lanes.get(e.get("lane", "?"), 0) + 1
         rules: Dict[str, int] = {}
         for e in self.events_of("rule"):
             key = f"{e['name']}:{e.get('action', '?')}"
@@ -640,6 +643,7 @@ class QueryMetrics:
             "wall_s": (round(self.wall_s, 4)
                        if self.wall_s is not None else None),
             "operators": per_op,
+            "fusion_lanes": lanes,
             "rules": rules,
             "counters": {k: (round(v, 4) if isinstance(v, float) else v)
                          for k, v in self.counters.items()},

@@ -14,8 +14,10 @@
 - **Caches**: every cache in the package reports
   `cache.<name>.{hits,misses,evictions}` counters and
   `cache.<name>.{bytes_held,entries}` gauges through the helpers here
-  (the parquet read / host-batch / footer-count caches and the device
-  segment cache), so cache thrash is a scrape-able series instead of a
+  (the parquet read / host-batch / footer-count caches, the device
+  segment cache, and fusion's promotion, broadcast-table and
+  stage-program caches `fusion_promote`/`fusion_bcast`/`fusion_trace`),
+  so cache thrash is a scrape-able series instead of a
   guess.
 
 Sampling discipline: `maybe_sample()` is a no-op unless a per-query

@@ -10,7 +10,8 @@ parquet read/write entry points, each Action phase boundary
 a "crash" there is an abort BETWEEN phases, exactly the stranded-writer
 scenario CancelAction/lease recovery must unwind), and the execution
 plane's serving seams: `transfer.put` (every host->device link
-crossing, `io/transfer.py`), `batch.execute` (the batched lane's shared
+crossing, `io/transfer.py`), `fusion.stage` (fused-stage entry,
+`engine/fusion.py`), `batch.execute` (the batched lane's shared
 execution, `engine/batcher.py`), and the scheduler boundaries
 `scheduler.admit` / `scheduler.run` (`engine/scheduler.py`) the chaos
 harness drives concurrent query traffic against.

@@ -20,6 +20,7 @@ import os
 
 import numpy as np
 import pytest
+from torch_suites import jax_counters_guard  # noqa: E402,F401
 
 from hyperspace_tpu import telemetry as jtelemetry
 from hyperspace_tpu.config import HyperspaceConf as JConf

@@ -15,6 +15,7 @@ import json
 import os
 
 import pytest
+from torch_suites import jax_counters_guard  # noqa: E402,F401
 import torch
 
 from hyperspace_tpu.telemetry import artifact as jartifact

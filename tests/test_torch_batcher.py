@@ -20,18 +20,19 @@ import numpy as np
 import pyarrow as pa
 import pyarrow.parquet as pq
 import pytest
+from torch_suites import jax_counters_guard  # noqa: E402,F401
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from test_batcher import fresh_lane  # noqa: F401  (JAX-side fixture)
 from torch_serving import (JAX, PKGS, TORCH, both, canonical,
-                           jax_seconds_guard, reset_lanes, same_rows, typed)
+                           jax_counters_restored, reset_lanes, same_rows, typed)
 
 
 @pytest.fixture(autouse=True)
 def lanes(fresh_lane):  # noqa: F811
     reset_lanes()
-    with jax_seconds_guard():
+    with jax_counters_restored():
         yield
     reset_lanes()
 

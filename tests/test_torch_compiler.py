@@ -11,6 +11,7 @@ float64 operations elementwise.
 import numpy as np
 import pyarrow as pa
 import pytest
+from torch_suites import jax_counters_guard  # noqa: E402,F401
 import torch
 
 from hyperspace_tpu.engine import compiler as jcomp

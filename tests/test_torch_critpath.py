@@ -14,6 +14,7 @@ import numpy as np
 import pyarrow as pa
 import pyarrow.parquet as pq
 import pytest
+from torch_suites import jax_counters_guard  # noqa: E402,F401
 
 from hyperspace_tpu import telemetry as jtelemetry
 from hyperspace_tpu.telemetry import critical_path as jcp

@@ -743,3 +743,162 @@ def test_card_concurrent_collect_burst_coalesces(card, tmp_path):
     assert reg.counter("serve.batch.invocations").value > inv0
     assert reg.counter("serve.batch.fallbacks").value == fb0
     assert scheduler.get_scheduler().admitted_bytes() == 0
+
+
+def _count_syncs(fn):
+    """(fn(), host syncs it made), counted by torch's sync debug mode."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _fusion_lake(tmp_path):
+    rng = np.random.default_rng(17)
+    n = 1 << 18
+    fact, dim = tmp_path / "fact", tmp_path / "dim"
+    fact.mkdir()
+    dim.mkdir()
+    pq.write_table(pa.table({
+        "k": rng.integers(0, 1200, n).astype(np.int64),
+        "a": pa.array(rng.integers(-50, 50, n).astype(np.int32),
+                      mask=rng.random(n) < 0.05),
+        "v": rng.standard_normal(n),
+        "g": pa.array([f"g{i % 7}" for i in range(n)])}),
+        str(fact / "part-0.parquet"))
+    pq.write_table(pa.table({
+        "k": np.arange(1000, dtype=np.int64),
+        "w": pa.array(rng.standard_normal(1000),
+                      mask=np.arange(1000) % 9 == 0),
+        "name": pa.array([None if i % 13 == 0 else f"n{i % 31}"
+                          for i in range(1000)])}), str(dim / "part-0.parquet"))
+    return str(fact), str(dim)
+
+
+def _fusion_session(tmp_path, device, fused):
+    from hyperspace_tpu_torch import HyperspaceConf, HyperspaceSession
+    return HyperspaceSession(HyperspaceConf({
+        "spark.hyperspace.warehouse.dir": str(tmp_path / "wh"),
+        "spark.hyperspace.execution.min.device.rows": "0",
+        "spark.hyperspace.execution.fusion.enabled":
+            "true" if fused else "false"}), device=device)
+
+
+def _fusion_query(sess, fact, dim, how="inner"):
+    """Filter -> Filter -> Project -> BroadcastHashJoin."""
+    from hyperspace_tpu_torch import col, lit
+    from hyperspace_tpu_torch.plan.expr import CaseWhen
+
+    q = (sess.read_parquet(fact)
+         .filter(col("k") > lit(5))
+         .filter(col("a") < lit(20))
+         .with_column("x", col("v") * lit(2.5) + col("a"))
+         .join(sess.read_parquet(dim), on=col("k") == col("k"), how=how))
+    if how in ("left_semi", "left_anti"):
+        return q.select("k", "x", "g")
+    return (q.with_column("y", CaseWhen([(col("w") > lit(0.0),
+                                          col("x") * col("w"))], col("x")))
+            .select("k", "x", "y", "name", "g"))
+
+
+def test_card_fused_stage_syncs_at_most_once(card, tmp_path, monkeypatch):
+    """A warm fused Filter->Filter->Project->BHJ stage over device-resident
+    batches waits on the card at most once (its compaction); the same
+    query with fusion off waits at least once per Filter."""
+    from hyperspace_tpu_torch.engine import compiler, fusion
+
+    fact, dim = _fusion_lake(tmp_path)
+    stage_syncs, filter_syncs = [], []
+    run_device = fusion.FusedStageExec._execute_device
+    apply_filter = compiler.apply_filter
+
+    def spy_stage(self, batches, preps):
+        out, n = _count_syncs(lambda: run_device(self, batches, preps))
+        stage_syncs.append((len(fusion._region_nodes(self.root)), n))
+        return out
+
+    def spy_filter(batch, expression):
+        out, n = _count_syncs(lambda: apply_filter(batch, expression))
+        filter_syncs.append(n)
+        return out
+
+    monkeypatch.setattr(fusion.FusedStageExec, "_execute_device", spy_stage)
+    monkeypatch.setattr(compiler, "apply_filter", spy_filter)
+    fused_sess = _fusion_session(tmp_path, card, True)
+    _fusion_query(fused_sess, fact, dim).collect()  # warm the caches
+    stage_syncs.clear()
+    fused = _fusion_query(fused_sess, fact, dim).collect()
+    assert stage_syncs and max(n for _ops, n in stage_syncs) <= 1
+    assert any(ops >= 4 for ops, _n in stage_syncs), stage_syncs
+    assert not filter_syncs
+
+    eager_sess = _fusion_session(tmp_path, card, False)
+    _fusion_query(eager_sess, fact, dim).collect()
+    filter_syncs.clear()
+    eager = _fusion_query(eager_sess, fact, dim).collect()
+    assert len(filter_syncs) == 2 and min(filter_syncs) >= 1
+    assert sum(filter_syncs) > sum(n for _ops, n in stage_syncs)
+    key = [(c, "ascending") for c in fused.column_names]
+    assert fused.sort_by(key).equals(eager.sort_by(key))
+
+
+@pytest.mark.parametrize("how", ["inner", "left_outer", "left_semi",
+                                 "left_anti"])
+def test_card_fused_equals_unfused_and_cpu(card, tmp_path, how):
+    fact, dim = _fusion_lake(tmp_path)
+    key = None
+    results = []
+    for device, fused in ((card, True), (card, False),
+                          (torch.device("cpu"), True)):
+        table = _fusion_query(_fusion_session(tmp_path, device, fused),
+                              fact, dim, how).collect()
+        key = [(c, "ascending") for c in table.column_names]
+        results.append(table.sort_by(key))
+    assert results[0].num_rows > 0
+    assert results[0].equals(results[1])
+    assert results[0].equals(results[2])
+
+
+def test_card_advisor_run_once_builds_through_the_hash_kernel(
+        card, tmp_path, monkeypatch):
+    from hyperspace_tpu_torch import (Hyperspace, HyperspaceConf,
+                                      HyperspaceSession, col, telemetry)
+
+    monkeypatch.setattr(builder, "BUILD_MIN_DEVICE_ROWS", 0)
+    telemetry.get_recorder().clear()
+    rng = np.random.default_rng(11)
+    n = 1 << 16
+    facts = tmp_path / "facts"
+    facts.mkdir()
+    pq.write_table(pa.table({
+        "k": rng.integers(0, n // 8, n).astype(np.int64),
+        "v": rng.random(n),
+        "tag": rng.integers(0, 50, n).astype(np.int32)}),
+        str(facts / "part-0.parquet"))
+    sess = HyperspaceSession(HyperspaceConf({
+        "spark.hyperspace.warehouse.dir": str(tmp_path / "wh"),
+        "spark.hyperspace.index.num.buckets": "8",
+        "spark.hyperspace.advisor.max.builds": "6"}),
+        device=card).enable_hyperspace()
+    q = sess.read_parquet(str(facts)).filter(col("tag") == 7) \
+        .select("k", "v", "tag")
+    before = q.collect()
+    for _ in range(3):
+        q.collect()
+    launches = hash_kernel.hash_lanes_to_buckets.launches
+    summary = Hyperspace(sess).advisor().run_once()
+    assert any(d["action"] == "built" for d in summary["decisions"])
+    assert hash_kernel.hash_lanes_to_buckets.launches > launches
+    after = q.collect()
+    m = sess.last_query_metrics()
+    assert any(e.get("action") == "applied" for e in m.events
+               if e.get("category") == "rule")
+    key = [("v", "ascending")]
+    assert after.sort_by(key).equals(before.sort_by(key))

@@ -19,9 +19,10 @@ import numpy as np
 import pyarrow as pa
 import pyarrow.parquet as pq
 import pytest
+from torch_suites import jax_counters_guard  # noqa: E402,F401
 
 from torch_serving import (JAX, PKGS, TORCH, both, canonical,
-                           jax_seconds_guard, reset_lanes, same_rows, typed)
+                           jax_counters_restored, reset_lanes, same_rows, typed)
 
 
 @pytest.fixture(autouse=True)
@@ -29,7 +30,7 @@ def _fresh():
     reset_lanes()
     for P in PKGS:
         P.sketch.clear_sketch_cache()
-    with jax_seconds_guard():
+    with jax_counters_restored():
         yield
     reset_lanes()
     for P in PKGS:

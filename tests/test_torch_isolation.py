@@ -76,6 +76,34 @@ def test_serving_modules_stand_alone():
     assert spmd.__all__ == ["batched_predicate_masks"]
 
 
+FUSION_AND_ADVISOR_MODULES = ("engine/fusion.py", "advisor/__init__.py",
+                              "advisor/miner.py", "advisor/whatif.py",
+                              "advisor/executor.py")
+
+
+def test_fusion_and_advisor_modules_stand_alone():
+    """Whole-stage fusion and the advisor are the package's own modules:
+    they import neither JAX nor the JAX package, and a fresh process
+    importing them loads neither."""
+    files = set(_package_files())
+    for rel in FUSION_AND_ADVISOR_MODULES:
+        path = os.path.join(PACKAGE, *rel.split("/"))
+        assert path in files, rel
+        assert not [m for m in _imported_modules(path) if _forbidden(m)]
+    code = ("import sys\n"
+            "import hyperspace_tpu_torch.engine.fusion\n"
+            "import hyperspace_tpu_torch.advisor\n"
+            "print(sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', "
+            "'hyperspace_tpu')))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_fresh_import_loads_neither_jax_nor_the_jax_package():
     modules = sorted(
         os.path.relpath(p, REPO)[:-3].replace(os.sep, ".")

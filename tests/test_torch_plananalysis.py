@@ -11,6 +11,7 @@ package.
 import os
 
 import pytest
+from torch_suites import jax_counters_guard  # noqa: E402,F401
 import torch
 
 import hyperspace_tpu as jhs

@@ -20,16 +20,17 @@ import numpy as np
 import pyarrow as pa
 import pyarrow.parquet as pq
 import pytest
+from torch_suites import jax_counters_guard  # noqa: E402,F401
 
 import fakes
-from torch_serving import (PKGS, TORCH, both, jax_seconds_guard, reset_lanes,
+from torch_serving import (PKGS, TORCH, both, jax_counters_restored, reset_lanes,
                            same_rows, typed)
 
 
 @pytest.fixture(autouse=True)
 def _fresh():
     reset_lanes()
-    with jax_seconds_guard():
+    with jax_counters_restored():
         yield
     reset_lanes()
 
@@ -700,8 +701,7 @@ def test_storage_transient_faults_ride_the_retry_seam(tmp_path):
 def test_port_fault_seams_are_the_jax_packages(tmp_path):
     """The same user actions cross the same named fault seams in both
     packages: an index build, a rules-on query through the scheduler,
-    and a byte-array round trip. (The JAX package's fused-stage seam
-    has no counterpart: the port has no stage fusion.)"""
+    and a byte-array round trip, the fused-stage seam included."""
     def scenario(P, d):
         class Recorder(P.faults.FaultInjector):
             def check(self, operation, path=None):
@@ -719,10 +719,10 @@ def test_port_fault_seams_are_the_jax_packages(tmp_path):
             P.file_utils.load_byte_array(str(d / "blob"))
         finally:
             P.faults.uninstall()
-        return seen - {"fusion.stage"}
+        return seen
 
     got = both(scenario, tmp_path)
     assert got["torch"] == got["jax"]
     assert {"scheduler.admit", "scheduler.run", "parquet.read",
             "parquet.write", "file.write", "file.read",
-            "action.CreateAction.op"} <= got["torch"]
+            "action.CreateAction.op", "fusion.stage"} <= got["torch"]

@@ -20,10 +20,11 @@ import numpy as np
 import pyarrow as pa
 import pyarrow.parquet as pq
 import pytest
+from torch_suites import jax_counters_guard  # noqa: E402,F401
 
 from test_serving import fresh_scheduler  # noqa: F401  (JAX-side fixture)
 from torch_serving import (JAX, MIB, PKGS, TORCH, both, canonical,
-                           jax_seconds_guard, reset_lanes, same_rows, typed)
+                           jax_counters_restored, reset_lanes, same_rows, typed)
 
 PHASES = ("plan", "scan", "operator", "stage", "transfer", "write",
           "queue", "batch", "cache.fill", "transfer.fill")
@@ -32,7 +33,7 @@ PHASES = ("plan", "scan", "operator", "stage", "transfer", "write",
 @pytest.fixture(autouse=True)
 def lanes(fresh_scheduler):  # noqa: F811
     reset_lanes()
-    with jax_seconds_guard():
+    with jax_counters_restored():
         yield
     reset_lanes()
 
@@ -671,12 +672,9 @@ def test_chaos_concurrent_serving_with_faults(tmp_path):
         expected = {name: canonical(df.collect()) for name, df in workload}
         c0 = P.counters("serve.rejected", "serve.deadline_exceeded",
                         "serve.cancelled")
-        # The JAX package's third seam is its fused-stage entry; the
-        # port has no fusion, so its transfer seam stands in there.
-        stage = "fusion.stage" if P is JAX else "transfer.put"
         P.arm(P.rule("parquet.read:*", kind="transient", nth=1, times=-1,
                      probability=0.05),
-              P.rule(stage, kind="transient", nth=1, times=-1,
+              P.rule("fusion.stage", kind="transient", nth=1, times=-1,
                      probability=0.02),
               P.rule("scheduler.admit", kind="transient", nth=1, times=-1,
                      probability=0.01),

@@ -17,16 +17,17 @@ import numpy as np
 import pyarrow as pa
 import pyarrow.parquet as pq
 import pytest
+from torch_suites import jax_counters_guard  # noqa: E402,F401
 
 from torch_serving import (JAX, PKGS, TORCH, both, canonical,
-                           jax_seconds_guard, reset_lanes, same_rows, typed)
+                           jax_counters_restored, reset_lanes, same_rows, typed)
 
 
 @pytest.fixture(autouse=True)
 def _fresh():
     reset_lanes()
     saved = [(P, P.segcache.get_cache()) for P in PKGS]
-    with jax_seconds_guard():
+    with jax_counters_restored():
         yield
     for P, cache in saved:
         P.segcache.set_cache(cache)
@@ -145,6 +146,12 @@ def test_footprint_credit_for_resident_segments(tmp_path, monkeypatch):
     def scenario(P, d):
         P.segcache.set_cache(P.segcache.SegmentCache())
         sess, hs, df = _indexed_env(P, d)
+        # The cache's budget under `serve.hbm.budget.bytes` reads the
+        # accountant's last live-bytes sample, which is process-wide and
+        # throttled: without a fresh one it can be an earlier test's
+        # (576,504,048 B once, above this test's 512 MiB budget, so the
+        # first fill found no room).
+        P.telemetry.memory.sample(force=True)
         monkeypatch.setattr(P.footprint, "MIN_FOOTPRINT_BYTES", 1024)
         try:
             sess.conf.set("spark.hyperspace.serve.hbm.budget.bytes",

@@ -19,16 +19,17 @@ import numpy as np
 import pyarrow as pa
 import pyarrow.parquet as pq
 import pytest
+from torch_suites import jax_counters_guard  # noqa: E402,F401
 
 from test_tenancy import fresh_scheduler  # noqa: F401  (JAX-side fixture)
-from torch_serving import (JAX, PKGS, TORCH, both, jax_seconds_guard,
+from torch_serving import (JAX, PKGS, TORCH, both, jax_counters_restored,
                            reset_lanes, same_rows)
 
 
 @pytest.fixture(autouse=True)
 def lanes(fresh_scheduler):  # noqa: F811
     reset_lanes()
-    with jax_seconds_guard():
+    with jax_counters_restored():
         yield
     reset_lanes()
 

@@ -16,6 +16,7 @@ import math
 
 import numpy as np
 import pytest
+from torch_suites import jax_counters_guard  # noqa: E402,F401
 
 from hyperspace_tpu import telemetry as jtelemetry
 from hyperspace_tpu.telemetry import timeseries as jts

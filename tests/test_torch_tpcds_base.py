@@ -16,6 +16,7 @@ import filecmp
 import os
 
 import pytest
+from torch_suites import jax_counters_guard  # noqa: E402,F401
 import torch
 
 from hyperspace_tpu.tpcds import QUERIES as JQUERIES

@@ -11,6 +11,7 @@ four files so the parallel test run spreads it over its workers.
 """
 
 import pytest
+from torch_suites import jax_counters_guard  # noqa: E402,F401
 import torch
 
 from hyperspace_tpu.tpcds import QUERIES as JQUERIES

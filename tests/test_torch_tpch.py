@@ -20,6 +20,7 @@ import os
 import pandas as pd
 import pyarrow.parquet as pq
 import pytest
+from torch_suites import jax_counters_guard  # noqa: E402,F401
 import torch
 
 import hyperspace_tpu as jhs

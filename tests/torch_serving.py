@@ -21,13 +21,13 @@ from __future__ import annotations
 
 import importlib
 import threading
-from contextlib import contextmanager
 from types import SimpleNamespace
 
 import numpy as np
 import pyarrow as pa
 
 from chaos import canonical  # noqa: F401  (re-exported)
+from torch_suites import jax_counters_restored  # noqa: F401  (re-exported)
 
 MIB = 1024 * 1024
 
@@ -183,29 +183,6 @@ def reset_lanes():
     for P in PKGS:
         P.fresh()
         P.compilation.reset_aot_memo()
-
-
-@contextmanager
-def jax_seconds_guard():
-    """Leave the JAX package's fractional `*dispatch.seconds` counters
-    as they were: the JAX scenarios here dispatch on the JAX package's
-    device seam, and its own tenancy suite compares 6-decimal rounded
-    deltas of those counters, which an extra fractional part could
-    tip (ROADMAP, Queue 3 notes). Integer-valued counters are left
-    alone."""
-    reg = JAX.telemetry.get_registry()
-
-    def seconds():
-        return {n: v for n, v in
-                reg.series_snapshot()["counters"].items()
-                if n.endswith("dispatch.seconds")}
-
-    before = seconds()
-    try:
-        yield
-    finally:
-        for name in seconds():
-            reg.counter(name).set(before.get(name, 0.0))
 
 
 def both(scenario, tmp_path, *args, **kwargs):

@@ -11,12 +11,62 @@
   and every index built on the device lane).
 - `same`: the result comparison of `tests/test_tpcds.py` (rows sorted,
   numbers as float64).
+- `jax_counters_restored` and `jax_counters_guard`: the JAX package's
+  registry counters restored around a block, and the autouse module
+  fixture every `tests/test_torch_*.py` that runs the JAX package
+  imports.
 """
 
 import os
+from contextlib import contextmanager
 
 import pandas as pd
 import pyarrow.parquet as pq
+import pytest
+
+
+@contextmanager
+def jax_counters_restored():
+    """Leave the JAX package's registry counters as they were. A port
+    parity test runs JAX scenarios in the same worker process as the JAX
+    package's own suites, which read that process-wide registry:
+    `tests/test_tenancy.py` compares 6-decimal rounded deltas of
+    `device.dispatch.seconds`, which an extra fractional part can tip,
+    and `tests/test_alerts.py`'s clean lap fires `breaker_open` on a
+    first window whose `resilience.breaker.opened` is already above 0
+    (the sampler diffs a fresh ring against 0). Every counter the block
+    moved goes back to its value before it, and a counter it created is
+    removed (`tests/test_ops_server.py` holds every `compile.*.flops`
+    counter present above 0)."""
+    from hyperspace_tpu import telemetry
+
+    reg = telemetry.get_registry()
+
+    def counters():
+        return reg.series_snapshot()["counters"]
+
+    before = counters()
+    try:
+        yield
+    finally:
+        for name, value in counters().items():
+            if name not in before:
+                with reg._lock:
+                    reg._metrics.pop(name, None)
+            elif value != before[name]:
+                reg.counter(name).set(before[name])
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_counters_guard():
+    """`jax_counters_restored` around a whole test module. Module scope:
+    it is set up before the module's other fixtures (which may build JAX
+    lakes) and restores after the module's last test, so the JAX
+    package's suites that share the worker find the registry as they
+    left it."""
+    with jax_counters_restored():
+        yield
+
 
 TPCDS_SCALE = 0.05
 BUCKETS = "8"
