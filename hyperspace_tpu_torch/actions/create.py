@@ -241,6 +241,21 @@ class CreateActionBase(Action):
             return
         stats = index_data_stats(self._entry.content.root)
         self._entry.extra["stats"] = stats
+        # A born-sharded build leaves a `_shard_layout.json` record next
+        # to the bucket spec (io/builder.write_bucket_ordered); lift it
+        # into the log entry so readers know each shard's contiguous
+        # bucket range without touching the data dir. A single-device
+        # build carries no layout and the key stays absent.
+        from hyperspace_tpu_torch.io.builder import (read_shard_layout,
+                                                     summarize_shard_layout)
+        layout = read_shard_layout(self._entry.content.root)
+        if layout is not None:
+            # Per-range string dictionary VALUES stay in the JSON file;
+            # the entry carries per-range entry counts.
+            self._entry.extra["shardLayout"] = \
+                summarize_shard_layout(layout)
+        else:
+            self._entry.extra.pop("shardLayout", None)
         # The SAME numbers land in the action report: rows/bytes the
         # operation left on disk, measured once.
         self.annotate_report(rows=stats["rowCount"],

@@ -99,6 +99,72 @@ class HyperspaceConf:
                             constants.FUSION_BCAST_CACHE_BYTES_DEFAULT)
 
     @property
+    def distribution(self) -> str:
+        """"auto" | "true" | "false" — see `parallel/context.py`."""
+        return (self.get(constants.DISTRIBUTION_ENABLED,
+                         constants.DISTRIBUTION_ENABLED_DEFAULT) or
+                "auto").lower()
+
+    @property
+    def distribution_min_rows(self) -> int:
+        return self.get_int(constants.DISTRIBUTION_MIN_ROWS,
+                            constants.DISTRIBUTION_MIN_ROWS_DEFAULT)
+
+    @property
+    def distribution_spmd(self) -> bool:
+        """The JAX package's born-sharded SPMD lane switch (not ported:
+        the port always runs its single-device join)."""
+        return (self.get(constants.DISTRIBUTION_SPMD,
+                         constants.DISTRIBUTION_SPMD_DEFAULT)
+                or "true").lower() == "true"
+
+    @property
+    def distribution_slices(self) -> int:
+        """Number of slices (the `dcn` axis) in the mesh topology.
+        `distribution.slices` is canonical; `distribution.dcn.size` is
+        the legacy fallback."""
+        value = self.get(constants.DISTRIBUTION_SLICES)
+        if value is not None:
+            try:
+                return int(value)
+            except ValueError:
+                return constants.DISTRIBUTION_DCN_SIZE_DEFAULT
+        return self.get_int(constants.DISTRIBUTION_DCN_SIZE,
+                            constants.DISTRIBUTION_DCN_SIZE_DEFAULT)
+
+    @property
+    def distribution_replication(self) -> bool:
+        return (self.get(constants.DISTRIBUTION_REPLICATION,
+                         constants.DISTRIBUTION_REPLICATION_DEFAULT)
+                or "true").lower() == "true"
+
+    @property
+    def distribution_replication_min_slices(self) -> int:
+        return self.get_int(
+            constants.DISTRIBUTION_REPLICATION_MIN_SLICES,
+            constants.DISTRIBUTION_REPLICATION_MIN_SLICES_DEFAULT)
+
+    @property
+    def distribution_replication_hot_fraction(self) -> float:
+        value = self.get(constants.DISTRIBUTION_REPLICATION_HOT_FRACTION)
+        return (float(value) if value is not None else
+                constants.DISTRIBUTION_REPLICATION_HOT_FRACTION_DEFAULT)
+
+    @property
+    def distribution_capacity_factor(self) -> float:
+        value = self.get(constants.DISTRIBUTION_CAPACITY_FACTOR)
+        return (float(value) if value is not None
+                else constants.DISTRIBUTION_CAPACITY_FACTOR_DEFAULT)
+
+    @property
+    def distribution_dict_max_entries(self) -> int:
+        """Per-range string-dictionary entry cap for the recorded
+        born-sharded layout (`_shard_layout.json`); <= 0 disables
+        recording."""
+        return self.get_int(constants.DISTRIBUTION_DICT_MAX_ENTRIES,
+                            constants.DISTRIBUTION_DICT_MAX_ENTRIES_DEFAULT)
+
+    @property
     def broadcast_threshold(self) -> int:
         """Join sides estimated under this many bytes broadcast as a
         direct-address table (`ops/broadcast_join.py`); <= 0 disables

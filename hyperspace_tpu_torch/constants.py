@@ -153,6 +153,54 @@ MIN_DEVICE_ROWS_DEFAULT = 4_194_304
 FUSION_ENABLED = "spark.hyperspace.execution.fusion.enabled"
 FUSION_ENABLED_DEFAULT = "true"
 
+# Mesh distribution of the data plane (`parallel/`). Values: "auto"
+# (the default: distribute when more than one device is visible and the
+# batch is large and device-resident), "true", "false". The names and
+# defaults are the JAX package's.
+DISTRIBUTION_ENABLED = "spark.hyperspace.distribution.enabled"
+DISTRIBUTION_ENABLED_DEFAULT = "auto"
+# Minimum row count before the sharded filter scan pays for itself.
+DISTRIBUTION_MIN_ROWS = "spark.hyperspace.distribution.min.rows"
+DISTRIBUTION_MIN_ROWS_DEFAULT = 4096
+# Topology: number of slices (the outer `dcn` axis) in the mesh. 1 (the
+# default) is a flat single-axis mesh; >1 builds a 2-axis (dcn, shard)
+# mesh whose build exchange routes hierarchically, one stage per axis.
+# `distribution.slices` is the canonical knob; `distribution.dcn.size`
+# is honored as the legacy spelling.
+DISTRIBUTION_SLICES = "spark.hyperspace.distribution.slices"
+DISTRIBUTION_DCN_SIZE = "spark.hyperspace.distribution.dcn.size"
+DISTRIBUTION_DCN_SIZE_DEFAULT = 1
+# Read replication across slices (the JAX package's `parallel/replica.py`,
+# not ported yet): the keys are read so a conf means the same in both
+# packages.
+DISTRIBUTION_REPLICATION = \
+    "spark.hyperspace.distribution.replication.enabled"
+DISTRIBUTION_REPLICATION_DEFAULT = "true"
+DISTRIBUTION_REPLICATION_MIN_SLICES = \
+    "spark.hyperspace.distribution.replication.min.slices"
+DISTRIBUTION_REPLICATION_MIN_SLICES_DEFAULT = 2
+DISTRIBUTION_REPLICATION_HOT_FRACTION = \
+    "spark.hyperspace.distribution.replication.hot.fraction"
+DISTRIBUTION_REPLICATION_HOT_FRACTION_DEFAULT = 0.5
+# Born-sharded SPMD execution (the JAX package's `parallel/spmd.py` join
+# and scan programs, not ported yet; the port runs the single-device
+# join, which is that package's "false" path).
+DISTRIBUTION_SPMD = "spark.hyperspace.distribution.spmd.enabled"
+DISTRIBUTION_SPMD_DEFAULT = "true"
+# The JAX package's first-attempt per-peer capacity factor of its fixed-
+# shape exchanges. Torch sizes every slab at run time, so the port never
+# overflows; the value is read and recorded on the build's span.
+DISTRIBUTION_CAPACITY_FACTOR = \
+    "spark.hyperspace.distribution.capacity.factor"
+DISTRIBUTION_CAPACITY_FACTOR_DEFAULT = 2.0
+# Born-sharded string layout: a mesh build records each device range's
+# sorted local string dictionary in `_shard_layout.json`. A range whose
+# dictionary exceeds this entry cap is recorded as null (readers derive
+# it from the files). <= 0 disables recording.
+DISTRIBUTION_DICT_MAX_ENTRIES = \
+    "spark.hyperspace.distribution.dictionary.max.entries"
+DISTRIBUTION_DICT_MAX_ENTRIES_DEFAULT = 65536
+
 # Fusion caches: the promotion cache (host source columns held on the
 # device, keyed by host-array identity) and the broadcast-table cache
 # (direct-address join tables, keyed by build-column identity) evict

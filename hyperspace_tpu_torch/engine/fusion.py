@@ -711,7 +711,14 @@ class FusedStageExec(PhysicalNode):
             telemetry.event("fusion", "lane", lane="eager",
                             trigger="empty-source")
             return None  # eager path has exact empty-side shortcuts
-        if all(b.is_host for b in batches):
+        from hyperspace_tpu_torch.parallel.context import should_distribute
+        host = all(b.is_host for b in batches)
+        if should_distribute(self.conf, max(b.num_rows for b in batches),
+                             host_batch=host) is not None:
+            telemetry.event("fusion", "lane", lane="eager",
+                            trigger="mesh-distribution")
+            return None  # mesh execution owns these operators instead
+        if host:
             # Host lane: run the ORIGINAL eager operator graph (before
             # any broadcast-table prep — the eager join builds its own).
             # On numpy a compaction is free, so eager filters cutting
@@ -916,7 +923,8 @@ def fuse_physical(root, conf=None):
     def build_region(node, sources: List[_SourceExec]):
         if isinstance(node, FilterExec):
             return FilterExec(node.condition,
-                              build_region(node.child, sources))
+                              build_region(node.child, sources),
+                              conf=node.conf)
         if isinstance(node, ProjectExec):
             return ProjectExec(list(node.entries),
                                build_region(node.child, sources))

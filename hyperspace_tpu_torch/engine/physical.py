@@ -355,9 +355,11 @@ class ScanExec(PhysicalNode):
 class FilterExec(PhysicalNode):
     name = "Filter"
 
-    def __init__(self, condition: E.Expression, child: PhysicalNode):
+    def __init__(self, condition: E.Expression, child: PhysicalNode,
+                 conf=None):
         self.condition = condition
         self.child = child
+        self.conf = conf
 
     @property
     def children(self):
@@ -368,9 +370,15 @@ class FilterExec(PhysicalNode):
 
     def execute(self) -> columnar.ColumnBatch:
         from hyperspace_tpu_torch.engine.compiler import apply_filter
+        from hyperspace_tpu_torch.parallel.context import should_distribute
         batch = self.child.execute()
         if batch.num_rows == 0:
             return batch
+        mesh = should_distribute(self.conf, batch.num_rows,
+                                 host_batch=batch.is_host)
+        if mesh is not None:
+            from hyperspace_tpu_torch.parallel.scan import distributed_filter
+            return distributed_filter(batch, self.condition, mesh)
         return apply_filter(batch, self.condition)
 
     def execute_bucketed(self, num_buckets: int):
@@ -640,11 +648,12 @@ class AggregateExec(PhysicalNode):
     name = "Aggregate"
 
     def __init__(self, group_columns: Sequence[str], aggregates,
-                 out_schema: Schema, child: PhysicalNode):
+                 out_schema: Schema, child: PhysicalNode, conf=None):
         self.group_columns = list(group_columns)
         self.aggregates = list(aggregates)
         self.out_schema = out_schema
         self.child = child
+        self.conf = conf
 
     @property
     def children(self):
@@ -681,9 +690,25 @@ class AggregateExec(PhysicalNode):
 
     def execute(self) -> columnar.ColumnBatch:
         from hyperspace_tpu_torch.ops.aggregate import group_aggregate
+        from hyperspace_tpu_torch.parallel.context import should_distribute
         batch = self.child.execute()
         _annotate_lane(batch)
         batch, specs = self._materialize_inputs(batch)
+        mesh = None
+        if (self.group_columns and batch.num_rows > 0 and specs
+                # count_distinct is not decomposable into mergeable
+                # per-shard partials (a value present on two shards must
+                # not count twice); it — and pure DISTINCT (no aggregate
+                # lanes) — stay on the single-device lane.
+                and not any(s.func == "count_distinct" for s in specs)):
+            mesh = should_distribute(self.conf, batch.num_rows,
+                                     host_batch=batch.is_host)
+        if mesh is not None:
+            from hyperspace_tpu_torch.parallel.aggregate import (
+                distributed_group_aggregate)
+            return distributed_group_aggregate(batch, self.group_columns,
+                                               specs, self.out_schema,
+                                               mesh)
         return group_aggregate(batch, self.group_columns, specs,
                                self.out_schema)
 
@@ -1399,7 +1424,7 @@ def _plan_physical_node(plan: LogicalPlan, required: Set[str], conf,
         child = _apply_bucket_pruning(
             plan.condition,
             _plan_physical(plan.child, child_required, conf, ctx))
-        return FilterExec(plan.condition, child)
+        return FilterExec(plan.condition, child, conf=conf)
 
     if isinstance(plan, Project):
         child = _plan_physical(plan.child, plan.references(), conf, ctx)
@@ -1425,7 +1450,8 @@ def _plan_physical_node(plan: LogicalPlan, required: Set[str], conf,
         return AggregateExec(plan.group_columns, plan.aggregates,
                              plan.schema,
                              _plan_physical(plan.child, child_required,
-                                            conf, ctx))
+                                            conf, ctx),
+                             conf=conf)
 
     if isinstance(plan, Window):
         aliases = {s.alias.lower() for s in plan.specs}

@@ -66,9 +66,10 @@ Typed serving errors and their counters are a CLOSED set
 in the table with its class's own `counter`, so no failure mode exists
 without its scrape-able series.
 
-Replica routing and per-replica admission (multi-device serving) are
-not part of this package; every query executes on the session's one
-device.
+Replica routing and per-replica admission (the JAX package's
+`parallel/replica.py`, ROADMAP item 13d) are not ported yet: a query
+runs on the session's device, or over the mesh when the distribution
+policy gives one (`parallel/context.py`).
 """
 
 from __future__ import annotations

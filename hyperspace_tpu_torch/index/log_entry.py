@@ -409,6 +409,18 @@ class IndexLogEntry(LogEntry):
         return self.derived_dataset.num_buckets
 
     @property
+    def shard_layout(self) -> Optional[Dict[str, Any]]:
+        """The born-sharded layout record of this version's data
+        (`io/builder.write_shard_layout`, lifted by `stamp_stats`):
+        `numShards` and the per-shard contiguous `bucketRanges` the build
+        wrote its per-shard parquet files under. None for single-device
+        builds. Ownership always derives from the same map
+        (`parallel/mesh.bucket_ranges`), so the record is provenance: a
+        reader on any mesh size can consume the data."""
+        layout = self.extra.get("shardLayout")
+        return dict(layout) if isinstance(layout, dict) else None
+
+    @property
     def raw_plan(self) -> str:
         return self.source.plan.raw_plan
 

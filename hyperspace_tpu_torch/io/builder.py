@@ -428,6 +428,161 @@ def _plain_scan_source(plan) -> Optional[tuple]:
     return None
 
 
+SHARD_LAYOUT_FILE = "_shard_layout.json"
+
+
+def write_shard_layout(path: str, num_buckets: int, n_shards: int,
+                       dictionaries=None, n_slices: int = 1) -> dict:
+    """Persist the born-sharded layout record next to the bucket spec:
+    which contiguous bucket range each shard owns (THE map,
+    `parallel/mesh.bucket_ranges`) and — for string columns — each
+    range's sorted local dictionary (`dictionaries`: {column: [values per
+    shard | None]}; None marks a range past the
+    `distribution.dictionary.max.entries` cap). Version 3 records the
+    (slice, device) hierarchy: `numSlices` and the slice-level
+    `sliceBucketRanges`; a flat build records the 1-slice hierarchy.
+    The record's bytes are the JAX package's."""
+    import json
+
+    from hyperspace_tpu_torch.parallel.mesh import (bucket_ranges,
+                                                    slice_bucket_ranges)
+    from hyperspace_tpu_torch.utils import file_utils, storage
+
+    n_slices = max(1, int(n_slices))
+    layout = {
+        "version": 3,
+        "numBuckets": num_buckets,
+        "numShards": n_shards,
+        "numSlices": n_slices,
+        "bucketRanges": [[lo, hi]
+                         for lo, hi in bucket_ranges(num_buckets,
+                                                     n_shards)],
+        "sliceBucketRanges": [
+            [lo, hi] for lo, hi in slice_bucket_ranges(
+                num_buckets, n_slices, n_shards // n_slices)],
+    }
+    if dictionaries:
+        layout["dictionaries"] = dictionaries
+    file_utils.create_file(storage.join(path, SHARD_LAYOUT_FILE),
+                           json.dumps(layout, indent=2))
+    return layout
+
+
+def summarize_shard_layout(layout):
+    """The log-entry form of a shard-layout record: per-range dictionary
+    VALUES stay in `_shard_layout.json`; the entry carries per-range
+    entry COUNTS (-1 = an over-cap range recorded as null)."""
+    if not layout or "dictionaries" not in layout:
+        return layout
+    out = dict(layout)
+    out["dictionaryEntries"] = {
+        col: [len(r) if r is not None else -1 for r in ranges]
+        for col, ranges in layout["dictionaries"].items()}
+    del out["dictionaries"]
+    return out
+
+
+def _range_dictionaries(table, schema, lengths, num_buckets: int,
+                        n_shards: int, max_entries: int):
+    """{string column: [sorted per-range value list | None]} over the
+    bucket-ordered Arrow table; a range whose distinct count exceeds
+    `max_entries` records None."""
+    from hyperspace_tpu_torch.parallel.mesh import shard_row_segments
+
+    str_fields = [f.name for f in schema.fields if f.dtype == "string"]
+    if not str_fields or max_entries <= 0:
+        return None
+    segs = shard_row_segments(np.asarray(lengths, dtype=np.int64),
+                              n_shards)
+    out = {}
+    for name in str_fields:
+        col = table.column(name)
+        ranges = []
+        for lo, hi in segs:
+            chunk = col.slice(lo, hi - lo).drop_null()
+            values = np.unique(np.asarray(
+                chunk.to_numpy(zero_copy_only=False), dtype=str))
+            ranges.append([str(v) for v in values]
+                          if len(values) <= max_entries else None)
+        out[name] = ranges
+    return out
+
+
+def read_shard_layout(path: str) -> Optional[dict]:
+    """The layout record of a born-sharded version dir, or None for a
+    single-device build."""
+    import json
+
+    from hyperspace_tpu_torch.utils import file_utils, storage
+
+    p = storage.join(path, SHARD_LAYOUT_FILE)
+    if not file_utils.exists(p):
+        return None
+    try:
+        return json.loads(file_utils.read_contents(p))
+    except (ValueError, OSError):
+        return None
+
+
+def write_bucket_ordered(batch: columnar.ColumnBatch, lengths,
+                         num_buckets: int, path: str,
+                         file_suffix: Optional[str] = None,
+                         mesh=None,
+                         dict_max_entries: Optional[int] = None
+                         ) -> List[str]:
+    """Write a batch already in bucket order (the distributed build's
+    output) as bucketed parquet files, one per non-empty bucket.
+
+    With `mesh` the index is BORN SHARDED: each flat shard's contiguous
+    bucket range writes as that shard's files, named with the owning
+    shard (`part-00003-s01.parquet`), and `_shard_layout.json` records
+    the range map plus each range's sorted local string dictionaries.
+    Each file's bytes equal the same bucket's file of a single-device
+    build."""
+    from hyperspace_tpu_torch.utils import file_utils
+
+    table = columnar.to_arrow(batch)
+    written: List[str] = []
+    file_utils.create_directory(path)
+
+    def write_range(bucket_lo: int, bucket_hi: int, offset: int,
+                    suffix: Optional[str]) -> int:
+        for b in range(bucket_lo, bucket_hi):
+            count = int(lengths[b])
+            if count > 0:
+                out = os.path.join(path,
+                                   parquet.bucket_file_name(b, suffix))
+                parquet.write_table(table.slice(offset, count), out)
+                written.append(out)
+            offset += count
+        return offset
+
+    with _phase("write"):
+        if mesh is None:
+            write_range(0, num_buckets, 0, file_suffix)
+            return written
+
+        from hyperspace_tpu_torch.constants import (
+            DISTRIBUTION_DICT_MAX_ENTRIES_DEFAULT)
+        from hyperspace_tpu_torch.parallel.mesh import (bucket_ranges,
+                                                        dcn_size,
+                                                        total_shards)
+
+        n_shards = total_shards(mesh)
+        offset = 0
+        for s, (lo, hi) in enumerate(bucket_ranges(num_buckets, n_shards)):
+            offset = write_range(lo, hi, offset,
+                                 f"{file_suffix or ''}s{s:02d}")
+        cap = (dict_max_entries if dict_max_entries is not None
+               else DISTRIBUTION_DICT_MAX_ENTRIES_DEFAULT)
+        dictionaries = _range_dictionaries(table, batch.schema, lengths,
+                                           num_buckets, n_shards, cap)
+        write_shard_layout(path, num_buckets, n_shards,
+                           dictionaries=dictionaries,
+                           n_slices=dcn_size(mesh))
+    return written
+
+
 def lineage_schema(schema):
     """`schema` extended with the non-nullable int64 lineage column.
     Paired with `append_lineage_column` (below) so the LOGGED index schema
@@ -459,14 +614,35 @@ def write_index(df, indexed_columns: Sequence[str],
     """THE index build job (reference `CreateActionBase.scala:99-120`), on
     the device the session's conf names (`_torch_config.device_of`).
 
+    When the distribution policy answers with a mesh
+    (`parallel/context.should_distribute`) the build runs the
+    mesh-sharded exchange (`parallel/build.distributed_build`) — the
+    reference's cluster-wide `repartition(numBuckets, indexedCols)`
+    shuffle (`CreateActionBase.scala:110-111`) — and the index is born
+    sharded.
+
     `lineage_ids` ({source file path: id}, lineage-enabled builds) appends
     the per-row `_hs_file_id` column: rows read from file F carry
     lineage_ids[F]. Payload-only — bucket hash and sort keys are untouched.
     """
     from hyperspace_tpu_torch._torch_config import device_of
     from hyperspace_tpu_torch.engine.executor import execute_plan
+    from hyperspace_tpu_torch.parallel.context import should_distribute
 
     device = device_of(conf)
+
+    def build_distributed(mesh, batch):
+        from hyperspace_tpu_torch.parallel.build import distributed_build
+
+        built, lengths = distributed_build(
+            batch, indexed_columns, num_buckets, mesh,
+            capacity_factor=(conf.distribution_capacity_factor
+                             if conf is not None else 2.0))
+        return write_bucket_ordered(
+            built, lengths, num_buckets, path, mesh=mesh,
+            dict_max_entries=(conf.distribution_dict_max_entries
+                              if conf is not None else None))
+
     columns = list(indexed_columns) + list(included_columns)
     source = _plain_scan_source(df.plan)
     if source is None and lineage_ids is not None:
@@ -481,14 +657,30 @@ def write_index(df, indexed_columns: Sequence[str],
         schema = scan_schema.select(columns)
         if lineage_ids is not None:
             schema = lineage_schema(schema)
-        written = write_bucketed_from_files(
-            files, names, key_names, num_buckets, path, device,
-            lineage_ids=lineage_ids)
+        rows = sum(parquet.file_row_counts(files))  # footers only
+        mesh = should_distribute(conf, rows)
+        if mesh is not None:
+            with _phase("decode"):
+                table = parquet.read_table(files, columns=names)
+                if lineage_ids is not None:
+                    table = append_lineage_column(table, files, lineage_ids)
+            # A host batch: each shard is placed straight from host
+            # memory (the transfer engine's sharded put).
+            written = build_distributed(
+                mesh, columnar.from_arrow(table, schema))
+        else:
+            written = write_bucketed_from_files(
+                files, names, key_names, num_buckets, path, device,
+                lineage_ids=lineage_ids)
     else:
         batch = execute_plan(df.plan, projection=columns, conf=conf)
         schema = batch.schema
-        written = write_bucketed_batch(batch, indexed_columns, num_buckets,
-                                       path)
+        mesh = should_distribute(conf, batch.num_rows)
+        if mesh is not None:
+            written = build_distributed(mesh, batch)
+        else:
+            written = write_bucketed_batch(batch, indexed_columns,
+                                           num_buckets, path)
     spec = BucketSpec(num_buckets, tuple(indexed_columns),
                       tuple(indexed_columns))
     parquet.write_bucket_spec(path, spec, schema)

@@ -576,11 +576,16 @@ class TransferEngine:
     def put(self, arr, device=None):
         """Place one host array (ndarray or HostCast) on `device`: it
         crosses the link chunked + windowed and lands in the h2d
-        telemetry."""
+        telemetry. With a `parallel.mesh.Mesh` as `device` the array is
+        placed ROW-SHARDED and a list of per-shard tensors comes back
+        (`_put_sharded`)."""
         from hyperspace_tpu_torch import telemetry
+        from hyperspace_tpu_torch.parallel.mesh import Mesh
 
         if not isinstance(arr, HostCast):
             arr = np.asarray(arr)
+        if isinstance(device, Mesh):
+            return self._put_sharded(arr, device)
         timings = {"convert_s": 0.0, "put_s": 0.0, "chunks": 0}
         t = telemetry.tracer()
         ts = t.now_us() if t is not None else None
@@ -593,6 +598,38 @@ class TransferEngine:
                                        chunks=timings["chunks"])
         self._sweep()
         return dev
+
+    def _put_sharded(self, arr, mesh) -> List:
+        """Shard s's row slice `[s*L, (s+1)*L)` (L = rows / shards; the
+        caller pads to a multiple) onto `mesh.devices[s]`. Each shard's
+        copy is queued asynchronously on its device's side stream, so
+        every shard's copy is issued before the first wait; one h2d
+        record covers the whole array."""
+        from hyperspace_tpu_torch import telemetry
+
+        n_shards = len(mesh.devices)
+        rows = int(arr.shape[0])
+        if rows % n_shards:
+            raise ValueError(f"{rows} rows do not split into {n_shards} "
+                             "equal shards; pad first")
+        local = rows // n_shards
+        timings = {"convert_s": 0.0, "put_s": 0.0, "chunks": 0}
+        t = telemetry.tracer()
+        ts = t.now_us() if t is not None else None
+        t0 = time.perf_counter()
+        parts = []
+        for s, dev in enumerate(mesh.devices):
+            lo, hi = s * local, (s + 1) * local
+            piece = (HostCast(arr.src[lo:hi], arr.dtype)
+                     if isinstance(arr, HostCast) else arr[lo:hi])
+            parts.append(self._put_entry(piece, dev, timings))
+        with self._lock:
+            self.stats["puts"] += 1
+        telemetry.record_link_transfer("h2d", int(arr.nbytes),
+                                       time.perf_counter() - t0, ts_us=ts,
+                                       chunks=max(timings["chunks"], 1))
+        self._sweep()
+        return parts
 
     def put_chunks(self, arr, device=None):
         """Place a host array (ndarray or HostCast) as a TUPLE of device

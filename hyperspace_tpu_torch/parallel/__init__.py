@@ -1,3 +1,24 @@
-"""Multi-query and (later) multi-device execution programs. Only the
-inter-query batched predicate (`spmd.batched_predicate_masks`) lives
-here so far; mesh distribution is not part of this package."""
+"""Distribution: one controller over a mesh of shards, and the batched
+multi-query programs.
+
+- `mesh.py` — the `Mesh` (an ordered tuple of `torch.device`s in flat
+  shard order, 1 or 2 axes) and THE contiguous bucket-range ownership
+  map; `virtual.py` — the visible device list and the virtual mesh (n
+  shards on one device); `context.py` — the distribution policy
+  (`should_distribute`), the JAX package's unchanged.
+- `build.py` — the mesh-sharded index build (per-shard hash kernel, the
+  per-peer slab exchange, the local sort); the index is born sharded
+  (`io/builder.write_bucket_ordered`).
+- `scan.py` — row sharding (`shard_batch`) and the sharded filter;
+  `aggregate.py` — per-shard partial group aggregates and their host
+  combine.
+- `spmd.py` — only the inter-query batched predicate
+  (`batched_predicate_masks`) so far.
+
+Still to come (ROADMAP item 13): the rest of the JAX package's
+`parallel/spmd.py` (born-sharded reads, the subshard plans and the SPMD
+join program — until then a join over born-sharded indexes runs the
+single-device join), `parallel/replica.py` and the multi-device bench.
+There is no `torch.distributed`: every shard is a tensor of this
+process.
+"""

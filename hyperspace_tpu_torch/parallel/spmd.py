@@ -28,8 +28,9 @@ a batched member's rows are bit-identical to its solo run:
 
 The JAX package evaluates the same program as one jitted XLA
 computation; here it is eager torch operations (one kernel launch per
-term and lane). The rest of the JAX package's `parallel/spmd.py` (mesh
-programs) is not part of this package.
+term and lane). The rest of the JAX package's `parallel/spmd.py` (the
+born-sharded read, the subshard plans and the SPMD join program,
+ROADMAP item 13c) is not ported yet.
 """
 
 from __future__ import annotations

@@ -104,6 +104,44 @@ def test_fusion_and_advisor_modules_stand_alone():
     assert out.stdout.strip() == "[]"
 
 
+DISTRIBUTION_MODULES = ("parallel/__init__.py", "parallel/mesh.py",
+                        "parallel/virtual.py", "parallel/context.py",
+                        "parallel/build.py", "parallel/scan.py",
+                        "parallel/aggregate.py")
+
+
+def test_distribution_modules_and_chip_smoke_stand_alone():
+    """The mesh, the virtual device list, the policy, the sharded build,
+    filter and aggregate, and `chip_smoke.py` (which drives them on the
+    card, where there is no JAX) import neither JAX nor the JAX package,
+    and a fresh process importing them loads neither. None of them
+    reaches for `torch.distributed`: the mesh is one controller."""
+    files = set(_package_files())
+    smoke = os.path.join(REPO, "chip_smoke.py")
+    for path in [os.path.join(PACKAGE, *rel.split("/"))
+                 for rel in DISTRIBUTION_MODULES] + [smoke]:
+        assert path in files or path == smoke, path
+        modules = list(_imported_modules(path))
+        assert not [m for m in modules if _forbidden(m)], path
+        assert not [m for m in modules
+                    if m.startswith("torch.distributed")], path
+    code = ("import sys\n"
+            "import hyperspace_tpu_torch.parallel.aggregate\n"
+            "import hyperspace_tpu_torch.parallel.build\n"
+            "import hyperspace_tpu_torch.parallel.context\n"
+            "import hyperspace_tpu_torch.parallel.virtual\n"
+            "import chip_smoke\n"
+            "print(sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', "
+            "'hyperspace_tpu')))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_fresh_import_loads_neither_jax_nor_the_jax_package():
     modules = sorted(
         os.path.relpath(p, REPO)[:-3].replace(os.sep, ".")

@@ -50,7 +50,8 @@ def _source_table():
 
 def _conf(cls, warehouse):
     # One device for both: the JAX package would otherwise shard the build
-    # over the test session's virtual CPU mesh (this package has no mesh).
+    # over the test session's virtual CPU mesh (a port session on the
+    # CPU sees one device unless `parallel.virtual` sets a mesh).
     return cls({"spark.hyperspace.warehouse.dir": str(warehouse),
                 "spark.hyperspace.index.num.buckets": str(BUCKETS),
                 "spark.hyperspace.execution.min.device.rows": "0",

@@ -10,11 +10,12 @@
   default `min.device.rows`) and its torch lane (`min.device.rows = 0`
   and every index built on the device lane).
 - `same`: the result comparison of `tests/test_tpcds.py` (rows sorted,
-  numbers as float64).
+  numbers as float64); `same_rows`: Arrow tables equal row for row, bit
+  for bit.
 - `jax_counters_restored` and `jax_counters_guard`: the JAX package's
-  registry counters restored around a block, and the autouse module
-  fixture every `tests/test_torch_*.py` that runs the JAX package
-  imports.
+  registry (counters, gauges and histograms) restored around a block,
+  and the autouse module fixture every `tests/test_torch_*.py` that
+  runs the JAX package imports.
 """
 
 import os
@@ -25,36 +26,68 @@ import pyarrow.parquet as pq
 import pytest
 
 
+def _metric_state(metric):
+    """A restorable copy of one JAX registry metric's state."""
+    from hyperspace_tpu.telemetry.registry import Histogram
+
+    if isinstance(metric, Histogram):
+        return ("histogram", dict(metric._buckets), metric.count,
+                metric.sum, metric.min, metric.max)
+    return ("value", metric._value)
+
+
+def _restore_metric(metric, state) -> None:
+    if state[0] == "histogram":
+        _kind, buckets, count, total, low, high = state
+        with metric._lock:
+            metric._buckets = dict(buckets)
+            metric.count, metric.sum = count, total
+            metric.min, metric.max = low, high
+    else:
+        metric.set(state[1])
+
+
 @contextmanager
 def jax_counters_restored():
-    """Leave the JAX package's registry counters as they were. A port
-    parity test runs JAX scenarios in the same worker process as the JAX
-    package's own suites, which read that process-wide registry:
-    `tests/test_tenancy.py` compares 6-decimal rounded deltas of
-    `device.dispatch.seconds`, which an extra fractional part can tip,
-    and `tests/test_alerts.py`'s clean lap fires `breaker_open` on a
-    first window whose `resilience.breaker.opened` is already above 0
-    (the sampler diffs a fresh ring against 0). Every counter the block
-    moved goes back to its value before it, and a counter it created is
-    removed (`tests/test_ops_server.py` holds every `compile.*.flops`
-    counter present above 0)."""
+    """Leave the JAX package's registry as it was: counters, gauges and
+    histograms. A port parity test runs JAX scenarios in the same worker
+    process as the JAX package's own suites, which read that
+    process-wide registry: `tests/test_tenancy.py` compares 6-decimal
+    rounded deltas of `device.dispatch.seconds`, which an extra
+    fractional part can tip; `tests/test_alerts.py`'s clean lap fires
+    `breaker_open` on a first window whose `resilience.breaker.opened`
+    is already above 0 (the sampler diffs a fresh ring against 0); and
+    `tests/test_advisor.py`'s contention cases rank a skipping candidate
+    first once the `skipping.measured_prune_fraction` histogram holds
+    served skipping queries (the advisor scores with the measured mean
+    instead of its conf assumption). Every metric the block moved goes
+    back to its state before it, and a metric it created is removed
+    (`tests/test_ops_server.py` holds every `compile.*.flops` counter
+    present above 0)."""
     from hyperspace_tpu import telemetry
 
     reg = telemetry.get_registry()
 
-    def counters():
-        return reg.series_snapshot()["counters"]
+    def metrics():
+        with reg._lock:
+            return dict(reg._metrics)
 
-    before = counters()
+    before = {name: (m, _metric_state(m)) for name, m in metrics().items()}
     try:
         yield
     finally:
-        for name, value in counters().items():
+        for name, metric in metrics().items():
             if name not in before:
                 with reg._lock:
                     reg._metrics.pop(name, None)
-            elif value != before[name]:
-                reg.counter(name).set(before[name])
+                continue
+            original, state = before[name]
+            if metric is not original:
+                with reg._lock:
+                    reg._metrics[name] = original
+                metric = original
+            if _metric_state(metric) != state:
+                _restore_metric(metric, state)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -66,6 +99,29 @@ def jax_counters_guard():
     left it."""
     with jax_counters_restored():
         yield
+
+
+def same_rows(a, b, signed_zero=True):
+    """Equal Arrow tables, row for row: the same column names, nulls in
+    the same places, every value bit-equal (NaN included; -0.0 apart
+    from 0.0 unless `signed_zero` is False)."""
+    import numpy as np
+    import pyarrow as pa
+
+    assert a.schema.names == b.schema.names
+    for name in a.column_names:
+        x, y = a.column(name), b.column(name)
+        assert x.type == y.type, name
+        assert x.is_null().equals(y.is_null()), name
+        if pa.types.is_floating(x.type):
+            xs = x.fill_null(0).to_numpy()
+            ys = y.fill_null(0).to_numpy()
+            if not signed_zero:
+                xs, ys = xs + 0.0, ys + 0.0  # -0.0 + 0.0 is 0.0
+            np.testing.assert_array_equal(xs.view(np.int64),
+                                          ys.view(np.int64), err_msg=name)
+        else:
+            assert x.to_pylist() == y.to_pylist(), name
 
 
 TPCDS_SCALE = 0.05
