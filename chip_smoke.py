@@ -96,7 +96,15 @@ entry points:
   and the log entry's `shardLayout` checked — then, through the rules,
   the point and full-range filters on the mesh index and a group
   aggregate over the source on the mesh, each against numpy and against
-  distribution off. On one card the shards' exchanges are moves within
+  distribution off; then the SPMD join through the rules: the join
+  rung's 8,388,608-row right source indexed on the mesh at 64 buckets
+  (join B, its right side re-bucketed between shards through the hash
+  kernel, one launch per shard; then a left_outer join), and at 200
+  (join A; then a left_semi join), a string-key join at 1,048,576 rows,
+  and join A on the 2 x 2 mesh — each against numpy and against
+  `distribution.spmd.enabled=false`, with no `spmd.fallbacks`, and the
+  hash kernel held against its plain version at the re-bucket's
+  per-shard shape. On one card the shards' exchanges are moves within
   one device: the `mesh` line shows that the port distributes and gives
   the same bytes, not a multi-GPU speed;
 - the self-driving index advisor (`phase_advisor`): bench_advisor.py's
@@ -717,24 +725,25 @@ def phase_query(sess, df, root, cols):
     emit("query", **out)
 
 
-def right_columns(seed):
-    """bench.py's join right side: `key` int64 uniform in [0, N_ROWS/4)
-    (the left key's range), `val` float64; N_RIGHT rows."""
+def right_columns(seed, n_rows=N_ROWS):
+    """bench.py's join right side for a left side of `n_rows` rows:
+    `key` int64 uniform in [0, n_rows/4) (the left key's range), `val`
+    float64; n_rows/2 rows (N_RIGHT at the default)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    return {"key": rng.integers(0, N_ROWS // 4, N_RIGHT).astype(np.int64),
-            "val": rng.random(N_RIGHT)}
+    return {"key": rng.integers(0, n_rows // 4, n_rows // 2)
+            .astype(np.int64), "val": rng.random(n_rows // 2)}
 
 
-def write_right_source(src_dir, seed):
-    """`right_columns(seed)` in N_FILES files."""
+def write_right_source(src_dir, seed, n_rows=N_ROWS):
+    """`right_columns(seed, n_rows)` in N_FILES files."""
     import pyarrow as pa
     import pyarrow.parquet as pq
 
-    cols = right_columns(seed)
+    cols = right_columns(seed, n_rows)
     os.makedirs(src_dir)
-    step = N_RIGHT // N_FILES
+    step = -(-len(cols["key"]) // N_FILES)
     for i in range(N_FILES):
         pq.write_table(pa.table({k: v[i * step:(i + 1) * step]
                                  for k, v in cols.items()}),
@@ -745,11 +754,12 @@ def write_right_source(src_dir, seed):
 def np_join(left, right):
     """numpy oracle of `left JOIN right USING (key)` -> (id, val): the
     right rows grouped by key (a stable argsort), each key's run found by
-    direct address (keys lie in [0, N_ROWS/4)), runs expanded per left
-    row."""
+    direct address (keys are small and non-negative), runs expanded per
+    left row."""
     import numpy as np
 
-    counts = np.bincount(right["key"], minlength=N_ROWS // 4)
+    counts = np.bincount(right["key"],
+                         minlength=int(left["key"].max()) + 1)
     starts = np.cumsum(counts) - counts
     order = np.argsort(right["key"], kind="stable")
     per_left = counts[left["key"]]
@@ -759,15 +769,15 @@ def np_join(left, right):
     return left["id"][li], right["val"][order[pos]]
 
 
-def canonical(ids, vals):
+def canonical(ids, vals, device="cuda"):
     """(id, val) pairs in one order — sorted by id, then val — as tensors
-    on the card (two stable sorts of ~33.5M rows)."""
+    on `device` (two stable sorts of ~33.5M rows)."""
     import torch
 
     import numpy as np
 
-    ids = torch.from_numpy(np.require(ids, requirements="W")).cuda()
-    vals = torch.from_numpy(np.require(vals, requirements="W")).cuda()
+    ids = torch.from_numpy(np.require(ids, requirements="W")).to(device)
+    vals = torch.from_numpy(np.require(vals, requirements="W")).to(device)
     perm = torch.sort(vals, stable=True).indices
     perm = perm[torch.sort(ids[perm], stable=True).indices]
     return ids[perm], vals[perm]
@@ -3010,6 +3020,9 @@ def phase_advisor(work):
 MESH_SHARDS = 4                 # the virtual mesh on the one card
 MESH_BUCKETS = 200
 MESH_ROW_BYTES = 32             # routed per row: key, id, score, bucket id
+MESH_RIGHT_BUCKETS = 64         # join B's right index on the mesh
+MESH_STRING_ROWS = 1 << 20      # the string-key join's left rows (right: half)
+SPMD_KEY = "spark.hyperspace.distribution.spmd.enabled"
 
 
 def _shard_tags(root):
@@ -3179,6 +3192,8 @@ def phase_mesh(work, device, n_rows=N_ROWS):
                     owner, MESH_SHARDS // slices, slices)}
             if tag == "flat":
                 flat_sess, flat_df, flat_root = sess, df, data
+            else:
+                grid_sess = sess
         out["build"] = {"single_s": single_s,
                         "single_launches": single_launches, **builds}
 
@@ -3287,11 +3302,228 @@ def phase_mesh(work, device, n_rows=N_ROWS):
                             "mesh_ms": aggs["mesh"][1],
                             "single_ms": aggs["single"][1]}
         out["sync_s"] = sync
+        out["spmd"] = _mesh_joins(root, device, n_rows, cols, flat_sess,
+                                  grid_sess)
         after = execs()
         out["execs"] = {k: after[k] - earlier[k] for k in kinds}
     finally:
         virtual.reset()
     out["card"] = card_line() if device.type == "cuda" else "cpu"
+    return out
+
+
+def _mesh_joins(root, device, n_rows, cols, flat_sess, grid_sess):
+    """The SPMD join on the virtual mesh, through the rules, each query
+    against numpy and against the same query with
+    `distribution.spmd.enabled=false` (the single-device join over the
+    same born-sharded indexes), with `spmd.fallbacks` unchanged and the
+    join's lane `spmd`:
+
+    - join B: the mesh index (`meshIdx`, MESH_BUCKETS buckets) with the
+      join rung's right source (n_rows/2 rows) indexed at
+      MESH_RIGHT_BUCKETS on the flat mesh — the right side re-buckets
+      between shards, one hash-kernel launch per shard — then a
+      left_outer join over the same pair;
+    - join A: the same source indexed at MESH_BUCKETS (co-bucketed), then
+      a left_semi join over that pair;
+    - a string-key join of two small sources (MESH_STRING_ROWS and half
+      that), both at MESH_BUCKETS;
+    - join A on the 2 x 2 (dcn, shard) mesh.
+
+    The hash kernel is also held against its plain version at join B's
+    per-shard re-bucket shape (those launches are taken back out of the
+    count). Returns the section's record."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    import torch
+
+    from hyperspace_tpu_torch import Hyperspace, IndexConfig, telemetry
+    from hyperspace_tpu_torch.engine.physical import (SortMergeJoinExec,
+                                                      plan_physical)
+    from hyperspace_tpu_torch.ops.cuda import hash_kernel
+    from hyperspace_tpu_torch.parallel import spmd
+    from hyperspace_tpu_torch.parallel.context import distribution_mesh
+
+    reg = telemetry.get_registry()
+    t_section = time.perf_counter()
+    launches0 = hash_kernel.hash_lanes_to_buckets.launches
+    links = ("ici", "dcn")
+    bytes0 = {k: reg.counter(f"spmd.repartition.{k}.bytes").value
+              for k in links}
+    right_src = os.path.join(root, "right")
+    right = write_right_source(right_src, SEED + 2, n_rows)
+    left = {"key": cols["key"], "id": cols["id"]}
+    t0 = time.perf_counter()
+    inner = np_join(left, right)
+    want = canonical(*inner, device=device)
+    counts = np.bincount(right["key"], minlength=int(left["key"].max()) + 1)
+    matched = counts[left["key"]] > 0
+    out = {"right_rows": len(right["key"]),
+           "oracle_s": time.perf_counter() - t0, "joins": {}}
+
+    def build(sess, src, name, key, include, buckets):
+        sess.conf.set("spark.hyperspace.index.num.buckets", str(buckets))
+        df = sess.read_parquet(src)
+        t0 = time.perf_counter()
+        Hyperspace(sess).create_index(df, IndexConfig(name, [key], include))
+        sess.conf.set("spark.hyperspace.index.num.buckets",
+                      str(MESH_BUCKETS))
+        return df, time.perf_counter() - t0
+
+    def same_pairs(table, expect, tag):
+        got = canonical(table.column("id").to_numpy(),
+                        table.column("val").to_numpy(), device=device)
+        check(all(torch.equal(a, b) for a, b in zip(got, expect)),
+              f"{tag}: rows differ from numpy")
+
+    def run(name, sess, frame, check_rows, rebucket, iters):
+        """One query: its rows, lane, fallbacks and launches, then warm
+        ms on the lane and with the lane off."""
+        sess.enable_hyperspace()
+        f0 = reg.counter("spmd.fallbacks").value
+        j0 = reg.counter("mesh.spmd.join_execs").value
+        h0 = hash_kernel.hash_lanes_to_buckets.launches
+        table, metrics = frame.collect(with_metrics=True)
+        launched = hash_kernel.hash_lanes_to_buckets.launches - h0
+        check(reg.counter("spmd.fallbacks").value == f0,
+              f"spmd {name}: spmd.fallbacks moved")
+        check(reg.counter("mesh.spmd.join_execs").value == j0 + 1,
+              f"spmd {name}: the join did not run the SPMD lane")
+        lanes = [o.detail.get("lane") for o in metrics.operators
+                 if o.name == "SortMergeJoin"]
+        check(lanes == ["spmd"], f"spmd {name}: join lanes {lanes}")
+        if device.type == "cuda":
+            check(launched >= MESH_SHARDS if rebucket else launched == 0,
+                  f"spmd {name}: the hash kernel launched {launched} "
+                  "times in one query")
+        check_rows(table, f"spmd {name}")
+        on_ms = wall_ms(frame.collect, iters)
+        sess.conf.set(SPMD_KEY, "false")
+        try:
+            j0 = reg.counter("mesh.spmd.join_execs").value
+            off = frame.collect()
+            check(reg.counter("mesh.spmd.join_execs").value == j0,
+                  f"spmd {name}: the lane ran with spmd disabled")
+            check_rows(off, f"spmd {name} (spmd off)")
+            off_ms = wall_ms(frame.collect, iters)
+        finally:
+            sess.conf.set(SPMD_KEY, "true")
+        out["joins"][name] = {"rows": table.num_rows, "lane": lanes[0],
+                              "hash_launches": launched, "spmd_ms": on_ms,
+                              "single_device_ms": off_ms}
+
+    # Sort-merge joins only: a small side (the membership join's keys,
+    # the string join) would otherwise plan as a broadcast join.
+    for sess in (flat_sess, grid_sess):
+        sess.conf.set("spark.hyperspace.broadcast.threshold", "-1")
+    flat_left = flat_sess.read_parquet(os.path.join(root, "src"))
+    # Join B first, while the 64-bucket index is the right side's only one.
+    right_df, out["right_build_s"] = build(
+        flat_sess, right_src, "meshRight64", "key", ["val"],
+        MESH_RIGHT_BUCKETS)
+    frame_b = (flat_left.select("key", "id")
+               .join(right_df.select("key", "val"), on="key")
+               .select("id", "val"))
+    run("B", flat_sess, frame_b,
+        lambda t, tag: same_pairs(t, want, tag), True, 3)
+
+    # The kernel at the re-bucket's shape: join B's right side, shard by
+    # shard, against the plain version.
+    mesh = distribution_mesh(flat_sess.conf)
+    node = next(n for n in plan_physical(
+        flat_sess.optimize(frame_b.plan), conf=flat_sess.conf).collect()
+        if isinstance(n, SortMergeJoinExec))
+    rsh = node.right.execute_sharded(node.num_buckets, mesh)
+    check(rsh is not None and rsh.num_buckets == MESH_RIGHT_BUCKETS,
+          "spmd: join B's right side is not born sharded")
+    n0 = hash_kernel.hash_lanes_to_buckets.launches
+    worst = 0
+    shapes = []
+    for lanes in spmd.routing_lanes(rsh, ["key"]):
+        got = hash_kernel.hash_lanes_to_buckets(lanes, MESH_BUCKETS)
+        plain = hash_kernel.hash_lanes_to_buckets_reference(lanes,
+                                                            MESH_BUCKETS)
+        worst = max(worst, int((got.long() - plain.long()).abs().max()))
+        shapes.append(list(lanes.shape))
+    hash_kernel.hash_lanes_to_buckets.launches = n0
+    check(worst == 0, "spmd: the hash kernel differs from its plain "
+          "version at the re-bucket's shape")
+    out["kernel"] = {"shapes": shapes, "num_buckets": MESH_BUCKETS,
+                     "max_abs_err": worst, "tolerance": 0}
+
+    def left_outer_rows(table, tag):
+        val = table.column("val").to_numpy(zero_copy_only=False)
+        ids = table.column("id").to_numpy()
+        hit = ~np.isnan(val)
+        same_pairs(pa.table({"id": ids[hit], "val": val[hit]}), want, tag)
+        check(np.array_equal(np.sort(ids[~hit]), left["id"][~matched]),
+              f"{tag}: unmatched left rows differ from numpy")
+
+    run("left_outer", flat_sess,
+        flat_left.select("key", "id")
+        .join(right_df.select("key", "val"), on="key", how="left_outer")
+        .select("id", "val"), left_outer_rows, True, 1)
+
+    _df, out["right200_build_s"] = build(
+        flat_sess, right_src, "meshRight200", "key", ["val"], MESH_BUCKETS)
+    run("A", flat_sess, frame_b, lambda t, tag: same_pairs(t, want, tag),
+        False, 3)
+
+    def semi_rows(table, tag):
+        check(np.array_equal(np.sort(table.column("id").to_numpy()),
+                             left["id"][matched]),
+              f"{tag}: rows differ from numpy")
+
+    run("left_semi", flat_sess,
+        flat_left.select("key", "id")
+        .join(right_df.select("key"), on="key", how="left_semi")
+        .select("id"), semi_rows, False, 1)
+
+    # String keys: s<key> over the same key ranges, at a small size.
+    n_str = min(MESH_STRING_ROWS, n_rows)
+    rng = np.random.default_rng(SEED + 4)
+    skeys = {"l": rng.integers(0, n_str // 4, n_str),
+             "r": rng.integers(0, n_str // 4, n_str // 2)}
+    sides = {}
+    for tag, payload in (("l", "id"), ("r", "val")):
+        src = os.path.join(root, f"str_{tag}")
+        os.makedirs(src)
+        n = len(skeys[tag])
+        values = (np.arange(n, dtype=np.int64) if tag == "l"
+                  else rng.random(n))
+        pq.write_table(pa.table({
+            "skey": pa.array([f"s{k}" for k in skeys[tag].tolist()]),
+            payload: values}), os.path.join(src, "part-0.parquet"))
+        df, _s = build(flat_sess, src, f"meshStr_{tag}", "skey", [payload],
+                       MESH_BUCKETS)
+        sides[tag] = (df.select("skey", payload), values)
+    str_want = canonical(*np_join(
+        {"key": skeys["l"], "id": sides["l"][1]},
+        {"key": skeys["r"], "val": sides["r"][1]}), device=device)
+    run("string", flat_sess,
+        sides["l"][0].join(sides["r"][0], on="skey").select("id", "val"),
+        lambda t, tag: same_pairs(t, str_want, tag), False, 1)
+
+    # Join A on the 2 x 2 mesh: that mesh's index and a right index
+    # built there.
+    grid_left = grid_sess.read_parquet(os.path.join(root, "src"))
+    grid_right, _s = build(grid_sess, right_src, "meshRight200", "key",
+                           ["val"], MESH_BUCKETS)
+    run("A_grid", grid_sess,
+        grid_left.select("key", "id")
+        .join(grid_right.select("key", "val"), on="key")
+        .select("id", "val"), lambda t, tag: same_pairs(t, want, tag),
+        False, 1)
+
+    out["repartition_bytes"] = {
+        k: reg.counter(f"spmd.repartition.{k}.bytes").value - bytes0[k]
+        for k in links}
+    check(out["repartition_bytes"]["ici"] > 0,
+          "spmd: no row was re-bucketed between shards")
+    out["hash_launches"] = (hash_kernel.hash_lanes_to_buckets.launches
+                            - launches0)
+    out["seconds"] = time.perf_counter() - t_section
     return out
 
 
@@ -3434,6 +3666,8 @@ def main():
         # Last: the virtual mesh must not touch any phase above.
         out, n = counted(counters, phase_mesh, work, torch.device("cuda"))
         emit("mesh", **out)
+        rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"],
+                                     out["spmd"]["kernel"]["max_abs_err"])
         check(tally("mesh", n)[0] > 0,
               "the mesh phase never launched the hash kernel")
     finally:

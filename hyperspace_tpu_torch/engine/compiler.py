@@ -404,17 +404,29 @@ class ExpressionCompiler:
                 return xp.full(n, False), None
             return folded
         if isinstance(e, E.Like):
-            # LIKE in DICTIONARY space: the regex runs once per dictionary
-            # entry on the host; rows test membership of their code.
+            # LIKE in DICTIONARY space. Device lane: the per-dictionary
+            # membership mask comes from the segment cache
+            # (`parallel/spmd.string_like_mask`: the regex paid once per
+            # dictionary and pattern, the mask resident on the device),
+            # so the row test is one gather by code and a warm repeat
+            # runs no regex. Host lane: numpy end to end.
             import re as _re
             s = self.string_column(e.child)
             if s is None:
                 raise HyperspaceException(
                     f"LIKE requires a string operand: {e!r}")
-            rx = _re.compile(e.regex(), _re.DOTALL)
-            codes = np.nonzero([rx.fullmatch(str(v)) is not None
-                                for v in np.asarray(s.dictionary)])[0]
-            member = xp.isin(s.data, codes.astype(np.int32))
+            if not xp.host and len(s.dictionary):
+                from hyperspace_tpu_torch.parallel.spmd import (
+                    string_like_mask)
+                codes = xp.asarray(s.data)
+                mask = string_like_mask(s, e.regex(), device=xp.device)
+                member = mask[torch.clamp(codes.to(torch.int64), 0,
+                                          len(s.dictionary) - 1)]
+            else:
+                rx = _re.compile(e.regex(), _re.DOTALL)
+                codes = np.nonzero([rx.fullmatch(str(v)) is not None
+                                    for v in np.asarray(s.dictionary)])[0]
+                member = xp.isin(s.data, codes.astype(np.int32))
             if s.validity is None:
                 return member, None
             return member & s.validity, s.validity

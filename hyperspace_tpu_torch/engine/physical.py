@@ -129,6 +129,16 @@ class PhysicalNode:
         raise HyperspaceException(
             f"{type(self).__name__} does not support bucketed execution.")
 
+    def execute_sharded(self, num_buckets: int, mesh, align_plan=None):
+        """Born-sharded execution (`parallel/spmd.py`): this node's output
+        as a `ShardedBatch` whose shard s holds bucket range s, or None
+        when the shape does not qualify (unbucketed source, host-lane row
+        counts). None is a ROUTING answer, not an error: the caller runs
+        the single-device path. `align_plan` asks this side to read
+        ALIGNED to the other side's virtual sub-shard split. Default: not
+        shardable."""
+        return None
+
     def simple_string(self) -> str:
         return self.name
 
@@ -326,6 +336,115 @@ class ScanExec(PhysicalNode):
         return self._guard_index_read(
             lambda: self._execute_bucketed(num_buckets))
 
+    def execute_sharded(self, num_buckets: int, mesh, align_plan=None):
+        return self._guard_index_read(
+            lambda: self._execute_sharded(num_buckets, mesh,
+                                          align_plan=align_plan))
+
+    def _execute_sharded(self, num_buckets: int, mesh, align_plan=None):
+        """Born-sharded bucket-range read: shard s's bucket range decodes
+        and lands on `mesh.devices[s]` through the segment cache
+        (`spmd.read_sharded`), so a warm read is a cache hit per shard.
+        Returns a ShardedBatch, or None when the read belongs on another
+        lane: no bucket layout (or another bucket count), no rows, or —
+        with `distribution.enabled=auto` — fewer rows than
+        `max(min.device.rows, distribution.min.rows)`.
+
+        Hot-bucket skew (`spmd.pad_blowup`) splits the hot range into
+        virtual sub-shards instead of declining: equal row segments
+        whose cuts may fall inside a hot bucket (`spmd.plan_skew_read`),
+        stamped as `split_plan` so the join reads its other side aligned.
+        `align_plan` IS that other side's read: each shard holds every
+        row of the buckets intersecting the plan's segment."""
+        from hyperspace_tpu_torch.io import segcache
+        from hyperspace_tpu_torch.parallel import spmd
+        from hyperspace_tpu_torch.parallel.mesh import (bucket_ranges,
+                                                        total_shards)
+
+        spec = self.scan.bucket_spec
+        if spec is None or spec.num_buckets != num_buckets:
+            return None
+        if not spmd.supports_sharded(self.out_schema):
+            return None
+        per_bucket, files_total, ordered, stats, lengths = (
+            self._bucket_layout(num_buckets))
+        total = int(lengths.sum())
+        if total == 0:
+            return None
+        mode = self.conf.distribution if self.conf is not None else "auto"
+        if mode == "auto":
+            from hyperspace_tpu_torch.constants import (
+                DISTRIBUTION_MIN_ROWS_DEFAULT, MIN_DEVICE_ROWS_DEFAULT)
+            min_dev = (self.conf.min_device_rows if self.conf is not None
+                       else MIN_DEVICE_ROWS_DEFAULT)
+            min_dist = (self.conf.distribution_min_rows
+                        if self.conf is not None
+                        else DISTRIBUTION_MIN_ROWS_DEFAULT)
+            if total < max(min_dev, min_dist):
+                return None  # host or single-device lane territory
+        n_shards = total_shards(mesh)
+        ref = segcache.segment_ref_for_scan(
+            self.scan, allowed_buckets=self.allowed_buckets, bucketed=True)
+        budget = self._budget(device=True)
+        self._annotate_read([f for _, f in ordered], False, files_total,
+                            sum(n for _, n in stats))
+        if align_plan is not None:
+            # The other side of a sub-shard join: intersected buckets
+            # replicated per covering shard. Decline when replication
+            # would itself blow the padded layout (both sides hot).
+            if (align_plan.num_buckets != num_buckets
+                    or align_plan.n_shards != n_shards):
+                return None
+            specs = spmd.plan_aligned_read(per_bucket, lengths, align_plan)
+            C = max(1, max(spec[2] for spec in specs))
+            if C * n_shards > max(spmd.PAD_BLOWUP_FACTOR * total, 1 << 16):
+                return None
+            return spmd.read_sharded([], lengths, self.columns,
+                                     self.scan.schema, mesh, base_ref=ref,
+                                     conf=self.conf, budget=budget,
+                                     shard_specs=specs)
+        if spmd.pad_blowup(lengths, n_shards):
+            # Hot-bucket skew: split the hot range into row-balanced
+            # virtual sub-shards and stay on the SPMD lane.
+            split_plan, shard_specs = spmd.plan_skew_read(
+                per_bucket, lengths, n_shards)
+            telemetry.get_registry().counter(
+                "mesh.spmd.subshard_reads").inc()
+            telemetry.annotate(subsharded=True)
+            return spmd.read_sharded([], lengths, self.columns,
+                                     self.scan.schema, mesh, base_ref=ref,
+                                     conf=self.conf, budget=budget,
+                                     shard_specs=shard_specs,
+                                     split_plan=split_plan)
+        per_shard_files = [[f for b in range(lo, hi)
+                            for f in per_bucket.get(b, [])]
+                           for lo, hi in bucket_ranges(num_buckets,
+                                                       n_shards)]
+        return spmd.read_sharded(per_shard_files, lengths, self.columns,
+                                 self.scan.schema, mesh, base_ref=ref,
+                                 conf=self.conf, budget=budget)
+
+    def _bucket_layout(self, num_buckets: int):
+        """The surviving buckets' files and their per-bucket row counts,
+        from the Parquet footers (no data read): (files per bucket, files
+        before pruning, (bucket, file) in bucket order, footer stats,
+        int64 lengths)."""
+        per_bucket: dict = {}
+        files_total = 0
+        for b, files in self._per_bucket_files().items():
+            files_total += len(files)
+            if (self.allowed_buckets is not None
+                    and b not in self.allowed_buckets):
+                continue
+            per_bucket.setdefault(b, []).extend(files)
+        ordered = [(b, f) for b in range(num_buckets)
+                   for f in per_bucket.get(b, [])]
+        lengths = np.zeros(num_buckets, dtype=np.int64)
+        stats = parquet.file_footer_stats([f for _, f in ordered])
+        for (b, _), (c, _) in zip(ordered, stats):
+            lengths[b] += c
+        return per_bucket, files_total, ordered, stats, lengths
+
     def _execute_bucketed(self, num_buckets: int):
         """Read all bucket files in bucket order; per-bucket lengths come
         from the Parquet footers (no data read). The bucketed join matches
@@ -406,6 +525,25 @@ class FilterExec(PhysicalNode):
         return (batch.take(torch.nonzero(mask).squeeze(1)),
                 new_lengths.cpu().numpy().astype(np.int64))
 
+    def execute_sharded(self, num_buckets: int, mesh, align_plan=None):
+        """Filter keeps the sharded layout: rows never move, the mask
+        narrows `row_valid` shard by shard, and the join or aggregate
+        above skips masked rows as it skips padding. The bucket
+        histogram is stale after filtering and is dropped; a sub-shard
+        split carries over."""
+        sh = self.child.execute_sharded(num_buckets, mesh,
+                                        align_plan=align_plan)
+        if sh is None:
+            return None
+        from hyperspace_tpu_torch.engine.compiler import compile_predicate
+        from hyperspace_tpu_torch.parallel.spmd import (
+            count_string_predicate_lookups)
+        count_string_predicate_lookups(self.condition, sh.shards[0])
+        return sh.narrowed(sh.shards, [
+            valid & compile_predicate(self.condition, shard)
+            for shard, valid in zip(sh.shards, sh.row_valid)],
+            keep_lengths=False)
+
 
 class ProjectExec(PhysicalNode):
     """Projection over (out_name, source) entries, where source is a plain
@@ -443,6 +581,16 @@ class ProjectExec(PhysicalNode):
         + lengths) carries through."""
         batch, lengths = self.child.execute_bucketed(num_buckets)
         return self._project(batch), lengths
+
+    def execute_sharded(self, num_buckets: int, mesh, align_plan=None):
+        """Projection keeps the sharded layout (same rows, same shards):
+        each shard projects its own columns."""
+        sh = self.child.execute_sharded(num_buckets, mesh,
+                                        align_plan=align_plan)
+        if sh is None:
+            return None
+        return sh.narrowed([self._project(shard) for shard in sh.shards],
+                           sh.row_valid, keep_lengths=True)
 
     def _project(self, batch: columnar.ColumnBatch) -> columnar.ColumnBatch:
         if all(isinstance(src, str) for _, src in self.entries):
@@ -534,8 +682,12 @@ class ExchangeExec(PhysicalNode):
         perm = torch.sort(ids, stable=True).indices
         return batch.take(perm), lengths.cpu().numpy().astype(np.int64)
 
+    def execute_partitioned(self):
+        """(batch grouped by partition id, per-partition lengths)."""
+        return self.partition(self.child.execute())
+
     def execute(self) -> columnar.ColumnBatch:
-        return self.partition(self.child.execute())[0]
+        return self.execute_partitioned()[0]
 
     def execute_bucketed(self, num_buckets: int):
         """An Exchange output satisfies the bucketed contract (batch in
@@ -545,7 +697,43 @@ class ExchangeExec(PhysicalNode):
             raise HyperspaceException(
                 f"Exchange partitions ({self.num_partitions}) != requested "
                 f"buckets ({num_buckets}).")
-        return self.partition(self.child.execute())
+        return self.execute_partitioned()
+
+    def execute_sharded(self, num_buckets: int, mesh, align_plan=None):
+        """The child's born-sharded layout at the CHILD's own bucket
+        count: on a mesh the Exchange is not run, the SPMD join re-buckets
+        the side's key lanes between shards instead
+        (`parallel/spmd._repartition_lanes`; payload never moves). The
+        JAX package's Exchange has no sharded form, so its engine
+        declines the lane for a mismatched pair and runs the
+        single-device join; the rows are the same. None when the child
+        is not a bucketed chain, for an aligned read, or when the child's
+        footer lengths show hot-bucket skew (a split layout cannot meet
+        a re-bucketed side), checked before any data is read."""
+        from hyperspace_tpu_torch.parallel import spmd
+        from hyperspace_tpu_torch.parallel.mesh import total_shards
+
+        scan = _chain_scan(self.child)
+        if (num_buckets != self.num_partitions or align_plan is not None
+                or scan is None):
+            return None
+        native = scan.scan.bucket_spec.num_buckets
+        if native == num_buckets:
+            return None
+        lengths = scan._guard_index_read(
+            lambda: scan._bucket_layout(native)[-1])
+        if spmd.pad_blowup(lengths, total_shards(mesh)):
+            return None
+        return self.child.execute_sharded(native, mesh)
+
+
+def _chain_scan(node: PhysicalNode) -> Optional["ScanExec"]:
+    """The bucketed index scan under a Filter/Project chain, or None."""
+    while isinstance(node, (FilterExec, ProjectExec)):
+        node = node.child
+    if isinstance(node, ScanExec) and node.scan.bucket_spec is not None:
+        return node
+    return None
 
 
 def _annotate_lane(batch: columnar.ColumnBatch) -> None:
@@ -833,7 +1021,7 @@ class SortMergeJoinExec(PhysicalNode):
     def __init__(self, left: PhysicalNode, right: PhysicalNode,
                  left_keys: Sequence[str], right_keys: Sequence[str],
                  bucketed: bool, num_buckets: int = 0, how: str = "inner",
-                 out_columns: Optional[Set[str]] = None):
+                 out_columns: Optional[Set[str]] = None, conf=None):
         self.left = left
         self.right = right
         self.left_keys = list(left_keys)
@@ -841,6 +1029,7 @@ class SortMergeJoinExec(PhysicalNode):
         self.bucketed = bucketed
         self.num_buckets = num_buckets
         self.how = how
+        self.conf = conf
         # Late projection: lowered OUTPUT column names the consumer needs;
         # assembly gathers only these.
         self.out_columns = out_columns
@@ -857,6 +1046,14 @@ class SortMergeJoinExec(PhysicalNode):
 
     def execute(self) -> columnar.ColumnBatch:
         from hyperspace_tpu_torch.ops.join import sort_merge_join
+        if self.bucketed:
+            # The born-sharded SPMD lane first: both sides resident per
+            # shard by bucket range, a per-shard counting match. None =
+            # a precondition failed (counted as `spmd.fallbacks` when a
+            # mesh was available); the single-device paths below follow.
+            out = self._try_spmd()
+            if out is not None:
+                return out
         if self.how in ("left_semi", "left_anti"):
             # Membership joins: no expansion, no output from the right —
             # membership flags, then a single left-side gather.
@@ -900,6 +1097,102 @@ class SortMergeJoinExec(PhysicalNode):
         return sort_merge_join(lbatch, rbatch, self.left_keys,
                                self.right_keys, how=self.how,
                                columns=self.out_columns)
+
+    def _try_spmd(self) -> Optional[columnar.ColumnBatch]:
+        """The born-sharded SPMD join (`parallel/spmd.py`), or None when
+        a precondition fails: SPMD disabled, no mesh, a join type or a
+        bucket count the lane does not take, or a side that is not
+        shardable. Every decline with a mesh available is counted as
+        `spmd.fallbacks` with its reason. Nothing here catches an error
+        of the lane itself."""
+        from hyperspace_tpu_torch.parallel import spmd
+        from hyperspace_tpu_torch.parallel.context import (distribution_mesh,
+                                                           mesh_size)
+
+        if self.num_buckets <= 0:
+            return None
+        if self.conf is not None and not self.conf.distribution_spmd:
+            return None  # the operational escape hatch: single-device
+        mesh = distribution_mesh(self.conf)
+        if mesh is None:
+            return None
+        if self.how not in ("inner", "left_outer", "right_outer",
+                            "full_outer", "left_semi", "left_anti"):
+            spmd.spmd_fallback("join-type")
+            return None
+        if self.num_buckets % mesh_size(mesh) != 0:
+            spmd.spmd_fallback("bucket-count-indivisible")
+            return None
+        # One dispatch scope for the whole join (reads, match, output
+        # assembly): concurrent queries do not interleave shard lists.
+        with spmd.dispatch_guard(mesh):
+            return self._run_spmd(mesh)
+
+    def _run_spmd(self, mesh) -> Optional[columnar.ColumnBatch]:
+        from hyperspace_tpu_torch.ops.bucketed_join import (
+            assemble_join_output)
+        from hyperspace_tpu_torch.parallel import spmd
+
+        lsh = self.left.execute_sharded(self.num_buckets, mesh)
+        if lsh is None:
+            spmd.spmd_fallback("left-not-shardable")
+            return None
+        align = lsh.split_plan
+        if align is not None:
+            # Hot-bucket skew on the left: the right side reads ALIGNED
+            # to the split. Replication breaks unmatched-right
+            # uniqueness, so full and right outer joins leave the lane.
+            if self.how == "full_outer":
+                spmd.spmd_fallback("subshard-join-type")
+                return None
+            if self.how == "right_outer":
+                spmd.spmd_fallback("subshard-right-outer")
+                return None
+            rsh = self.right.execute_sharded(self.num_buckets, mesh,
+                                             align_plan=align)
+        else:
+            rsh = self.right.execute_sharded(self.num_buckets, mesh)
+        if rsh is None:
+            spmd.spmd_fallback("right-not-shardable")
+            return None
+        if align is None and rsh.split_plan is not None:
+            # Right-side-only skew: replicating the LEFT would break
+            # unmatched-left uniqueness (outer) and duplicate membership
+            # indices (semi / anti). INNER has no unmatched rows, so the
+            # roles swap: the left is read again ALIGNED to the right's
+            # split and the right becomes the preserved side.
+            if self.how != "inner":
+                spmd.spmd_fallback("subshard-right")
+                return None
+            lsh = self.left.execute_sharded(self.num_buckets, mesh,
+                                            align_plan=rsh.split_plan)
+            if lsh is None:
+                spmd.spmd_fallback("subshard-right")
+                return None
+            telemetry.get_registry().counter("mesh.spmd.side_swapped").inc()
+            telemetry.annotate(lane="spmd")
+            ri, li = spmd.sharded_join_indices(
+                rsh, lsh, self.right_keys, self.left_keys, how="inner",
+                conf=self.conf)
+            return assemble_join_output(lsh.batch, rsh.batch, li, ri,
+                                        how="inner",
+                                        columns=self.out_columns)
+        telemetry.annotate(lane="spmd")
+        if self.how in ("left_semi", "left_anti"):
+            idx = spmd.sharded_semi_anti_indices(
+                lsh, rsh, self.left_keys, self.right_keys,
+                anti=self.how == "left_anti", conf=self.conf)
+            return lsh.batch.take(idx)
+        if self.how == "right_outer":
+            ri, li = spmd.sharded_join_indices(
+                rsh, lsh, self.right_keys, self.left_keys,
+                how="left_outer", conf=self.conf)
+        else:
+            li, ri = spmd.sharded_join_indices(
+                lsh, rsh, self.left_keys, self.right_keys, how=self.how,
+                conf=self.conf)
+        return assemble_join_output(lsh.batch, rsh.batch, li, ri,
+                                    how=self.how, columns=self.out_columns)
 
     def _bucketed_inputs(self):
         """Both sides in bucket order, on one lane, with their per-bucket
@@ -1648,7 +1941,7 @@ def _plan_join(plan: Join, required: Set[str], conf, ctx) -> PhysicalNode:
         return SortMergeJoinExec(left_phys, right_phys, left_keys,
                                  right_keys, bucketed=True,
                                  num_buckets=target, how=plan.join_type,
-                                 out_columns=out_columns)
+                                 out_columns=out_columns, conf=conf)
     # Broadcast path: one side estimated small (dimension tables) — no
     # Exchange/Sort on EITHER side. Disable with
     # `spark.hyperspace.broadcast.threshold = -1` (the analog of the

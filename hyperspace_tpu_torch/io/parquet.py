@@ -150,7 +150,11 @@ def _stamps(paths: Sequence[str]):
     """Tuple of per-file stamps, or None when any file is unstampable
     (directory, no mtime, stat failure) — which disables caching."""
     try:
-        stamps = tuple(_file_stamp(p) for p in paths)
+        # From a list: `tuple(<generator>)` resizes the tuple it builds,
+        # which raises SystemError when another thread holds a reference
+        # to it meanwhile (the memory accountant's CPU walk over
+        # `gc.get_objects()`, run from concurrent fills).
+        stamps = tuple([_file_stamp(p) for p in paths])
     except OSError:
         return None
     return None if any(st is None for st in stamps) else stamps

@@ -395,7 +395,10 @@ class SegmentCache:
         from hyperspace_tpu_torch.telemetry import memory as _mem
 
         host_budget = self._host_budget(conf)
-        if host_budget <= 0:
+        if host_budget <= 0 or not isinstance(ent.batch,
+                                              columnar.ColumnBatch):
+            # `get_or_fill` payloads (born-sharded shards, remap tables)
+            # have no host form the promote path could rebuild.
             return False
         hbatch = columnar.batch_to_host(ent.batch)
         hent = _HostEntry(hbatch, _batch_nbytes(hbatch), ent.ref,
@@ -546,6 +549,79 @@ class SegmentCache:
                 if fill.reserved:
                     self._reserved -= fill.reserved
                     fill.reserved = 0
+                self._cv.notify_all()
+            fill.event.set()
+
+    def get_or_fill(self, key: tuple, fill_fn, ref: Optional[SegmentRef]
+                    = None, conf=None, budget: Optional[int] = None):
+        """Generic cached fill under the cache's single-flight, byte
+        budget, LRU and index-FSM invalidation, for payloads the cache
+        does not decode itself: the born-sharded read's per-shard
+        bucket-range fills (`parallel/spmd.read_sharded`, key components
+        `("spmd", ...)` and `("spmd-sub", ...)`), its global
+        dictionaries, and the string remap tables and LIKE masks. A
+        version of an index on an n-shard mesh caches n range entries,
+        each holding one shard's padded rows on its device, so a warm
+        read moves nothing over the link. `fill_fn` runs outside the
+        lock and returns (payload, resident bytes); `ref` ties the entry
+        to the index log FSM's invalidation hooks (a commit under the
+        root drops it). Such entries never demote to the host tier."""
+        from hyperspace_tpu_torch import telemetry
+        from hyperspace_tpu_torch.telemetry import memory as _mem
+
+        while True:
+            with self._cv:
+                ent = self._entries.get(key)
+                if ent is not None:
+                    self._entries.move_to_end(key)
+                    _mem.cache_hit("segments")
+                    return ent.batch
+                fill = self._fills.get(key)
+                if fill is None:
+                    fill = _Fill(ref.index_root if ref is not None
+                                 else None)
+                    self._fills[key] = fill
+                    break
+            t_wait0 = time.perf_counter()
+            try:
+                while not fill.event.is_set():
+                    telemetry.check_deadline("cache.fill")
+                    fill.event.wait(_FILL_WAIT_QUANTUM_S)
+            finally:
+                telemetry.add_seconds("cache.fill_wait_s",
+                                      time.perf_counter() - t_wait0)
+            if fill.error is None and fill.batch is not None:
+                _mem.cache_hit("segments")
+                telemetry.add_count("cache.segments.coalesced")
+                return fill.batch
+            # The filler died; retry with our own fill.
+
+        _mem.cache_miss("segments")
+        try:
+            with telemetry.span("segcache.fill", "cache",
+                                index=(ref.index_name if ref else None)):
+                telemetry.get_registry().counter(
+                    "cache.segments.fills").inc()
+                telemetry.charge_tenant("cache.segments.fills")
+                payload, nbytes = fill_fn()
+                evictions = 0
+                with self._cv:
+                    budget_eff = self._effective_budget(conf, budget)
+                    if not fill.doomed and 0 < nbytes <= budget_eff:
+                        evictions = self._insert(key, payload, nbytes, ref,
+                                                 conf, None, budget_eff)
+                    self._publish_stats()
+                    self._cv.notify_all()
+                _mem.cache_eviction("segments", evictions)
+            fill.batch = payload
+            return payload
+        except BaseException as exc:
+            fill.error = exc
+            raise
+        finally:
+            with self._cv:
+                if self._fills.get(key) is fill:
+                    del self._fills[key]
                 self._cv.notify_all()
             fill.event.set()
 

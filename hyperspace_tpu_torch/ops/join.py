@@ -71,13 +71,11 @@ def _join_lane_operands(left: ColumnBatch, right: ColumnBatch,
     return (marker_l, *l_lanes), (marker_r, *r_lanes)
 
 
-def _runs_to_counts(differs: torch.Tensor, side_s: torch.Tensor,
-                    left_outer: bool):
-    """Shared tail of the counting match: per-run right-counts and bracket
-    starts from the (T-1) adjacent-key-difference vector over the sorted
-    (key, side, orig) sequence. All int64."""
-    T = side_s.shape[0]
-    device = side_s.device
+def _run_bounds(differs: torch.Tensor):
+    """(run_first, run_last): each sorted element's run's first and last
+    position, from the (T-1) adjacent-key-difference vector. int64."""
+    T = differs.shape[0] + 1
+    device = differs.device
     pos = torch.arange(T, dtype=torch.int64, device=device)
     run_start = torch.cat([torch.ones(1, dtype=torch.bool, device=device),
                            differs])
@@ -86,6 +84,15 @@ def _runs_to_counts(differs: torch.Tensor, side_s: torch.Tensor,
         torch.where(run_start, pos, T), [0]), 0).values, [0])
     run_last = torch.cat([nxt[1:], torch.full((1,), T, dtype=torch.int64,
                                               device=device)]) - 1
+    return run_first, run_last
+
+
+def _runs_to_counts(differs: torch.Tensor, side_s: torch.Tensor,
+                    left_outer: bool):
+    """Shared tail of the counting match: per-run right-counts and bracket
+    starts from the (T-1) adjacent-key-difference vector over the sorted
+    (key, side, orig) sequence. All int64."""
+    run_first, run_last = _run_bounds(differs)
     R = torch.cumsum(side_s, 0)  # inclusive right-element count
     rights = R[run_last] - R[run_first] + side_s[run_first]
     rstart = run_last - rights + 1

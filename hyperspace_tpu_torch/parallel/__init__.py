@@ -12,13 +12,15 @@ multi-query programs.
 - `scan.py` — row sharding (`shard_batch`) and the sharded filter;
   `aggregate.py` — per-shard partial group aggregates and their host
   combine.
-- `spmd.py` — only the inter-query batched predicate
-  (`batched_predicate_masks`) so far.
+- `spmd.py` — born-sharded execution: the `ShardedBatch` layout, the
+  sharded read through the segment cache (global string dictionaries,
+  virtual sub-shards for hot buckets), the per-shard counting join with
+  its in-mesh re-bucket through the hash kernel, the sharded filter,
+  aggregate and repartition (`SortMergeJoinExec`'s SPMD lane and the
+  `execute_sharded` hooks in `engine/physical.py`), and the inter-query
+  batched predicate (`batched_predicate_masks`).
 
-Still to come (ROADMAP item 13): the rest of the JAX package's
-`parallel/spmd.py` (born-sharded reads, the subshard plans and the SPMD
-join program — until then a join over born-sharded indexes runs the
-single-device join), `parallel/replica.py` and the multi-device bench.
-There is no `torch.distributed`: every shard is a tensor of this
-process.
+Still to come (ROADMAP): `parallel/replica.py` (replicas, with the
+segment cache's `replica_residency`) and the multi-device bench. There is
+no `torch.distributed`: every shard is a tensor of this process.
 """

@@ -107,25 +107,27 @@ def _shard_partials(lanes, valid, values, specs_meta, perm, seg,
     return out
 
 
+def _group_count(seg: torch.Tensor, valid_sorted: torch.Tensor):
+    """A shard's number of groups among its valid rows (which sort
+    first): the segment starts that hold a valid row."""
+    starts = torch.ones_like(valid_sorted)
+    starts[1:] = seg[1:] != seg[:-1]
+    return (starts & valid_sorted).sum()
+
+
 def _partials_step(valids: List[torch.Tensor], lanes: List[List],
-                   values: List[List], specs_meta: Tuple, num_rows: int
+                   values: List[List], specs_meta: Tuple
                    ) -> Tuple[List[Dict[str, np.ndarray]], float]:
     """Every shard's sort and segment ids, one host read of every
     shard's group count, then every shard's partial tables, fetched to
-    the host. `valids` are `shard_batch`'s masks, whose padding rows are
-    the tail of the `num_rows` real ones. Returns (per-shard partials,
-    count-read seconds)."""
+    the host. `valids` are the per-shard row masks (`shard_batch`'s, or
+    a born-sharded batch's, which any filter may have narrowed).
+    Returns (per-shard partials, count-read seconds)."""
     sorted_ = [_sorted_segments(ln, v) for ln, v in zip(lanes, valids)]
     home = valids[0].device
-    local = int(valids[0].shape[0])
-    last = []
-    for s, (_perm, seg, _valid) in enumerate(sorted_):
-        rows = min(local, max(0, num_rows - s * local))
-        # Padding rows sort last: the last real row's segment id + 1.
-        last.append(seg[rows - 1].to(home) + 1 if rows
-                    else torch.zeros((), dtype=torch.int64, device=home))
     t0 = time.perf_counter()
-    groups = torch.stack(last).tolist()
+    groups = torch.stack([_group_count(seg, valid).to(home)
+                          for _perm, seg, valid in sorted_]).tolist()
     sync_s = time.perf_counter() - t0
     parts = [_shard_partials(lanes[s], valids[s], values[s], specs_meta,
                              perm, seg, valid_sorted, int(groups[s]))
@@ -145,11 +147,17 @@ partials_step = instrumented_device("mesh.aggregate_step", _partials_step)
 def distributed_group_aggregate(batch: ColumnBatch,
                                 group_columns: Sequence[str],
                                 aggregates: Sequence[AggSpec],
-                                out_schema: Schema, mesh: Mesh
-                                ) -> ColumnBatch:
+                                out_schema: Schema, mesh: Mesh,
+                                pre_sharded=None) -> ColumnBatch:
     """Partial aggregation over the mesh + host combine; the result is a
     host batch. Requires at least one group column (global aggregates
-    are cheap on one device)."""
+    are cheap on one device).
+
+    `pre_sharded` = (per-shard batches, per-shard row masks) of a
+    born-sharded input (`parallel/spmd.py`) skips the placement: the
+    partials read the resident shards, and `batch` is their flat
+    concatenation (shard s's row i is row s*C + i), from which the
+    representative group rows are gathered."""
     if not group_columns:
         raise HyperspaceException(
             "distributed aggregation requires group columns")
@@ -163,16 +171,17 @@ def distributed_group_aggregate(batch: ColumnBatch,
     with telemetry.span("mesh:aggregate", "mesh", rows=batch.num_rows,
                         shards=n_shards):
         return _distributed_group_aggregate(
-            batch, group_columns, aggregates, out_schema, mesh, n_shards,
-            reg)
+            batch, group_columns, aggregates, out_schema, mesh, reg,
+            pre_sharded)
 
 
 def _distributed_group_aggregate(batch, group_columns, aggregates,
-                                 out_schema, mesh, n_shards, reg):
+                                 out_schema, mesh, reg, pre_sharded):
     from hyperspace_tpu_torch import telemetry
     from hyperspace_tpu_torch.ops.keys import column_sort_lanes
 
-    shards, row_valid = shard_batch(batch, mesh)
+    shards, row_valid = (pre_sharded if pre_sharded is not None
+                         else shard_batch(batch, mesh))
     specs_meta = []
     for spec in aggregates:
         if spec.func == "count" and spec.column == "*":
@@ -200,7 +209,7 @@ def _distributed_group_aggregate(batch, group_columns, aggregates,
                                  else torch.ones_like(valid)))
         values.append(shard_values)
     parts, sync_s = partials_step(row_valid, lanes, values,
-                                  tuple(specs_meta), batch.num_rows)
+                                  tuple(specs_meta))
     reg.counter("mesh.aggregate.sync_s").inc(sync_s)
     telemetry.add_seconds("mesh.sync_s", sync_s)
     local = int(row_valid[0].shape[0])

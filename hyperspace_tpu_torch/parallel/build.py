@@ -57,12 +57,13 @@ def _route_stage(shards: List[Dict], dests: List[torch.Tensor],
                  devices: Sequence[torch.device]) -> Tuple[List[Dict], float]:
     """One exchange within each group of flat shards: a source at any
     position of group g sends its rows with `dests` value p to the
-    group's p-th shard. `shards[s]` is {name: {leaf: tensor}} plus
-    "__bucket__"; every row is valid. Returns (received shards, seconds
-    of the one host read of the per-peer counts)."""
+    group's p-th shard, and a row with `dests` value `n_peers` goes
+    nowhere (the SPMD join's padding rows). `shards[s]` is {name: {leaf:
+    tensor}} plus "__bucket__". Returns (received shards, seconds of the
+    one host read of the per-peer counts)."""
     home = devices[0]
     perms = [torch.sort(d, stable=True).indices for d in dests]
-    counts = [torch.bincount(d, minlength=n_peers) for d in dests]
+    counts = [torch.bincount(d, minlength=n_peers + 1) for d in dests]
     t0 = time.perf_counter()
     table = torch.stack([c.to(home) for c in counts]).tolist()
     sync_s = time.perf_counter() - t0

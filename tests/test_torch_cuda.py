@@ -902,3 +902,48 @@ def test_card_advisor_run_once_builds_through_the_hash_kernel(
                if e.get("category") == "rule")
     key = [("v", "ascending")]
     assert after.sort_by(key).equals(before.sort_by(key))
+
+
+def test_card_mesh_rebucket_ids_equal_plain_version_and_join_equals_cpu(
+        card):
+    """On a virtual 4-shard mesh of the card, the SPMD join's in-mesh
+    re-bucket (a 16-bucket left, an 8-bucket right): each shard's bucket
+    ids from the hash kernel equal the plain version's on the same
+    lanes, the join launches the kernel once per shard, and its
+    left_outer rows equal the same join on a virtual mesh of the CPU."""
+    from hyperspace_tpu_torch.parallel import spmd, virtual
+    from hyperspace_tpu_torch.parallel.build import distributed_build
+    from hyperspace_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(13)
+    tables = [(pa.table({"k": rng.integers(0, 5000, n).astype(np.int64),
+                         "x": rng.standard_normal(n)}), buckets)
+              for n, buckets in ((40_000, 16), (20_000, 8))]
+    rows = {}
+    for dev in (card, torch.device("cpu")):
+        with virtual.virtual_devices(4, dev):
+            mesh = make_mesh(4)
+            lsh, rsh = [spmd.shard_bucket_ordered(*distributed_build(
+                columnar.from_arrow(t, device=dev), ["k"], b, mesh), mesh)
+                for t, b in tables]
+            if dev.type == "cuda":
+                for lanes in spmd.routing_lanes(rsh, ["k"]):
+                    got = hash_kernel.hash_lanes_to_buckets(lanes, 16)
+                    torch.cuda.synchronize()
+                    want = hash_kernel.hash_lanes_to_buckets_reference(
+                        lanes.cpu(), 16)
+                    assert (got.cpu() == want).all()
+            before = hash_kernel.hash_lanes_to_buckets.launches
+            li, ri = spmd.sharded_join_indices(lsh, rsh, ["k"], ["k"],
+                                               how="left_outer")
+            launched = hash_kernel.hash_lanes_to_buckets.launches - before
+            assert launched == (4 if dev.type == "cuda" else 0)
+            li, ri = li.cpu().numpy(), ri.cpu().numpy()
+            lx = lsh.batch.column("x").data.cpu().numpy()
+            rx = rsh.batch.column("x").data.cpu().numpy()
+            rows[dev.type] = sorted(zip(
+                lx[li].tolist(),
+                [repr(v) for v in np.where(ri >= 0, rx[np.clip(ri, 0, None)],
+                                           np.nan).tolist()]))
+    assert len(rows["cuda"]) > 40_000
+    assert rows["cuda"] == rows["cpu"]

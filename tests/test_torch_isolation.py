@@ -64,7 +64,8 @@ SERVING_MODULES = ("engine/scheduler.py", "engine/batcher.py",
 def test_serving_modules_stand_alone():
     """The serving plane's modules are the package's own, and so is the
     chaos harness `chip_smoke.py` loads on the machine without JAX; the
-    port's `parallel/spmd.py` holds only the batched predicate."""
+    port's `parallel/spmd.py` exports the batched predicate and the
+    born-sharded SPMD execution, each name defined there."""
     files = set(_package_files())
     for rel in SERVING_MODULES:
         path = os.path.join(PACKAGE, *rel.split("/"))
@@ -73,7 +74,11 @@ def test_serving_modules_stand_alone():
     chaos = os.path.join(REPO, "tests", "torch_chaos.py")
     assert not [m for m in _imported_modules(chaos) if _forbidden(m)]
     from hyperspace_tpu_torch.parallel import spmd
-    assert spmd.__all__ == ["batched_predicate_masks"]
+    assert "batched_predicate_masks" in spmd.__all__
+    assert {"ShardedBatch", "read_sharded", "sharded_join_indices",
+            "sharded_semi_anti_indices", "repartition_sharded",
+            "sharded_filter", "sharded_group_aggregate"} <= set(spmd.__all__)
+    assert all(hasattr(spmd, name) for name in spmd.__all__)
 
 
 FUSION_AND_ADVISOR_MODULES = ("engine/fusion.py", "advisor/__init__.py",

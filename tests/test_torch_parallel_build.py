@@ -15,8 +15,8 @@ test. The same seeded tables go through both:
   entry's `shardLayout` are equal; and every bucket file's bytes equal
   the port's single-device build of the same index;
 - a rules-on join over two born-sharded indexes gives the JAX package's
-  rows (the port runs its single-device join; the JAX package its SPMD
-  join).
+  rows, both packages on their SPMD join lane (the port's with no
+  `spmd.fallbacks`).
 """
 
 import glob
@@ -256,8 +256,9 @@ def test_born_sharded_index_equals_jax(tmp_path, slices):
 
 
 def test_born_sharded_join_equals_jax(tmp_path):
-    """Rules on, two born-sharded indexes: the port's single-device join
-    reads the `-sNN` files and gives the JAX package's rows."""
+    """Rules on, two born-sharded indexes: the port's SPMD join reads the
+    `-sNN` files shard by shard, with no fallback, and gives the JAX
+    package's rows."""
     left_src, right_src = str(tmp_path / "l"), str(tmp_path / "r")
     _write_source(left_src, 12_000, seed=7)
     rng = np.random.default_rng(8)
@@ -280,8 +281,18 @@ def test_born_sharded_join_equals_jax(tmp_path):
         roots = [p for leaf in sess.optimize(query.plan).collect_leaves()
                  for p in leaf.root_paths]
         assert roots and all("v__=" in r for r in roots)
-        table = query.to_pandas() if hasattr(query, "to_pandas") else \
-            query.collect().to_pandas()
+        if hasattr(query, "to_pandas"):
+            table = query.to_pandas()
+        else:
+            reg = telemetry.get_registry()
+            fallbacks = reg.counter("spmd.fallbacks").value
+            joins = reg.counter("mesh.spmd.join_execs").value
+            collected, metrics = query.collect(with_metrics=True)
+            table = collected.to_pandas()
+            assert [o.detail.get("lane") for o in metrics.operators
+                    if o.name == "SortMergeJoin"] == ["spmd"]
+            assert reg.counter("mesh.spmd.join_execs").value == joins + 1
+            assert reg.counter("spmd.fallbacks").value == fallbacks
         results.append(table.sort_values(["id", "val"])
                        .reset_index(drop=True)[["key", "id", "val"]])
     assert len(results[0]) > 0

@@ -5,7 +5,10 @@ virtual 4-shard mesh of the CPU at 65,536 rows, with every one of its
 checks: the born-sharded builds on the flat and the 2 x 2 mesh byte-equal
 to the single-device build, the layout record and the log entry's
 `shardLayout`, the filters and the group aggregate against numpy and
-against distribution off, and the `mesh-distribution` trigger. (Its
+against distribution off, the `mesh-distribution` trigger, and the SPMD
+joins (B re-bucketed between shards, left_outer, A, left_semi, a string
+key, A on the 2 x 2 mesh) against numpy and against
+`distribution.spmd.enabled=false`. (Its
 kernel-launch check applies on a card only: on the CPU the hash wrapper
 runs its plain version and counts no launch.)
 """
@@ -44,7 +47,10 @@ def test_phase_mesh_passes_on_the_cpu(tmp_path):
             reg.counter(name).set(value + reg.counter(name).value)
     assert not virtual.is_virtual()
     assert out["shards"] == 4 and out["virtual"] and out["device_count"] == 0
-    assert out["execs"]["build"] == 2
+    # The flat and 2 x 2 builds of the mesh index, then the SPMD joins'
+    # right indexes (64 and 200 buckets flat, 200 on the 2 x 2 mesh) and
+    # the string join's two sides.
+    assert out["execs"]["build"] == 2 + 5
     assert out["execs"]["filter"] >= 2 and out["execs"]["aggregate"] >= 1
     for tag in ("flat", "grid"):
         build = out["build"][tag]
@@ -56,6 +62,13 @@ def test_phase_mesh_passes_on_the_cpu(tmp_path):
     assert out["filter"]["range"]["rows"] == 65536
     assert out["aggregate"]["groups"] == 100
     assert out["card"] == "cpu"
+    spmd = out["spmd"]
+    assert set(spmd["joins"]) == {"A", "B", "left_outer", "left_semi",
+                                  "string", "A_grid"}
+    assert all(j["lane"] == "spmd" for j in spmd["joins"].values())
+    assert spmd["repartition_bytes"]["ici"] > 0
+    assert spmd["kernel"]["max_abs_err"] == 0
+    assert len(spmd["kernel"]["shapes"]) == 4
 
 
 def test_phase_mesh_refuses_a_run_that_distributed_before_it(tmp_path):
