@@ -2240,10 +2240,12 @@ def array_digest(cols):
     with np.errstate(over="ignore"):
         for i, name in enumerate(names):
             a = np.ascontiguousarray(cols[name])
-            a = (a.astype(np.float64) if a.dtype.kind == "f"
-                 else a.astype(np.int64)).view(np.uint64)
-            h = (h * np.uint64(0x100000001B3)) ^ (
-                a * np.uint64(0x9E3779B97F4A7C15 + 2 * i))
+            # No copy for a column already 8 bytes wide: a 33.5M-row
+            # join result digests in a fraction of a second.
+            a = (a.astype(np.float64, copy=False) if a.dtype.kind == "f"
+                 else a.astype(np.int64, copy=False)).view(np.uint64)
+            h *= np.uint64(0x100000001B3)
+            h ^= a * np.uint64(0x9E3779B97F4A7C15 + 2 * i)
         return (tuple(names), n, int(h.sum(dtype=np.uint64)),
                 int((h * h).sum(dtype=np.uint64)))
 
@@ -3302,8 +3304,10 @@ def phase_mesh(work, device, n_rows=N_ROWS):
                             "mesh_ms": aggs["mesh"][1],
                             "single_ms": aggs["single"][1]}
         out["sync_s"] = sync
-        out["spmd"] = _mesh_joins(root, device, n_rows, cols, flat_sess,
-                                  grid_sess)
+        out["spmd"], right_src, want = _mesh_joins(
+            root, device, n_rows, cols, flat_sess, grid_sess)
+        out["replica"] = _replica_block(root, device, n_rows, cols,
+                                        right_src, want)
         after = execs()
         out["execs"] = {k: after[k] - earlier[k] for k in kinds}
     finally:
@@ -3506,7 +3510,9 @@ def _mesh_joins(root, device, n_rows, cols, flat_sess, grid_sess):
         lambda t, tag: same_pairs(t, str_want, tag), False, 1)
 
     # Join A on the 2 x 2 mesh: that mesh's index and a right index
-    # built there.
+    # built there. Replication off, so the join runs over the whole
+    # (dcn, shard) mesh and not on one replica slice.
+    grid_sess.conf.set(REPLICATION_KEY, "false")
     grid_left = grid_sess.read_parquet(os.path.join(root, "src"))
     grid_right, _s = build(grid_sess, right_src, "meshRight200", "key",
                            ["val"], MESH_BUCKETS)
@@ -3524,6 +3530,292 @@ def _mesh_joins(root, device, n_rows, cols, flat_sess, grid_sess):
     out["hash_launches"] = (hash_kernel.hash_lanes_to_buckets.launches
                             - launches0)
     out["seconds"] = time.perf_counter() - t_section
+    return out, right_src, want
+
+
+REPLICATION_KEY = "spark.hyperspace.distribution.replication.enabled"
+REPLICA_CLIENTS = 8
+REPLICA_COLLECTS = 8            # per client and pass
+REPLICA_JOIN_SLOTS = (2, 6)     # a client's collects that run join B
+REPLICA_APPEND_ROWS = 1 << 12   # the committed append's rows (no key matches)
+
+
+def _replica_block(root, device, n_rows, cols, right_src, want):
+    """Read replicas on the 2 x 2 topology with replication on: the 2 x 2
+    mesh index (`meshIdx`, MESH_BUCKETS buckets) and the join rung's
+    right source indexed there at MESH_RIGHT_BUCKETS, then 8 client
+    threads x 8 collects through the scheduler, each mixing point filters
+    on `key` with join B (the right side re-buckets on the routed slice's
+    2 shards: 2 hash launches a join). A warm-up pass fills both
+    replicas; a timed pass, and one with `replication.enabled=false` (a
+    record: both slices share one card). Every result equals its query's
+    serial run (an order-insensitive digest), whose rows equal numpy.
+    Then the segment cache's residency per slice, a committed append
+    (which sweeps both slices' entries; the reads after it equal the
+    reads before), and a cold-range pin: after the point filters made
+    their buckets hot, a filter confined to a never-read bucket of the
+    other slice routes to its home slice. Returns the block's record."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    import torch
+
+    from hyperspace_tpu_torch import (Hyperspace, HyperspaceConf,
+                                      HyperspaceSession, IndexConfig, col,
+                                      lit, telemetry)
+    from hyperspace_tpu_torch.engine.scheduler import get_scheduler
+    from hyperspace_tpu_torch.io import segcache
+    from hyperspace_tpu_torch.ops.cuda import hash_kernel
+    from hyperspace_tpu_torch.parallel import replica
+    from hyperspace_tpu_torch.parallel.mesh import bucket_owner
+
+    reg = telemetry.get_registry()
+    t_block = time.perf_counter()
+    f0 = reg.counter("spmd.fallbacks").value
+    replica.reset_router()
+    router = replica.get_router()
+    on_card = device.type == "cuda"
+
+    def launches():
+        return hash_kernel.hash_lanes_to_buckets.launches
+
+    def routed():
+        return [reg.counter(f"serve.replica.{i}.routed").value
+                for i in (0, 1)]
+
+    # The block's own hard-linked copy of the right source: its append
+    # touches no other phase's source.
+    rep_src = os.path.join(root, "replica_right")
+    os.makedirs(rep_src)
+    for name in sorted(os.listdir(right_src)):
+        os.link(os.path.join(right_src, name), os.path.join(rep_src, name))
+    sess = HyperspaceSession(HyperspaceConf({
+        "spark.hyperspace.warehouse.dir": os.path.join(root, "grid", "wh"),
+        "spark.hyperspace.index.num.buckets": str(MESH_RIGHT_BUCKETS),
+        "spark.hyperspace.execution.min.device.rows": "0",
+        "spark.hyperspace.broadcast.threshold": "-1",
+        "spark.hyperspace.distribution.enabled": "true",
+        "spark.hyperspace.distribution.slices": "2",
+        REPLICATION_KEY: "true"}), device=device)
+    hs = Hyperspace(sess)
+    t0 = time.perf_counter()
+    right_df = sess.read_parquet(rep_src)
+    hs.create_index(right_df, IndexConfig("replicaRight", ["key"], ["val"]))
+    out = {"build_s": time.perf_counter() - t0, "clients": REPLICA_CLIENTS,
+           "collects_per_client": REPLICA_COLLECTS}
+    (entry,) = [e for e in Hyperspace.get_context(sess)
+                .index_collection_manager.get_indexes(["ACTIVE"])
+                if e.name == "replicaRight"]
+    right_root = os.path.dirname(entry.content.root.rstrip("/"))
+    sess.enable_hyperspace()
+    left_df = sess.read_parquet(os.path.join(root, "src"))
+    key = cols["key"]
+    # Two hot keys whose buckets both lie in one slice's range.
+    all_buckets = np_bucket_ids_int64(key, MESH_BUCKETS)
+    owners = all_buckets.astype(np.int64) * 2 // MESH_BUCKETS
+    hot_keys = [int(key[0]), int(key[np.nonzero(
+        (owners == owners[0]) & (all_buckets != all_buckets[0]))[0][0]])]
+    mix = {"B": (left_df.select("key", "id")
+                 .join(right_df.select("key", "val"), on="key")
+                 .select("id", "val"))}
+    for k in hot_keys:
+        mix[f"p{k}"] = (left_df.filter(col("key") == lit(k))
+                        .select("id", "score"))
+    schedule = [["B" if j in REPLICA_JOIN_SLOTS
+                 else f"p{hot_keys[(c + j) % len(hot_keys)]}"
+                 for j in range(REPLICA_COLLECTS)]
+                for c in range(REPLICA_CLIENTS)]
+    joins_per_pass = sum(row.count("B") for row in schedule)
+
+    # Serial runs: each against numpy; their digests are the reference.
+    serial = {}
+    for name, frame in mix.items():
+        h0 = launches()
+        table, m = frame.collect(with_metrics=True)
+        check(m.replica in (0, 1), f"replica {name}: not routed "
+              f"({m.replica})")
+        if name == "B":
+            got = canonical(table.column("id").to_numpy(),
+                            table.column("val").to_numpy(), device=device)
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  "replica B: rows differ from numpy")
+            if on_card:
+                check(launches() - h0 == 2, "replica B: the routed join "
+                      f"launched the hash kernel {launches() - h0} times")
+        else:
+            k = int(name[1:])
+            ids = table.column("id").to_numpy()
+            order = np.argsort(ids)
+            hit = np.nonzero(key == k)[0]
+            check(np.array_equal(ids[order], hit)
+                  and np.array_equal(table.column("score").to_numpy()[order],
+                                     cols["score"][hit]),
+                  f"replica {name}: rows differ from numpy")
+        serial[name] = table_digest(table)
+    # The same join with the SPMD lane off: the Exchange's partition
+    # kernel, the rows unchanged.
+    sess.conf.set(SPMD_KEY, "false")
+    try:
+        check(table_digest(mix["B"].collect()) == serial["B"],
+              "replica B: the lane-off join differs")
+    finally:
+        sess.conf.set(SPMD_KEY, "true")
+
+    pool = ThreadPoolExecutor(8)
+
+    def run_pass(tag, peaks=None):
+        results, errors = [], []
+        lock = threading.Lock()
+        start = threading.Barrier(REPLICA_CLIENTS)
+        h0, r0 = launches(), routed()
+
+        def client(c):
+            start.wait()
+            for name in schedule[c]:
+                try:
+                    table = mix[name].collect()
+                except Exception as exc:
+                    with lock:
+                        errors.append(f"{name}: {exc!r}")
+                    continue
+                with lock:
+                    results.append((name, table))
+
+        stop = threading.Event()
+
+        def poll():
+            while not stop.is_set():
+                for i in (0, 1):
+                    v = reg.gauge(f"serve.replica.{i}.admitted_bytes").value
+                    peaks[i] = max(peaks[i], v)
+                time.sleep(0.001)
+
+        threads = [threading.Thread(target=client, args=(c,),
+                                    name=f"replica-{c}")
+                   for c in range(REPLICA_CLIENTS)]
+        poller = (threading.Thread(target=poll) if peaks is not None
+                  else None)
+        t0 = time.perf_counter()
+        if poller is not None:
+            poller.start()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        stop.set()
+        if poller is not None:
+            poller.join()
+        check(not any(th.is_alive() for th in threads),
+              f"replica {tag}: a client hung")
+        check(not errors, f"replica {tag}: {errors[:3]}")
+        n = REPLICA_CLIENTS * REPLICA_COLLECTS
+        check(len(results) == n, f"replica {tag}: {len(results)} results")
+        digests = list(pool.map(lambda nt: (nt[0], table_digest(nt[1])),
+                                results))
+        del results
+        bad = [name for name, d in digests if d != serial[name]]
+        check(not bad, f"replica {tag}: {len(bad)} results differ from "
+              f"their serial runs ({sorted(set(bad))})")
+        moved = [b - a for a, b in zip(r0, routed())]
+        return {"qps": n / wall, "wall_s": wall, "routed": moved,
+                "hash_launches": launches() - h0}
+
+    try:
+        warm = run_pass("warm-up")
+        peaks = [0, 0]
+        timed = run_pass("timed", peaks)
+        for tag, rec in (("warm-up", warm), ("timed", timed)):
+            n = REPLICA_CLIENTS * REPLICA_COLLECTS
+            check(all(r > 0 for r in rec["routed"])
+                  and sum(rec["routed"]) == n,
+                  f"replica {tag}: routed {rec['routed']} of {n} collects")
+            if on_card:
+                check(rec["hash_launches"] == 2 * joins_per_pass,
+                      f"replica {tag}: {rec['hash_launches']} hash launches "
+                      f"for {joins_per_pass} routed joins")
+        residency = segcache.get_cache().replica_residency(right_root)
+        check(residency == {(0, 1): 2, (2, 3): 2},
+              f"replica: residency of the right index {residency}")
+        sess.conf.set(REPLICATION_KEY, "false")
+        try:
+            off = run_pass("replication off")
+        finally:
+            sess.conf.set(REPLICATION_KEY, "true")
+        check(off["routed"] == [0, 0], f"replica off: routed {off['routed']}")
+    finally:
+        pool.shutdown()
+    out.update({
+        "joins_per_pass": joins_per_pass, "warm_up": warm, "timed": timed,
+        "replication_off": off,
+        "replica_max_share": max(timed["routed"]) / sum(timed["routed"]),
+        "admitted_bytes_peak": {str(i): peaks[i] for i in (0, 1)},
+        "residency": {",".join(map(str, t)): n
+                      for t, n in residency.items()},
+        "routed_counts": {str(i): n
+                          for i, n in router.routed_counts().items()}})
+
+    # A committed append: rows whose keys match no left row. The version
+    # hooks sweep both slices' entries; the reads after it equal the
+    # reads before.
+    rng = np.random.default_rng(SEED + 6)
+    pq.write_table(pa.table({
+        "key": (n_rows + np.arange(REPLICA_APPEND_ROWS)).astype(np.int64),
+        "val": rng.random(REPLICA_APPEND_ROWS)}),
+        os.path.join(rep_src, "part-append.parquet"))
+    t0 = time.perf_counter()
+    hs.refresh_index("replicaRight", mode="full")
+    out["refresh_s"] = time.perf_counter() - t0
+    swept = segcache.get_cache().replica_residency(right_root)
+    check(swept == {}, f"replica: the commit left entries {swept}")
+    right_df = sess.read_parquet(rep_src)
+    frame = (left_df.select("key", "id")
+             .join(right_df.select("key", "val"), on="key")
+             .select("id", "val"))
+    # Idle slices tie-break on the router's routed counts: from a reset
+    # two sequential collects go to slices 0 and 1.
+    router.reset()
+    seen = []
+    while len(set(seen)) < 2 and len(seen) < 16:
+        table, m = frame.collect(with_metrics=True)
+        check(table_digest(table) == serial["B"],
+              f"replica: a read after the commit (slice {m.replica}) "
+              "differs")
+        seen.append(m.replica)
+    check(set(seen) == {0, 1}, f"replica: the re-reads went to {seen}")
+    out["reads_after_commit"] = seen
+    residency = segcache.get_cache().replica_residency(right_root)
+    check(len(residency) == 2, f"replica: after the commit {residency}")
+
+    # Cold-range pin. The scheduler routes a query's source plan, which
+    # has no bucket spec; the optimized plan names the index's buckets.
+    hot = {int(b) for b in np_bucket_ids_int64(
+        np.asarray(hot_keys, dtype=np.int64), MESH_BUCKETS)}
+    other = 1 - int(owners[0])
+    cold_key = next(int(k) for k, b in zip(key.tolist(), all_buckets.tolist())
+                    if b not in hot
+                    and int(bucket_owner(b, MESH_BUCKETS, 2)) == other)
+    cold_bucket = int(np_bucket_ids_int64(
+        np.asarray([cold_key], dtype=np.int64), MESH_BUCKETS)[0])
+    # The router was reset above, so this route mines the ring afresh.
+    pins0 = reg.counter("serve.replica.cold_pinned").value
+    plan = sess.optimize(left_df.filter(col("key") == lit(cold_key))
+                         .select("id", "score").plan)
+    choice = router.route(plan, sess.conf, get_scheduler())
+    mined_hot = sorted(router.hot_buckets(
+        plan.collect_leaves()[0].root_paths[0], 0.5))
+    check(choice == other and reg.counter(
+        "serve.replica.cold_pinned").value == pins0 + 1,
+        f"replica: the cold bucket {cold_bucket} routed to {choice}, not "
+        f"its home slice {other} (hot {mined_hot})")
+    out["cold_pin"] = {"bucket": cold_bucket, "home": other,
+                       "routed": choice, "hot_buckets": mined_hot}
+    check(reg.counter("spmd.fallbacks").value == f0,
+          "replica: spmd.fallbacks moved")
+    out["seconds"] = time.perf_counter() - t_block
     return out
 
 

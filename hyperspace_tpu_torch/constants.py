@@ -170,9 +170,8 @@ DISTRIBUTION_MIN_ROWS_DEFAULT = 4096
 DISTRIBUTION_SLICES = "spark.hyperspace.distribution.slices"
 DISTRIBUTION_DCN_SIZE = "spark.hyperspace.distribution.dcn.size"
 DISTRIBUTION_DCN_SIZE_DEFAULT = 1
-# Read replication across slices (the JAX package's `parallel/replica.py`,
-# not ported yet): the keys are read so a conf means the same in both
-# packages.
+# Read replication across slices (`parallel/replica.py`): on a 2-slice
+# topology each slice is a read replica the scheduler routes to.
 DISTRIBUTION_REPLICATION = \
     "spark.hyperspace.distribution.replication.enabled"
 DISTRIBUTION_REPLICATION_DEFAULT = "true"

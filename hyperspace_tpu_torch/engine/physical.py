@@ -205,6 +205,13 @@ class ScanExec(PhysicalNode):
             detail["buckets_scanned"] = (len(self.allowed_buckets)
                                          if self.allowed_buckets is not None
                                          else spec.num_buckets)
+            if self.allowed_buckets is not None \
+                    and len(self.allowed_buckets) <= 128:
+                # Per-bucket access identity for the replica router's
+                # hot-range miner (`parallel/replica.py`): only when
+                # pruning narrowed the read (a full-range scan carries no
+                # hotness signal) and small enough to ride the ring.
+                detail["bucket_ids"] = sorted(self.allowed_buckets)
         if files_total is not None:
             detail["files_total"] = files_total
         telemetry.annotate(**detail)

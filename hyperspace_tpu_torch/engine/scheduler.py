@@ -66,10 +66,15 @@ Typed serving errors and their counters are a CLOSED set
 in the table with its class's own `counter`, so no failure mode exists
 without its scrape-able series.
 
-Replica routing and per-replica admission (the JAX package's
-`parallel/replica.py`, ROADMAP item 13d) are not ported yet: a query
-runs on the session's device, or over the mesh when the distribution
-policy gives one (`parallel/context.py`).
+Replica routing (`parallel/replica.py`): on a multi-slice topology
+with replication on, `collect` routes each query to a replica slice
+BEFORE admission (the least-loaded slice, or a cold range's home
+slice), stamps `metrics.replica`, charges the slice's share of the
+budget (`budget // n_replicas`, an idle replica always admits; gauges
+`serve.replica.<i>.admitted_bytes`) and runs the query under
+`parallel/context.replica_scope`, so every distribution decision sees
+that slice's flat submesh. The batched lane is exempt: one invocation
+serves the whole cohort. Routing never fails a query.
 """
 
 from __future__ import annotations
@@ -84,6 +89,8 @@ from typing import Dict, List, Optional
 from hyperspace_tpu_torch import telemetry
 from hyperspace_tpu_torch.io import segcache as _segcache
 from hyperspace_tpu_torch.io.columnar import to_arrow
+from hyperspace_tpu_torch.parallel import replica as _replica
+from hyperspace_tpu_torch.parallel.context import replica_scope, topology
 from hyperspace_tpu_torch.plan import footprint as _footprint
 from hyperspace_tpu_torch.telemetry import compilation, critical_path
 from hyperspace_tpu_torch.utils import faults
@@ -406,7 +413,7 @@ class BreakerBoard:
 
 class _QueryEntry:
     __slots__ = ("query_id", "deadline", "footprint", "session_id",
-                 "admitted", "tenant", "shed")
+                 "admitted", "replica", "n_replicas", "tenant", "shed")
 
     def __init__(self, query_id: str, deadline: Deadline, footprint: int,
                  session_id: Optional[int]):
@@ -415,6 +422,13 @@ class _QueryEntry:
         self.footprint = footprint
         self.session_id = session_id
         self.admitted = False
+        # Replica routing (`parallel/replica.py`): the slice this
+        # query's fills and execution are pinned to, or None. With a
+        # replica set, admission charges the PER-REPLICA budget
+        # (budget / n_replicas) so one hot replica cannot starve the
+        # others' admission headroom.
+        self.replica: Optional[int] = None
+        self.n_replicas: int = 0
         # Billing identity: the tenant this query charges (default
         # tenant when no tenant scope is active — never None, so every
         # query always has someone to bill) and the shed flag the SLO
@@ -440,6 +454,12 @@ class QueryScheduler:
         self.peak_admitted_bytes = 0
         self._breakers = BreakerBoard()
         self._slo = SloTracker()
+        # Per-replica load (`parallel/replica.py`): admitted bytes and
+        # in-flight counts keyed by replica slice. The router reads
+        # these to pick the least-loaded replica; the gauges
+        # `serve.replica.<i>.admitted_bytes` mirror them.
+        self._replica_bytes: Dict[int, int] = {}
+        self._replica_inflight: Dict[int, int] = {}
         # Multi-tenant state. The wait queue is weighted-fair
         # deficit-round-robin across per-tenant FIFOs (one burst cannot
         # starve the long tail): `_tenant_queues` holds each tenant's
@@ -484,6 +504,16 @@ class QueryScheduler:
             return {"admitted_bytes": self._admitted_bytes,
                     "inflight": self._inflight,
                     "queue_depth": len(self._waiters)}
+
+    def replica_admitted_bytes(self) -> Dict[int, int]:
+        """Per-replica admitted bytes (the router's load signal)."""
+        with self._cv:
+            return dict(self._replica_bytes)
+
+    def replica_inflight(self) -> Dict[int, int]:
+        """Per-replica in-flight query counts (the router's tiebreak)."""
+        with self._cv:
+            return dict(self._replica_inflight)
 
     @property
     def breakers(self) -> BreakerBoard:
@@ -610,6 +640,15 @@ class QueryScheduler:
                 and self._tenant_bytes.get(ent.tenant, 0) \
                 + ent.footprint > int(budget * frac):
             return False
+        if ent.replica is not None and ent.n_replicas > 1:
+            # Per-replica admission: the query charges its SLICE's share
+            # of the budget, with the same per-replica progress
+            # guarantee — an idle replica always admits.
+            if self._replica_inflight.get(ent.replica, 0) == 0:
+                return True
+            if self._replica_bytes.get(ent.replica, 0) \
+                    + ent.footprint > budget // ent.n_replicas:
+                return False
         live = self._live_device_bytes()
         used = max(self._admitted_bytes,
                    live - self._idle_baseline if live else 0)
@@ -838,6 +877,14 @@ class QueryScheduler:
             self._tenant_bytes.get(ent.tenant, 0) + ent.footprint
         self._tenant_inflight[ent.tenant] = \
             self._tenant_inflight.get(ent.tenant, 0) + 1
+        if ent.replica is not None:
+            r = ent.replica
+            self._replica_bytes[r] = (self._replica_bytes.get(r, 0)
+                                      + ent.footprint)
+            self._replica_inflight[r] = \
+                self._replica_inflight.get(r, 0) + 1
+            reg.gauge(f"serve.replica.{r}.admitted_bytes").set(
+                self._replica_bytes[r])
 
     def _credit(self, ent: _QueryEntry, *amounts: int) -> List[int]:
         """Footprint credits, applied in order under one lock: once the
@@ -869,6 +916,12 @@ class QueryScheduler:
                 reg = telemetry.get_registry()
                 reg.counter("serve.footprint_credit_bytes").inc(total)
                 reg.gauge("serve.admitted_bytes").set(self._admitted_bytes)
+                if ent.replica is not None:
+                    r = ent.replica
+                    self._replica_bytes[r] = max(
+                        0, self._replica_bytes.get(r, 0) - total)
+                    reg.gauge(f"serve.replica.{r}.admitted_bytes").set(
+                        self._replica_bytes[r])
                 self._cv.notify_all()
         return credited
 
@@ -884,11 +937,21 @@ class QueryScheduler:
                     - ent.footprint)
                 self._tenant_inflight[ent.tenant] = max(
                     0, self._tenant_inflight.get(ent.tenant, 0) - 1)
+                if ent.replica is not None:
+                    r = ent.replica
+                    self._replica_bytes[r] = max(
+                        0, self._replica_bytes.get(r, 0) - ent.footprint)
+                    self._replica_inflight[r] = max(
+                        0, self._replica_inflight.get(r, 0) - 1)
+                    reg.gauge(f"serve.replica.{r}.admitted_bytes").set(
+                        self._replica_bytes[r])
                 if self._inflight == 0:
                     # Re-anchor: bookkeeping drift cannot accumulate,
                     # and the idle baseline tracks resident caches so
                     # `_fits` charges queries only for QUERY memory.
                     self._admitted_bytes = 0
+                    self._replica_bytes.clear()
+                    self._replica_inflight.clear()
                     self._tenant_bytes.clear()
                     self._tenant_inflight.clear()
                     self._idle_baseline = self._live_device_bytes()
@@ -1018,9 +1081,27 @@ class QueryScheduler:
                           _footprint.projected_bytes(df.plan),
                           id(session) if session is not None else None)
         ent.tenant = eff_tenant
+        # Replica routing (`parallel/replica.py`): on a multi-slice
+        # topology with replication on, pin this query's fills and
+        # execution to the least-loaded replica slice (cold-range
+        # queries pin to their home slice). Routed BEFORE admission so
+        # the per-replica budget charges the right slice; routing must
+        # never fail a query.
+        try:
+            rep = _replica.get_router().route(df.plan, conf, self)
+            if rep is not None:
+                topo = topology(conf)
+                ent.replica = rep
+                ent.n_replicas = topo[0] if topo is not None else 0
+        except Exception:
+            logger.debug("replica routing skipped", exc_info=True)
         description = ", ".join(df.schema.names[:6])
         metrics = telemetry.QueryMetrics(description=description)
         metrics.query_id = query_id  # cancel/log correlation handle
+        # Routed-replica dimension: flight-ring consumers (/healthz's
+        # by-replica grouping) group entries by the slice that served
+        # them; None = unrouted.
+        metrics.replica = ent.replica
         # Tenant dimension: stamped on the recorder (flight-ring
         # `tenant=` filter, /healthz by-tenant grouping) — always the
         # EFFECTIVE tenant, "default" included, so post-hoc grouping
@@ -1113,8 +1194,19 @@ class QueryScheduler:
                         batch = batcher.get_batcher().try_collect(
                             df, plan, metrics, conf, deadline, self)
                     if batch is None:
-                        batch = self._execute_resilient(
-                            df, plan, metrics, conf, index_scans)
+                        # Replica-pinned execution: under the scope,
+                        # every distribution decision (fills, SPMD
+                        # programs) sees the routed slice's flat
+                        # submesh. The batched lane above is exempt by
+                        # design: its one invocation already serves the
+                        # whole cohort.
+                        if ent.replica is not None:
+                            metrics.event("serve", "replica",
+                                          query_id=query_id,
+                                          replica=ent.replica)
+                        with replica_scope(ent.replica):
+                            batch = self._execute_resilient(
+                                df, plan, metrics, conf, index_scans)
                     if _cuda_initialized():
                         # Query-end device-memory watermark, inside the
                         # recording so it attributes here. Throttled,

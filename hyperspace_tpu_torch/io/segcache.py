@@ -801,6 +801,31 @@ class SegmentCache:
         _mem.cache_eviction("segments.host", host_dropped)
         return rekeyed
 
+    def replica_residency(self, index_root: Optional[str] = None) -> dict:
+        """{device tag: resident per-shard entry count} over the
+        born-sharded (spmd) entries, optionally restricted to one index
+        root — the replica-coverage introspection: a bucket range that
+        concurrent traffic filled on two slices shows up as two device
+        tags covering the same root, and the coherence checks assert
+        that a committed version sweeps EVERY tag. The tag is the last
+        element of the spmd key component
+        (`parallel/mesh.mesh_device_tag`); other entries are not
+        counted."""
+        out: dict = {}
+        root = None if index_root is None else index_root.rstrip("/\\")
+        with self._cv:
+            for key, ent in self._entries.items():
+                if root is not None and (ent.ref is None
+                                         or ent.ref.index_root != root):
+                    continue
+                for part in key:
+                    if (isinstance(part, tuple) and part
+                            and part[0] in ("spmd", "spmd-sub")
+                            and isinstance(part[-1], tuple)):
+                        out[part[-1]] = out.get(part[-1], 0) + 1
+                        break
+        return out
+
     def invalidate_index(self, index_root: str,
                          keep_version: Optional[int] = None) -> int:
         """Drop every cached segment of the index rooted at

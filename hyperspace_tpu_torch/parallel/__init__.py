@@ -20,7 +20,13 @@ multi-query programs.
   `execute_sharded` hooks in `engine/physical.py`), and the inter-query
   batched predicate (`batched_predicate_masks`).
 
-Still to come (ROADMAP): `parallel/replica.py` (replicas, with the
-segment cache's `replica_residency`) and the multi-device bench. There is
-no `torch.distributed`: every shard is a tensor of this process.
+- `replica.py` — read replicas: on a multi-slice topology the
+  scheduler routes each collect to one slice (least loaded, or a cold
+  range's home slice) and runs it on that slice's flat submesh
+  (`context.replica_scope`); `mesh.mesh_device_tag` keeps the slices'
+  segment-cache entries and dispatch locks apart.
+
+Every module of the JAX package's `parallel/` has its counterpart here.
+There is no `torch.distributed`: every shard is a tensor of this
+process.
 """

@@ -190,6 +190,8 @@ def distributed_build(batch: ColumnBatch, key_columns: Sequence[str],
 
     shards, valids = shard_batch(batch, mesh)
     trees = [batch_to_tree(shard)[0] for shard in shards]
+    tracer = telemetry.tracer()
+    span_ts = tracer.now_us() if tracer is not None else 0.0
     t0 = time.perf_counter()
     with telemetry.span("mesh:build:dispatch", "mesh", shards=n_shards,
                         rows=n, capacity_factor=capacity_factor):
@@ -217,4 +219,8 @@ def distributed_build(batch: ColumnBatch, key_columns: Sequence[str],
     reg.counter("mesh.build.execs").inc()
     telemetry.event("mesh", "build", shards=n_shards, rows=n,
                     buckets=num_buckets, shard_rows=shard_rows)
+    if tracer is not None:
+        # Per-shard tracks: the rows each shard built show its skew.
+        tracer.device_spans("build", span_ts, shard_rows,
+                            buckets=num_buckets)
     return final, lengths

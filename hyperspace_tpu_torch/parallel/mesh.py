@@ -47,12 +47,16 @@ DCN_AXIS = "dcn"
 class Mesh:
     """`devices`: flat shard order (row-major over `axis_names`);
     `grid`: the size of each axis; `virtual`: the shards are logical
-    shards of fewer physical devices (`parallel/virtual.py`)."""
+    shards of fewer physical devices (`parallel/virtual.py`);
+    `ordinals`: each shard's flat position in the topology the mesh was
+    cut from (`make_mesh` numbers them 0..n-1, `slice_submesh` keeps
+    the slice's share), so two slices of one virtual mesh stay apart."""
 
     devices: Tuple[torch.device, ...]
     axis_names: Tuple[str, ...]
     grid: Tuple[int, ...]
     virtual: bool = False
+    ordinals: Tuple[int, ...] = ()
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -76,14 +80,17 @@ def make_mesh(num_devices: Optional[int] = None,
         devices = devices[:num_devices]
     telemetry.get_registry().gauge("mesh.devices").set(len(devices))
     is_virtual = virtual.is_virtual()
+    ordinals = tuple(range(len(devices)))
     if dcn_size is not None and dcn_size > 1:
         if len(devices) % dcn_size != 0:
             raise ValueError(
                 f"dcn size {dcn_size} must divide device count "
                 f"{len(devices)}.")
         return Mesh(tuple(devices), (DCN_AXIS, SHARD_AXIS),
-                    (dcn_size, len(devices) // dcn_size), is_virtual)
-    return Mesh(tuple(devices), (SHARD_AXIS,), (len(devices),), is_virtual)
+                    (dcn_size, len(devices) // dcn_size), is_virtual,
+                    ordinals)
+    return Mesh(tuple(devices), (SHARD_AXIS,), (len(devices),), is_virtual,
+                ordinals)
 
 
 def row_axes(mesh: Mesh) -> Tuple[str, ...]:
@@ -124,17 +131,21 @@ def slice_submesh(mesh: Mesh, idx: int) -> Mesh:
     if not 0 <= idx < n_dcn:
         raise ValueError(
             f"slice {idx} out of range for a {n_dcn}-slice mesh")
-    return Mesh(mesh.devices[idx * n_ici:(idx + 1) * n_ici],
-                (SHARD_AXIS,), (n_ici,), mesh.virtual)
+    cut = slice(idx * n_ici, (idx + 1) * n_ici)
+    return Mesh(mesh.devices[cut], (SHARD_AXIS,), (n_ici,), mesh.virtual,
+                mesh.ordinals[cut])
 
 
 def mesh_device_tag(mesh: Mesh) -> tuple:
-    """Stable identity of the mesh's device set in flat shard order: the
-    CUDA ordinal of each shard's device. Virtual shards share a device,
-    so their tag is the shard ordinal (the JAX package's virtual CPU
-    devices are numbered the same way)."""
+    """Stable identity of the mesh's device set in flat shard order —
+    the replica discriminator in the segment cache's born-sharded keys
+    and `parallel/spmd.dispatch_guard`'s lock set: the CUDA ordinal of
+    each shard's device. Virtual shards share a device, so their tag is
+    each shard's ordinal in the topology it was cut from (the JAX
+    package's virtual CPU device ids): slice 1 of a 2 x 2 mesh tags
+    (2, 3)."""
     if mesh.virtual:
-        return tuple(range(len(mesh.devices)))
+        return mesh.ordinals or tuple(range(len(mesh.devices)))
     return tuple(d.index if d.index is not None else i
                  for i, d in enumerate(mesh.devices))
 

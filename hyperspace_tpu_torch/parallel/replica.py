@@ -1,0 +1,265 @@
+"""Replica routing: slices as read replicas for concurrent throughput.
+
+The SPMD lane (`parallel/spmd.py`) makes ONE query use the whole mesh. A
+serving plane needs N queries AT ONCE: on a multi-slice `(dcn, shard)`
+topology (`spark.hyperspace.distribution.slices` >= 2) with replication
+on, each slice is a full READ REPLICA — its shards hold the entire
+bucket-range map at slice-local granularity (`bucket_ranges(B, n_ici)`
+over the slice's shards, the flat case of
+`parallel/mesh.slice_bucket_ranges`) — and the query scheduler routes
+each admitted query's fills and execution to the LEAST-LOADED replica
+(`QueryScheduler.collect` calls `route()` per collect; execution is
+pinned through `parallel/context.replica_scope`, so every
+`distribution_mesh` call under the query sees that slice's flat
+submesh).
+
+Coherence is by construction, not by protocol: the segment cache keys
+born-sharded residency by (index root, committed version, bucket range,
+DEVICE TAG) — two slices fill independent entries for the same range
+(`parallel/mesh.mesh_device_tag` keeps the slices' shard ordinals apart
+on a virtual mesh), and the index log's version hooks sweep every tag of
+a root (`io/segcache.SegmentCache.replica_residency` shows them).
+
+Hot-vs-cold policy — which ranges are worth holding on two or more
+slices: the router mines the flight ring's per-bucket access counts
+incrementally (a Scan annotates `bucket_ids` when bucket pruning
+narrowed the read; `FlightRecorder.snapshot(since_seq)`, the advisor
+miner's cursor discipline). A bucket whose count reaches
+`replication.hot.fraction` of the hottest bucket's count is HOT: queries
+over hot (or unclassifiable) ranges fan to the least-loaded replica,
+while queries provably confined to COLD buckets pin to their range's
+HOME slice (`bucket_owner` at slice granularity), so rarely read ranges
+are not duplicated across slices.
+
+Telemetry: `serve.replica.<i>.routed` counters,
+`serve.replica.<i>.admitted_bytes` gauges (scheduler side),
+`serve.replica.cold_pinned` for home-slice pins, and the
+`serve/replica_routed` event. The policy and every name are the JAX
+package's.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Dict, Optional, Tuple
+
+from hyperspace_tpu_torch import telemetry
+
+# Re-mine the flight ring at most this often — routing is on the
+# per-query hot path and the ring only changes as queries finish.
+_MINE_INTERVAL_S = 1.0
+
+# Halve every mined per-bucket count this often, dropping zeros:
+# hotness then tracks RECENT traffic and the count map cannot grow
+# without bound on a long-lived serving process. Halving preserves the
+# ratios the hot-fraction bar compares.
+_DECAY_INTERVAL_S = 60.0
+
+# Hard backstop on the count map between decay sweeps: past this many
+# (root, bucket) entries, the coldest half is dropped immediately.
+_MAX_TRACKED_BUCKETS = 65536
+
+
+class ReplicaRouter:
+    """Process-wide replica router (one per process, `get_router()`).
+    Holds the hot-bucket miner's cursor and the per-replica routed
+    counts; the scheduler owns the byte-level load gauges."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._since_seq = 0
+        self._counts: Dict[Tuple[str, int], int] = {}
+        self._routed: Dict[int, int] = {}
+        self._last_mine_t = 0.0
+        self._last_decay_t = time.monotonic()
+
+    # -- hot-bucket mining ------------------------------------------------
+
+    def _mine_locked(self) -> None:
+        now = time.monotonic()
+        if now - self._last_mine_t < _MINE_INTERVAL_S:
+            return
+        self._last_mine_t = now
+        if now - self._last_decay_t >= _DECAY_INTERVAL_S:
+            self._last_decay_t = now
+            self._counts = {k: c // 2 for k, c in self._counts.items()
+                            if c // 2 > 0}
+        recorder = telemetry.flight.get_recorder()
+        fresh, self._since_seq = recorder.snapshot(self._since_seq)
+        for metrics in fresh:
+            for op in getattr(metrics, "operators", ()):
+                if op.name != "Scan":
+                    continue
+                buckets = op.detail.get("bucket_ids")
+                if not buckets:
+                    continue
+                root = (op.detail.get("roots") or [""])[0]
+                for b in buckets:
+                    key = (root, int(b))
+                    self._counts[key] = self._counts.get(key, 0) + 1
+        if len(self._counts) > _MAX_TRACKED_BUCKETS:
+            keep = sorted(self._counts.items(), key=lambda kv: -kv[1])
+            self._counts = dict(keep[:_MAX_TRACKED_BUCKETS // 2])
+
+    def hot_buckets(self, root: str, hot_fraction: float) -> set:
+        """Bucket ids of `root` at or above `hot_fraction` of the
+        hottest bucket's access count (empty when nothing is mined yet —
+        unclassified traffic fans freely)."""
+        with self._lock:
+            self._mine_locked()
+            counts = {b: c for (r, b), c in self._counts.items()
+                      if r == root}
+        if not counts:
+            return set()
+        bar = max(counts.values()) * max(0.0, min(1.0, hot_fraction))
+        return {b for b, c in counts.items() if c >= bar}
+
+    # -- routing ----------------------------------------------------------
+
+    def route(self, plan, conf, scheduler,
+              buckets: Optional[dict] = None) -> Optional[int]:
+        """Pick the replica slice for one query, or None when replica
+        routing does not apply (flat mesh, replication off, too few
+        slices). `buckets` overrides the plan-derived bucket hints:
+        {root: (bucket_ids, num_buckets)}."""
+        from hyperspace_tpu_torch.parallel.context import topology
+
+        if conf is not None and not conf.distribution_replication:
+            return None
+        topo = topology(conf)
+        if topo is None:
+            return None
+        n_slices, _ici = topo
+        min_slices = (conf.distribution_replication_min_slices
+                      if conf is not None else 2)
+        if n_slices < max(2, min_slices):
+            return None
+        if buckets is None:
+            buckets = _plan_buckets(plan)
+        choice = self._cold_pin(buckets, conf, n_slices)
+        reg = telemetry.get_registry()
+        if choice is None:
+            choice = self._least_loaded(scheduler, n_slices)
+        else:
+            reg.counter("serve.replica.cold_pinned").inc()
+        with self._lock:
+            self._routed[choice] = self._routed.get(choice, 0) + 1
+        reg.counter(f"serve.replica.{choice}.routed").inc()
+        telemetry.event("serve", "replica_routed", replica=choice,
+                        slices=n_slices)
+        return choice
+
+    def _cold_pin(self, buckets: Optional[dict], conf,
+                  n_slices: int) -> Optional[int]:
+        """Home slice when EVERY hinted bucket is provably cold (all
+        hinted roots mined, no hot hit); None = fan to least-loaded."""
+        if not buckets:
+            return None
+        from hyperspace_tpu_torch.parallel.mesh import bucket_owner
+
+        frac = (conf.distribution_replication_hot_fraction
+                if conf is not None else 0.5)
+        home = None
+        for root, (ids, num_buckets) in buckets.items():
+            if not ids:
+                return None
+            hot = self.hot_buckets(root, frac)
+            if not hot or any(b in hot for b in ids):
+                return None  # hot or unclassified: fan out
+            # Slice ownership is a contiguous bucket range, so the min
+            # and max hinted ids bound every hinted bucket's owner: a
+            # root whose buckets straddle a range boundary fans out.
+            owner = int(bucket_owner(min(ids), num_buckets, n_slices))
+            hi_owner = int(bucket_owner(max(ids), num_buckets, n_slices))
+            if owner != hi_owner:
+                return None
+            if home is None:
+                home = owner
+            elif home != owner:
+                return None  # spans home slices: fan out
+        return home
+
+    def _least_loaded(self, scheduler, n_slices: int) -> int:
+        """Least-loaded replica by the scheduler's per-replica admitted
+        bytes, per-replica in-flight count as the tiebreak, then the
+        router's own routed counts (so an idle process still
+        round-robins)."""
+        admitted = getattr(scheduler, "replica_admitted_bytes",
+                           lambda: {})()
+        inflight = getattr(scheduler, "replica_inflight",
+                           lambda: {})()
+        with self._lock:
+            routed = dict(self._routed)
+        return min(range(n_slices),
+                   key=lambda i: (admitted.get(i, 0),
+                                  inflight.get(i, 0),
+                                  routed.get(i, 0), i))
+
+    def routed_counts(self) -> Dict[int, int]:
+        with self._lock:
+            return dict(self._routed)
+
+    def reset(self) -> None:
+        with self._lock:
+            self._since_seq = 0
+            self._counts.clear()
+            self._routed.clear()
+            self._last_mine_t = 0.0
+            self._last_decay_t = time.monotonic()
+
+
+def _plan_buckets(plan) -> Optional[dict]:
+    """{root: (bucket id set, num_buckets)} provable from the plan:
+    Filter-over-bucketed-Scan shapes resolve through the SAME literal
+    pruning the physical planner uses (`engine/physical._prune_buckets`,
+    the host mirror of the build hash), so the hints cannot disagree
+    with the layout. None / missing entries = unclassifiable (fan
+    out)."""
+    from hyperspace_tpu_torch.engine.physical import _prune_buckets
+    from hyperspace_tpu_torch.plan.nodes import Filter, Project, Scan
+
+    out: dict = {}
+
+    def visit(node, condition=None):
+        if isinstance(node, Filter):
+            visit(node.child, node.condition)
+            return
+        if isinstance(node, Project):
+            visit(node.child, condition)  # projection keeps the hint
+            return
+        if isinstance(node, Scan):
+            spec = node.bucket_spec
+            if spec is None or condition is None:
+                return
+            ids = _prune_buckets(condition, node)
+            if ids:
+                root = node.root_paths[0] if node.root_paths else ""
+                prev = out.get(root)
+                merged = set(ids) | (prev[0] if prev else set())
+                out[root] = (merged, spec.num_buckets)
+            return
+        for child in getattr(node, "children", ()):
+            visit(child, None)
+
+    if plan is not None:
+        visit(plan)
+    return out or None
+
+
+_router: Optional[ReplicaRouter] = None
+_router_lock = threading.Lock()
+
+
+def get_router() -> ReplicaRouter:
+    global _router
+    if _router is None:
+        with _router_lock:
+            if _router is None:
+                _router = ReplicaRouter()
+    return _router
+
+
+def reset_router() -> None:
+    global _router
+    _router = None

@@ -31,6 +31,10 @@ read of all shards' counts per join (and one per exchange stage), so:
 - the JAX `_route_cap`, `_prefix_index` and `_gather_prefixes` have no
   counterpart: slabs are cut by exact counts, and each shard's output is
   exact, so the result is the concatenation of the shards' outputs;
+- the JAX `mesh.spmd_gather` / `mesh.spmd_gather_i32` device entries
+  have no counterpart: the port concatenates the shards' exact outputs
+  on the mesh's first device. The device seam's mesh entries here are
+  `mesh.spmd_join`, `mesh.spmd_filter` and `mesh.spmd_repartition`;
 - `spmd.repartition.{ici,dcn}.bytes` count the rows each exchange stage
   actually routes (every slab, the one a shard keeps included) times
   the bytes a routed row carries, where the JAX package counts its
@@ -122,6 +126,7 @@ __all__ = ["PAD_BLOWUP_FACTOR", "ShardedBatch", "SubshardPlan",
            "dispatch_guard", "pad_blowup", "plan_aligned_read",
            "plan_skew_read", "read_sharded", "repartition_sharded",
            "routing_lanes", "shard_bucket_ordered", "sharded_filter",
+           "shutdown_read_pool",
            "sharded_group_aggregate", "sharded_join_indices",
            "sharded_semi_anti_indices", "spmd_fallback",
            "string_like_mask", "string_remap_tables", "subshard_plan",
@@ -554,7 +559,9 @@ def read_sharded(per_shard_files: List[List[str]], lengths,
         windowed = True
     C = max(1, max(spec[2] for spec in shard_specs))
     devices = mesh_device_list(mesh)
-    dev_tag = mesh_device_tag(mesh) + tuple([str(d) for d in devices])
+    # The device tag last: `SegmentCache.replica_residency` reads it
+    # there. The device names keep a CPU and a card mesh apart.
+    dev_tag = (tuple([str(d) for d in devices]), mesh_device_tag(mesh))
     cols = tuple(columns)
     schema_json = schema.to_json()
     cache = segcache.get_cache()
@@ -580,15 +587,18 @@ def read_sharded(per_shard_files: List[List[str]], lengths,
 
         if base_ref is None:
             return fill()[0]
-        key = base_ref.key + (key_tags[s] + (C, dev_tag), cols,
+        key = base_ref.key + (key_tags[s] + (C,) + dev_tag, cols,
                               schema_json)
         return cache.get_or_fill(key, fill, ref=base_ref, conf=conf,
                                  budget=budget)
 
-    # One shard after another: each fill already pipelines its columns'
-    # decode and copies (`TransferEngine.put_group`), and the shards of a
-    # virtual mesh share one device and one link.
-    payloads = [fill_one(s) for s in range(n_shards)]
+    # Concurrent per-shard fills: shard s+1's Parquet decode overlaps
+    # shard s's copies (each fill itself pipelines through
+    # `TransferEngine.put_group`). The fan-out rides a DEDICATED pool,
+    # not `parquet.io_executor()`: the fills submit to that shared pool
+    # and block, so fanning out on it would deadlock it against itself.
+    payloads = list(_read_pool().map(telemetry.propagating(fill_one),
+                                     range(n_shards)))
 
     shards, valids = [], []
     for s, (payload, dev) in enumerate(zip(payloads, devices)):
@@ -610,6 +620,36 @@ def read_sharded(per_shard_files: List[List[str]], lengths,
         valids.append(torch.arange(C, device=dev) < shard_specs[s][2])
     return ShardedBatch(shards, valids, mesh, C, len(lengths),
                         lengths=out_lengths, split_plan=split_plan)
+
+
+_pool = None
+_pool_lock = threading.Lock()
+
+
+def _read_pool():
+    """The lazy fan-out pool of the per-shard fills (one per process,
+    drained at exit). Distinct from `parquet.io_executor()` on purpose:
+    the fills block on that pool."""
+    global _pool
+    if _pool is None:
+        with _pool_lock:
+            if _pool is None:
+                import atexit
+                from concurrent.futures import ThreadPoolExecutor
+
+                _pool = ThreadPoolExecutor(
+                    max_workers=8, thread_name_prefix="hs-spmd-read")
+                atexit.register(shutdown_read_pool)
+    return _pool
+
+
+def shutdown_read_pool(wait: bool = True) -> None:
+    """Drain and stop the fill pool (idempotent; made again on the next
+    born-sharded read)."""
+    global _pool
+    pool, _pool = _pool, None
+    if pool is not None:
+        pool.shutdown(wait=wait)
 
 
 def _fill_device_shard(files: List[str], cols, schema, rows: int, C: int,
@@ -1154,6 +1194,8 @@ def _run_join(left: ShardedBatch, right: ShardedBatch,
     membership = ({"left_semi": "semi", "left_anti": "anti"}.get(how))
     left_outer = how in ("left_outer", "full_outer")
     reg = telemetry.get_registry()
+    tracer = telemetry.tracer()
+    span_ts = tracer.now_us() if tracer is not None else 0.0
     with dispatch_guard(mesh), telemetry.span(
             "mesh:join:spmd", "mesh", how=how, shards=S):
         l_in, r_in, route_s = _join_inputs(left, right, left_keys,
@@ -1177,6 +1219,9 @@ def _run_join(left: ShardedBatch, right: ShardedBatch,
     telemetry.event("mesh", "join", how=membership or how, shards=S,
                     pairs=int(sum(counts)), lane="spmd",
                     shard_rows=shard_rows)
+    if tracer is not None:
+        # Per-shard tracks: each shard's output pairs show its skew.
+        tracer.device_spans("join", span_ts, counts, how=membership or how)
     return out
 
 
@@ -1219,6 +1264,40 @@ def sharded_semi_anti_indices(left: ShardedBatch, right: ShardedBatch,
 # ---------------------------------------------------------------------------
 
 
+def _tree_bytes(trees) -> int:
+    return sum(int(leaf.numel()) * leaf.element_size()
+               for tree in trees for name, entry in tree.items()
+               if name != "__bucket__" for leaf in entry.values()
+               if isinstance(leaf, torch.Tensor))
+
+
+def _repartition_cost(valids, trees, key_names, num_buckets, mesh):
+    """Modeled (operations, bytes accessed) of one repartition: every
+    lane read once and written once at its destination, one hash step
+    per key lane and row plus the owner division."""
+    rows = sum(int(v.shape[0]) for v in valids)
+    return rows * (len(key_names) + 1), 2 * _tree_bytes(trees)
+
+
+def _repartition_step(valids, trees, key_names, num_buckets, mesh):
+    """Each shard's bucket ids through the hash kernel, their
+    contiguous-range owners, then the exchange (`_route_local`).
+    Returns (routed trees, seconds of the count reads)."""
+    from hyperspace_tpu_torch.ops.build import _tree_bucket_ids
+
+    n_shards = total_shards(mesh)
+    for tree in trees:
+        bucket = _tree_bucket_ids(tree, key_names, num_buckets)
+        tree["__bucket__"] = bucket_owner(bucket.to(torch.int64),
+                                          num_buckets, n_shards)
+    return _route_local(trees, valids, mesh)
+
+
+repartition_step = instrumented_device("mesh.spmd_repartition",
+                                       _repartition_step,
+                                       cost=_repartition_cost)
+
+
 def repartition_sharded(batch: ColumnBatch, key_columns: Sequence[str],
                         num_buckets: int, mesh: Mesh) -> ShardedBatch:
     """Re-bucket a batch (a join output feeding the next join, say) into
@@ -1230,7 +1309,6 @@ def repartition_sharded(batch: ColumnBatch, key_columns: Sequence[str],
     source order, padded to the largest shard's count; no per-bucket
     histogram is made."""
     from hyperspace_tpu_torch.io.columnar import batch_to_tree, tree_to_batch
-    from hyperspace_tpu_torch.ops.build import _tree_bucket_ids
     from hyperspace_tpu_torch.parallel.scan import shard_batch
 
     n_shards = total_shards(mesh)
@@ -1241,11 +1319,9 @@ def repartition_sharded(batch: ColumnBatch, key_columns: Sequence[str],
         aux = {}
         for piece in pieces:
             tree, aux = batch_to_tree(piece)
-            bucket = _tree_bucket_ids(tree, key_names, num_buckets)
-            tree["__bucket__"] = bucket_owner(bucket.to(torch.int64),
-                                              num_buckets, n_shards)
             trees.append(tree)
-        routed, sync_s = _route_local(trees, valids, mesh)
+        routed, sync_s = repartition_step(valids, trees, key_names,
+                                          num_buckets, mesh)
     rows = [int(tree["__bucket__"].shape[0]) for tree in routed]
     C = max(1, max(rows))
     shards, row_valid = [], []
@@ -1273,13 +1349,37 @@ def repartition_sharded(batch: ColumnBatch, key_columns: Sequence[str],
     return ShardedBatch(shards, row_valid, mesh, C, num_buckets)
 
 
+def _filter_cost(valids, shards, expression):
+    """Modeled (operations, bytes accessed) of one sharded filter: each
+    referenced column and the validity masks read once, the masks
+    written once; one operation per referenced column and row."""
+    refs = [r for r in expression.references()
+            if r in shards[0].columns]
+    rows = sum(int(v.shape[0]) for v in valids)
+    read = sum(int(shard.columns[r].data.numel())
+               * shard.columns[r].data.element_size()
+               for shard in shards for r in refs)
+    return rows * max(1, len(refs)), read + 2 * rows
+
+
+def _filter_step(valids, shards, expression):
+    """Each shard's compiled predicate under its validity mask."""
+    from hyperspace_tpu_torch.engine.compiler import compile_predicate
+
+    return [compile_predicate(expression, shard) & valid
+            for shard, valid in zip(shards, valids)]
+
+
+filter_step = instrumented_device("mesh.spmd_filter", _filter_step,
+                                  cost=_filter_cost)
+
+
 def sharded_filter(sh: ShardedBatch, expression) -> ColumnBatch:
     """Predicate scan over the born-sharded layout: each shard evaluates
     the compiled predicate with its validity mask, one read of every
     shard's selected count, each shard compacts its own rows, and the
     pieces concatenate in shard order on the mesh's first device — the
     single-device `apply_filter` over the flat rows, bit for bit."""
-    from hyperspace_tpu_torch.engine.compiler import compile_predicate
     from hyperspace_tpu_torch.parallel.scan import _compact, concat_shards
 
     reg = telemetry.get_registry()
@@ -1287,8 +1387,7 @@ def sharded_filter(sh: ShardedBatch, expression) -> ColumnBatch:
     home = sh.mesh.devices[0]
     with telemetry.span("mesh:filter", "mesh", shards=sh.n_shards), \
             dispatch_guard(sh.mesh):
-        masks = [compile_predicate(expression, shard) & valid
-                 for shard, valid in zip(sh.shards, sh.row_valid)]
+        masks = filter_step(sh.row_valid, sh.shards, expression)
         t0 = time.perf_counter()
         counts = torch.stack([m.sum().to(home) for m in masks]).tolist()
         sync_s = time.perf_counter() - t0

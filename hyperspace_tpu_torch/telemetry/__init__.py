@@ -385,10 +385,12 @@ class QueryMetrics:
         self.peak_hbm_bytes = 0
         self.peak_hbm_per_device: Dict[str, int] = {}
         # Serving dimensions, stamped by the scheduler and the batch
-        # lane: the batched-execution cohort this query rode ({"id",
-        # "size", ...}, None = solo) and the tenant billed for the query
-        # (None = default tenant / no tenant scope). The flight ring
-        # inherits both.
+        # lane: the routed replica slice (None = unrouted,
+        # `parallel/replica.py`), the batched-execution cohort this
+        # query rode ({"id", "size", ...}, None = solo) and the tenant
+        # billed for the query (None = default tenant / no tenant
+        # scope). The flight ring inherits all three.
+        self.replica: Optional[int] = None
         self.cohort: Optional[dict] = None
         self.tenant: Optional[str] = None
         # Latency anatomy, stamped at query finish by
@@ -600,6 +602,8 @@ class QueryMetrics:
             "compile": self.compile,
             "roofline": self.roofline,
         }
+        if self.replica is not None:
+            out["replica"] = self.replica
         if self.cohort is not None:
             out["cohort"] = dict(self.cohort)
         if self.tenant is not None:

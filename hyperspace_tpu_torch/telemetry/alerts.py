@@ -433,6 +433,7 @@ class AlertManager:
                     "flight_seq": getattr(qm, "flight_seq", None),
                     "wall_s": getattr(qm, "wall_s", None),
                     "tenant": getattr(qm, "tenant", None),
+                    "replica": getattr(qm, "replica", None),
                     "critical_path": getattr(qm, "critical_path", None),
                 })
             return out

@@ -109,14 +109,16 @@ class FlightRecorder:
             out = list(self._ring)
         return out if n is None else out[-n:]
 
-    def snapshot(self, since_seq: int = 0, tenant=None):
+    def snapshot(self, since_seq: int = 0, replica=None, tenant=None):
         """Incremental, lock-light poll: `(new_entries, last_seq)` where
         `new_entries` are the ring's completed `QueryMetrics` with
         `flight_seq > since_seq`, oldest first, and `last_seq` is the
         highest sequence id ever recorded (pass it back as the next
-        `since_seq`). `tenant` narrows to entries billed to that tenant
-        (`metrics.tenant`, stamped from the active tenant scope).
-        `last_seq` still advances over skipped entries, so a filtered
+        `since_seq`). `replica` narrows to entries the scheduler routed
+        to that replica slice (`metrics.replica`); `tenant` narrows to
+        entries billed to that tenant (`metrics.tenant`, stamped from
+        the active tenant scope). The filters compose. `last_seq` still
+        advances over skipped entries, so a filtered
         consumer's cursor stays global. The lock is held only for the
         ring copy. Entries that rotated out of the ring between polls
         are simply gone (the ring is a bounded diagnosis buffer, not a
@@ -127,6 +129,8 @@ class FlightRecorder:
             last = self._record_seq
         fresh = [m for m in entries
                  if getattr(m, "flight_seq", 0) > since_seq
+                 and (replica is None
+                      or getattr(m, "replica", None) == replica)
                  and (tenant is None
                       or getattr(m, "tenant", None) == tenant)]
         return fresh, last

@@ -196,6 +196,7 @@ class TelemetryHistory:
                 "flight_seq": getattr(qm, "flight_seq", None),
                 "wall_s": getattr(qm, "wall_s", None),
                 "tenant": getattr(qm, "tenant", None),
+                "replica": getattr(qm, "replica", None),
             })
         return {"ring": len(rec), "last_seq": rec.last_seq,
                 "recent": entries}

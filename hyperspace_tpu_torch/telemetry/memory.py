@@ -69,21 +69,62 @@ def _stats_sample() -> Optional[Dict[str, Tuple[int, int]]]:
     return out or None
 
 
+# One walk at a time: the walk switches the collector off and back on,
+# which two walks in turn would undo under each other.
+_WALK_LOCK = threading.Lock()
+
+
+def _live_tensors() -> list:
+    """Every live tensor the collector tracks.
+
+    `gc.get_objects()` also returns objects other threads are still
+    building: a tuple that `tuple(<generator>)` fills and resizes in
+    place is tracked from its first item, and while a walk holds a
+    second reference to it the resize raises `SystemError`. So no list
+    of every object may outlive the C call that made it. Per generation,
+    ONE call (`list.extend`) asks for the generation twice — once for
+    the objects, once for their types, which `itertools.compress` pairs
+    up — keeps the tensors, and drains both asks, so both lists die
+    inside that call (an undrained ask would keep its list alive, in the
+    youngest generation even in a cycle with its own iterator). No
+    bytecode, so no other thread, runs in between. With the collector
+    off no collection moves objects between the two asks; the second
+    ask of the youngest generation sees the same objects with the first
+    list and its iterator behind them."""
+    import gc
+    import itertools
+
+    import torch
+
+    def ask(gen):
+        return itertools.chain.from_iterable(map(gc.get_objects, (gen,)))
+
+    is_tensor_type = torch.Tensor.__subclasscheck__
+    never = itertools.repeat(False)
+    tensors: list = []
+    with _WALK_LOCK:
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            for gen in range(3):
+                objs = ask(gen)
+                kinds = map(is_tensor_type, map(type, ask(gen)))
+                tensors.extend(itertools.chain(
+                    itertools.compress(objs, kinds),
+                    itertools.compress(kinds, never)))
+        finally:
+            if enabled:
+                gc.enable()
+    return tensors
+
+
 def _live_tensors_sample() -> Dict[str, Tuple[int, int]]:
     """Accounting fallback: the bytes of every live tensor storage per
     device, each storage counted once however many views share it. Peak
     is tracked by the accountant, not the walk."""
-    import gc
-
-    import torch
-
     seen = set()
     live: Dict[str, int] = {}
-    for obj in gc.get_objects():
-        # issubclass on the type: an isinstance check would run instance
-        # hooks of arbitrary tracked objects.
-        if not issubclass(type(obj), torch.Tensor):
-            continue
+    for obj in _live_tensors():
         try:
             storage = obj.untyped_storage()
             key = (str(obj.device), storage.data_ptr())

@@ -17,11 +17,11 @@ read-only endpoints, at the same paths:
   never staler than its own scrape period.
 - **`/healthz`** — one JSON document of serving-plane state: scheduler
   pressure and SLO burn, per-index breaker states, segment-cache
-  residency, per-tenant admission and usage, the flight ring grouped
-  by tenant, the incident plane, and the per-index usage report. The
-  JAX package's replica-routing section belongs to multi-device
-  serving, which this package has not got; the document leaves it
-  out.
+  residency, replica routing (routed counts, in-flight counts and
+  admitted bytes per replica slice, `parallel/replica.py`), per-tenant
+  admission and usage, the flight ring grouped by replica and by
+  tenant, the incident plane, and the per-index usage report — the JAX
+  package's sections.
 - **`/timeseries`** — the sampler's ring as JSON (the raw material of
   the `/metrics` window gauges, for dashboards that want the history
   rather than the trailing point). `?since=<seq>` returns only ticks
@@ -105,16 +105,30 @@ def healthz_doc() -> dict:
         from hyperspace_tpu_torch.io import segcache
         return segcache.get_cache().snapshot()
 
+    def _replicas():
+        from hyperspace_tpu_torch.engine.scheduler import get_scheduler
+        from hyperspace_tpu_torch.parallel import replica as _replica
+        sched = get_scheduler()
+        return {
+            "routed": _replica.get_router().routed_counts(),
+            "inflight": sched.replica_inflight(),
+            "admitted_bytes": sched.replica_admitted_bytes(),
+        }
+
     def _flight():
         from hyperspace_tpu_torch.telemetry import flight
         rec = flight.get_recorder()
         entries = rec.queries()
+        by_replica: dict = {}
         by_tenant: dict = {}
         for qm in entries:
+            key = getattr(qm, "replica", None)
+            key = "unrouted" if key is None else str(key)
+            by_replica[key] = by_replica.get(key, 0) + 1
             t = getattr(qm, "tenant", None) or "default"
             by_tenant[t] = by_tenant.get(t, 0) + 1
         return {"ring": len(entries), "last_seq": rec.last_seq,
-                "by_tenant": by_tenant}
+                "by_replica": by_replica, "by_tenant": by_tenant}
 
     def _tenants():
         from hyperspace_tpu_torch.engine.scheduler import get_scheduler
@@ -152,6 +166,7 @@ def healthz_doc() -> dict:
     section("scheduler", _scheduler)
     section("breakers", _breakers)
     section("segments", _segments)
+    section("replicas", _replicas)
     section("flight", _flight)
     section("tenants", _tenants)
     section("incidents", _incidents)

@@ -30,10 +30,13 @@ from hyperspace_tpu_torch.telemetry import registry as _registry
 
 __all__ = ["Tracer", "enable_tracing", "disable_tracing",
            "tracing_enabled", "tracer", "span", "link_transfer",
-           "record_link_transfer", "export_trace", "PID_ENGINE"]
+           "record_link_transfer", "export_trace", "PID_ENGINE",
+           "PID_MESH"]
 
-# The trace "process" engine threads report under.
+# Trace "processes": real engine threads vs the synthetic per-shard
+# tracks (tid = shard ordinal) that mesh dispatches attribute work to.
 PID_ENGINE = 1
+PID_MESH = 2
 
 _tracer: Optional["Tracer"] = None
 
@@ -47,6 +50,7 @@ class Tracer:
         self.started_at = time.time()
         self._lock = threading.Lock()
         self._thread_names: Dict[int, str] = {}
+        self._device_tracks: set = set()
 
     def now_us(self) -> float:
         return (time.perf_counter() - self.t0_s) * 1e6
@@ -79,6 +83,20 @@ class Tracer:
             self.events.append(ev)
             self.emitted += 1
 
+    def device_spans(self, name: str, ts_us: float, rows_per_device,
+                     cat: str = "mesh", **common) -> None:
+        """One span per mesh shard on the synthetic mesh process, from
+        `ts_us` to now. Every shard gets the dispatch's wall window (one
+        controller drives them all); the per-shard ROW attribution in
+        the span args is what exposes skew."""
+        dur = self.now_us() - ts_us
+        for d, rows in enumerate(rows_per_device):
+            self._device_tracks.add(d)
+            args = {"device": d, "rows": int(rows)}
+            args.update(common)
+            self.complete(f"{name} [dev{d}]", cat, ts_us, dur,
+                          tid=d, pid=PID_MESH, args=args)
+
     def _metadata_events(self) -> List[dict]:
         out = [
             {"name": "process_name", "ph": "M", "ts": 0,
@@ -89,6 +107,14 @@ class Tracer:
             out.append({"name": "thread_name", "ph": "M", "ts": 0,
                         "pid": PID_ENGINE, "tid": tid,
                         "args": {"name": tname}})
+        if self._device_tracks:
+            out.append({"name": "process_name", "ph": "M", "ts": 0,
+                        "pid": PID_MESH, "tid": 0,
+                        "args": {"name": "hyperspace-mesh"}})
+            for d in sorted(self._device_tracks):
+                out.append({"name": "thread_name", "ph": "M", "ts": 0,
+                            "pid": PID_MESH, "tid": d,
+                            "args": {"name": f"device {d}"}})
         return out
 
     def export(self, path: str) -> dict:

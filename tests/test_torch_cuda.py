@@ -947,3 +947,109 @@ def test_card_mesh_rebucket_ids_equal_plain_version_and_join_equals_cpu(
                                            np.nan).tolist()]))
     assert len(rows["cuda"]) > 40_000
     assert rows["cuda"] == rows["cpu"]
+
+
+def test_card_routed_join_rebuckets_on_each_slice(card, tmp_path,
+                                                  monkeypatch):
+    """On a virtual 2 x 2 mesh of the card with replication on, two
+    threads run the mismatched join (200 against 64 buckets) through the
+    scheduler: the router sends them to the two slices, each re-buckets
+    its right side through the hash kernel (2 launches a collect, one
+    per shard of its slice, ids equal to the plain version's), the
+    segment cache holds both slices' shards under two device tags, and
+    the rows equal the same run on a virtual mesh of the CPU."""
+    import threading
+
+    from hyperspace_tpu_torch import (Hyperspace, HyperspaceConf,
+                                      HyperspaceSession, IndexConfig)
+    from hyperspace_tpu_torch.io import segcache
+    from hyperspace_tpu_torch.parallel import replica, virtual
+
+    monkeypatch.setattr(builder, "BUILD_MIN_DEVICE_ROWS", 0)
+    rng = np.random.default_rng(29)
+    src = {}
+    for side, n, payload in (("l", 60_000, "id"), ("r", 30_000, "val")):
+        src[side] = str(tmp_path / side)
+        os.makedirs(src[side])
+        pq.write_table(pa.table({
+            "key": rng.integers(0, 20_000, n).astype(np.int64),
+            payload: (np.arange(n, dtype=np.int64) if payload == "id"
+                      else rng.standard_normal(n))}),
+            os.path.join(src[side], "p.parquet"))
+    rows = {}
+    for dev in (card, torch.device("cpu")):
+        with virtual.virtual_devices(4, dev):
+            replica.reset_router()
+            segcache.clear()
+            sess = HyperspaceSession(HyperspaceConf({
+                "spark.hyperspace.warehouse.dir": str(
+                    tmp_path / f"wh-{dev.type}"),
+                "spark.hyperspace.index.num.buckets": "200",
+                "spark.hyperspace.execution.min.device.rows": "0",
+                "spark.hyperspace.broadcast.threshold": "-1",
+                "spark.hyperspace.distribution.enabled": "true",
+                "spark.hyperspace.distribution.slices": "2"}),
+                device=dev.type)
+            hs = Hyperspace(sess)
+            left = sess.read_parquet(src["l"])
+            right = sess.read_parquet(src["r"])
+            hs.create_index(left, IndexConfig("lk", ["key"], ["id"]))
+            sess.conf.set("spark.hyperspace.index.num.buckets", "64")
+            hs.create_index(right, IndexConfig("rk", ["key"], ["val"]))
+            sess.enable_hyperspace()
+            query = left.select("key", "id").join(
+                right.select("key", "val"), on="key")
+            seen = []
+            real = hash_kernel.hash_lanes_to_buckets
+
+            class Spy:
+                """Records each call; `launches` stays the wrapper's."""
+
+                launches = property(
+                    lambda self: real.launches,
+                    lambda self, n: setattr(real, "launches", n))
+
+                def __call__(self, lanes, num_buckets):
+                    out = real(lanes, num_buckets)
+                    seen.append((lanes, num_buckets, out))
+                    return out
+
+            monkeypatch.setattr(hash_kernel, "hash_lanes_to_buckets", Spy())
+            before = real.launches
+            results, replicas, errors = [], [], []
+
+            def client():
+                try:
+                    table, m = query.collect(with_metrics=True)
+                    results.append(table)
+                    replicas.append(m.replica)
+                except Exception as exc:  # pragma: no cover
+                    errors.append(exc)
+
+            threads = [threading.Thread(target=client) for _ in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            monkeypatch.setattr(hash_kernel, "hash_lanes_to_buckets", real)
+            assert not errors, errors
+            assert sorted(replicas) == [0, 1]
+            assert replica.get_router().routed_counts() == {0: 1, 1: 1}
+            launched = real.launches - before
+            assert launched == (4 if dev.type == "cuda" else 0)
+            assert len(seen) == 4
+            for lanes, num_buckets, got in seen:
+                assert num_buckets == 200
+                want = hash_kernel.hash_lanes_to_buckets_reference(
+                    lanes.cpu(), num_buckets)
+                assert (got.cpu() == want).all()
+            tags = segcache.get_cache().replica_residency()
+            assert set(tags) == {(0, 1), (2, 3)}, tags
+            key = [("key", "ascending"), ("id", "ascending"),
+                   ("val", "ascending")]
+            rows[dev.type] = [t.sort_by(key) for t in results]
+            assert rows[dev.type][0].equals(rows[dev.type][1])
+            segcache.clear()
+            replica.reset_router()
+    assert rows["cuda"][0].num_rows > 60_000
+    assert rows["cuda"][0].equals(rows["cpu"][0])

@@ -209,3 +209,53 @@ def test_no_tensor_leak_across_repeat_queries(sales_env):
     for _ in range(3):
         q().collect()
     assert live() - before <= 0
+
+
+def test_live_tensor_walk_never_breaks_a_concurrent_tuple_build():
+    """The CPU walk holds no list of every object past the C call that
+    made it: threads building tuples from generators (which CPython
+    resizes in place, refusing when another reference exists) never
+    fail while two other threads sample, and the walk finds exactly the
+    live tensors a plain collector scan finds."""
+    import sys
+    import threading
+
+    from hyperspace_tpu_torch.telemetry import memory
+
+    keep = [torch.zeros(16) for _ in range(8)]
+    view = keep[0][:4]
+    want = {id(o) for o in gc.get_objects()
+            if issubclass(type(o), torch.Tensor)}
+    assert {id(t) for t in memory._live_tensors()} == want
+    assert id(view) in want
+
+    stop = threading.Event()
+    errors = []
+
+    def build():
+        while not stop.is_set():
+            try:
+                tuple(x for x in range(200))
+            except SystemError as exc:  # pragma: no cover - the fault
+                errors.append(exc)
+
+    def walk():
+        while not stop.is_set():
+            memory._live_tensors_sample()
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    threads = ([threading.Thread(target=build) for _ in range(3)]
+               + [threading.Thread(target=walk) for _ in range(2)])
+    try:
+        for t in threads:
+            t.start()
+        time.sleep(2.0)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(30)
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors[:1]
+    assert gc.isenabled()

@@ -87,14 +87,60 @@ def test_mesh_shapes_equal_jax(dcn):
         tsub = tmesh.slice_submesh(tm, idx)
         jsub = jmesh.slice_submesh(jm, idx)
         assert tsub.shape == dict(jsub.shape)
+        # A slice keeps its shards' ordinals in the full mesh: the JAX
+        # package's device ids on its virtual CPU mesh.
+        assert tmesh.mesh_device_tag(tsub) == jmesh.mesh_device_tag(jsub)
+        n_ici = tmesh.ici_size(tm)
         assert tmesh.mesh_device_tag(tsub) == tuple(
-            range(tmesh.total_shards(tsub)))
+            range(idx * n_ici, (idx + 1) * n_ici))
     with pytest.raises(ValueError):
         tmesh.slice_submesh(tm, tmesh.dcn_size(tm))
     with pytest.raises(ValueError):
         tmesh.make_mesh(9)
     with pytest.raises(ValueError):
         tmesh.make_mesh(8, dcn_size=3)
+
+
+def test_slice_tags_give_disjoint_dispatch_locks():
+    """On a 2 x 4 mesh the two slices' tags are disjoint (the JAX
+    package's device ids), so a query holding slice 0's dispatch locks
+    never blocks one on slice 1, while the full mesh takes the locks of
+    both; the flat mesh keeps the tag it always had."""
+    import threading
+
+    from hyperspace_tpu_torch.parallel import spmd
+
+    virtual.ensure_devices(8, device="cpu")
+    full = tmesh.make_mesh(8, dcn_size=2)
+    s0, s1 = tmesh.slice_submesh(full, 0), tmesh.slice_submesh(full, 1)
+    assert not set(tmesh.mesh_device_tag(s0)) & set(
+        tmesh.mesh_device_tag(s1))
+    assert tmesh.mesh_device_tag(tmesh.make_mesh(8)) == tuple(range(8))
+    assert tmesh.mesh_device_tag(full) == tuple(range(8))
+
+    waiting = []
+
+    def try_guard(mesh):
+        """True when another thread takes `mesh`'s locks at once."""
+        done = threading.Event()
+
+        def body():
+            with spmd.dispatch_guard(mesh):
+                done.set()
+
+        t = threading.Thread(target=body, daemon=True)
+        t.start()
+        waiting.append(t)
+        return done.wait(0.5)
+
+    with spmd.dispatch_guard(s0):
+        assert try_guard(s1)
+        assert not try_guard(full)
+        assert not try_guard(s0)
+    for t in waiting:
+        t.join(5)
+        assert not t.is_alive()
+    assert try_guard(full)
 
 
 def test_assemble_sharded_rows_is_the_list():

@@ -1,8 +1,9 @@
 """Ops server of `hyperspace_tpu_torch` (`telemetry/ops_server.py`): the
 JAX package's endpoints at the same paths on an ephemeral port —
 `/metrics`, `/healthz`, `/timeseries` (with its `since` cursor),
-`/critpath`, `/alerts` and `/profile` — the `/healthz` document without
-the serving plane's sections, and session-init wiring.
+`/critpath`, `/alerts` and `/profile` — the `/healthz` document with
+the JAX package's sections, replica routing included, and session-init
+wiring.
 
 Process state: each test starts and ends with no port ops server, alert
 manager, history writer or process sampler (`ops_server.stop_server`,
@@ -107,11 +108,13 @@ def test_healthz_document(lake):
     _status, _ctype, body = _get(ops_server.get_server(), "/healthz")
     doc = json.loads(body)
     assert set(doc) == {"status", "time", "uptime_s", "scheduler",
-                        "breakers", "segments", "flight", "tenants",
-                        "incidents", "index_usage"}
+                        "breakers", "segments", "replicas", "flight",
+                        "tenants", "incidents", "index_usage"}
     assert doc["status"] == "ok"
     assert doc["flight"]["ring"] == 1
     assert doc["flight"]["by_tenant"] == {"default": 1}
+    # One device, so the collect was not routed.
+    assert doc["flight"]["by_replica"] == {"unrouted": 1}
     assert doc["incidents"]["active"] == []
     usage = {r["index"]: r for r in doc["index_usage"]["indexes"]}
     assert usage["kIdx"]["served_total"] >= 1
@@ -123,15 +126,17 @@ def test_healthz_document(lake):
     assert "slo" in doc["scheduler"]
     assert isinstance(doc["breakers"], dict)
     assert "usage" in doc["tenants"]["default"]
-    # Only the multi-device replica section is absent, not an error.
-    assert "replicas" not in doc
+    # The replica section is present (not an error stub) and keyed as
+    # the JAX package's.
+    assert set(doc["replicas"]) == {"routed", "inflight", "admitted_bytes"}
 
 
 def test_healthz_sections_are_a_subset_of_the_jax_packages():
-    ours = set(ops_server.healthz_doc())
-    theirs = set(jops.healthz_doc())
-    assert ours <= theirs
-    assert theirs - ours == {"replicas"}
+    ours = ops_server.healthz_doc()
+    theirs = jops.healthz_doc()
+    assert set(ours) == set(theirs)
+    assert set(ours["replicas"]) == set(theirs["replicas"])
+    assert set(ours["flight"]) == set(theirs["flight"])
 
 
 def test_timeseries_since_cursor(server):

@@ -8,7 +8,10 @@ to the single-device build, the layout record and the log entry's
 against distribution off, the `mesh-distribution` trigger, and the SPMD
 joins (B re-bucketed between shards, left_outer, A, left_semi, a string
 key, A on the 2 x 2 mesh) against numpy and against
-`distribution.spmd.enabled=false`. (Its
+`distribution.spmd.enabled=false`, and the replica block (8 clients on
+the 2 x 2 topology routed to its two slices, each result equal to its
+serial run; the residency per slice, a committed refresh sweeping both,
+a cold-range pin). (Its
 kernel-launch check applies on a card only: on the CPU the hash wrapper
 runs its plain version and counts no launch.)
 """
@@ -49,8 +52,9 @@ def test_phase_mesh_passes_on_the_cpu(tmp_path):
     assert out["shards"] == 4 and out["virtual"] and out["device_count"] == 0
     # The flat and 2 x 2 builds of the mesh index, then the SPMD joins'
     # right indexes (64 and 200 buckets flat, 200 on the 2 x 2 mesh) and
-    # the string join's two sides.
-    assert out["execs"]["build"] == 2 + 5
+    # the string join's two sides, then the replica block's right index
+    # and its refresh.
+    assert out["execs"]["build"] == 2 + 5 + 2
     assert out["execs"]["filter"] >= 2 and out["execs"]["aggregate"] >= 1
     for tag in ("flat", "grid"):
         build = out["build"][tag]
@@ -69,6 +73,13 @@ def test_phase_mesh_passes_on_the_cpu(tmp_path):
     assert spmd["repartition_bytes"]["ici"] > 0
     assert spmd["kernel"]["max_abs_err"] == 0
     assert len(spmd["kernel"]["shapes"]) == 4
+    rep = out["replica"]
+    for tag in ("warm_up", "timed"):
+        assert sum(rep[tag]["routed"]) == 64 and min(rep[tag]["routed"]) > 0
+    assert rep["replication_off"]["routed"] == [0, 0]
+    assert rep["residency"] == {"0,1": 2, "2,3": 2}
+    assert set(rep["reads_after_commit"]) == {0, 1}
+    assert rep["cold_pin"]["routed"] == rep["cold_pin"]["home"]
 
 
 def test_phase_mesh_refuses_a_run_that_distributed_before_it(tmp_path):

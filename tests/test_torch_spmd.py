@@ -347,3 +347,258 @@ def test_warm_two_stage_join_has_no_d2h_between_stages():
     pd.testing.assert_frame_equal(warm, aggregate("jax", stages("jax")),
                                   check_dtype=False, check_exact=False,
                                   rtol=AGG_RTOL)
+
+
+# -- read replicas: slice submeshes, residency, routing under chaos ----------
+
+
+def _slice_reads(pkg, files, mesh, slice_idx, version=0):
+    """Both sides of `files` ({tag: {package: (root, lengths, built)}})
+    read born-sharded onto slice `slice_idx`'s submesh of `mesh` through
+    that package's segment cache."""
+    if pkg == "jax":
+        from hyperspace_tpu.io import segcache as cache_mod
+        from hyperspace_tpu.parallel.mesh import bucket_ranges, slice_submesh
+        parquet = jparquet
+    else:
+        from hyperspace_tpu_torch.io import segcache as cache_mod
+        from hyperspace_tpu_torch.parallel.mesh import (bucket_ranges,
+                                                        slice_submesh)
+        parquet = tparquet
+    sub = slice_submesh(mesh, slice_idx)
+    out = []
+    for tag, per_pkg in files.items():
+        root, lengths, b = per_pkg[pkg]
+        per_bucket = parquet.bucket_files(root)
+        per_shard = [[f for bk in range(lo, hi)
+                      for f in per_bucket.get(bk, [])]
+                     for lo, hi in bucket_ranges(len(lengths), len(
+                         sub.devices))]
+        ref = cache_mod.SegmentRef(index_name=f"rep_{tag}", index_root=root,
+                                   version=version, bucket="all")
+        out.append(SPMD[pkg].read_sharded(
+            per_shard, lengths, [f.name for f in b.schema.fields],
+            b.schema, sub, base_ref=ref))
+    return out
+
+
+def _k_below(pkg, bound):
+    if pkg == "jax":
+        from hyperspace_tpu.plan.expr import col, lit
+    else:
+        from hyperspace_tpu_torch.plan.expr import col, lit
+    return col("k") < lit(bound)
+
+
+def test_replica_scope_confines_distribution_mesh_like_jax():
+    """Under `replica_scope(1)` on a 2 x 4 topology every distribution
+    decision sees slice 1's flat 4-shard submesh, whose tag is the JAX
+    package's device ids 4..7."""
+    from hyperspace_tpu.config import HyperspaceConf as JConf
+    from hyperspace_tpu.parallel import context as jcontext
+    from hyperspace_tpu.parallel import mesh as jmesh
+
+    from hyperspace_tpu_torch.config import HyperspaceConf as TConf
+    from hyperspace_tpu_torch.parallel import context as tcontext
+    from hyperspace_tpu_torch.parallel import mesh as tmesh
+
+    virtual.ensure_devices(8, device="cpu")
+    settings = {"spark.hyperspace.distribution.enabled": "true",
+                "spark.hyperspace.distribution.slices": "2"}
+    jconf = JConf(dict(settings))
+    tconf = TConf(dict(settings, **{"spark.hyperspace.device": "cpu"}))
+    full = tcontext.distribution_mesh(tconf)
+    assert tmesh.dcn_size(full) == 2 and tmesh.total_shards(full) == 8
+    assert tmesh.mesh_device_tag(full) == jmesh.mesh_device_tag(
+        jcontext.distribution_mesh(jconf)) == tuple(range(8))
+    for idx in (0, 1):
+        with tcontext.replica_scope(idx), jcontext.replica_scope(idx):
+            sub = tcontext.distribution_mesh(tconf)
+            jsub = jcontext.distribution_mesh(jconf)
+            assert tmesh.total_shards(sub) == 4
+            assert tmesh.mesh_device_tag(sub) == jmesh.mesh_device_tag(
+                jsub) == tuple(range(4 * idx, 4 * idx + 4))
+    assert tcontext.active_replica() is None
+
+
+def test_replica_residency_coherent_under_refresh(tmp_path):
+    """Two replica slices fill INDEPENDENT cache entries for the same
+    bucket ranges (device-tagged keys, no aliasing), a committed version
+    sweeps BOTH, and the re-reads serve the same rows — in both
+    packages, with the same residency map."""
+    from hyperspace_tpu.io import segcache as jsegcache
+
+    jm, tm = meshes(8, 2)
+    table = numeric_table(1600, 17)
+    files = {"rep": born_sharded_files(tmp_path, "rep", table, 16, jm, tm)}
+    results = {}
+    for pkg, mesh, cache_mod in (("jax", jm, jsegcache),
+                                 ("port", tm, segcache)):
+        cache_mod.clear()
+        cache = cache_mod.get_cache()
+        root = files["rep"][pkg][0]
+
+        def read(idx):
+            sh, = _slice_reads(pkg, files, mesh, idx)
+            return frame_of(SPMD[pkg].sharded_filter(sh, _k_below(pkg, 60)))
+
+        r0, r1 = read(0), read(1)
+        pd.testing.assert_frame_equal(r0, r1)
+        residency = cache.replica_residency(root)
+        assert residency == {(0, 1, 2, 3): 4, (4, 5, 6, 7): 4}, (pkg,
+                                                                 residency)
+        cache.invalidate_index(root, keep_version=1)
+        assert cache.replica_residency(root) == {}
+        pd.testing.assert_frame_equal(read(0), r0)
+        pd.testing.assert_frame_equal(read(1), r0)
+        assert len(cache.replica_residency(root)) == 2
+        results[pkg] = r0
+        cache_mod.clear()
+    pd.testing.assert_frame_equal(results["port"], results["jax"])
+    want = table.to_pandas()
+    assert len(results["port"]) == int((want["k"] < 60).sum())
+
+
+def test_least_loaded_routing_distribution_under_chaos(tmp_path):
+    """8 clients x 4 routed joins on a 2 x 4 topology: the router balances
+    them (no replica past 70 %), every join equals pandas and the JAX
+    package's, with transient faults injected at the Parquet seam of the
+    cold per-shard fills (retried by the io policy)."""
+    from hyperspace_tpu_torch.config import HyperspaceConf as TConf
+    from hyperspace_tpu_torch.engine.scheduler import QueryScheduler
+    from hyperspace_tpu_torch.parallel import replica
+    from hyperspace_tpu_torch.utils import faults
+
+    conf = TConf({"spark.hyperspace.distribution.enabled": "true",
+                  "spark.hyperspace.distribution.slices": "2",
+                  "spark.hyperspace.device": "cpu"})
+    jm, tm = meshes(8, 2)
+    lt, rt = numeric_table(1000, 19), numeric_table(400, 20)
+    files = {tag: born_sharded_files(tmp_path, tag, t, 16, jm, tm)
+             for tag, t in (("l", lt), ("r", rt))}
+    want = oracle(lt, rt, "inner")
+    jl, jr = _slice_reads("jax", files, jm, 0)
+    jli, jri = jspmd.sharded_join_indices(jl, jr, ["k"], ["k"])
+    pd.testing.assert_frame_equal(pairs(jl.batch, jr.batch, jli, jri), want)
+
+    replica.reset_router()
+    router = replica.get_router()
+    sched = QueryScheduler()
+    segcache.clear()
+    tparquet.clear_read_cache()
+    inj = faults.install(faults.FaultInjector([faults.FaultRule(
+        "parquet.read", kind="transient", probability=0.3, times=8)]))
+    results, errors = [], []
+
+    def client():
+        try:
+            for _ in range(4):
+                rep = router.route(None, conf, sched)
+                assert rep in (0, 1)
+                lsh, rsh = _slice_reads("port", files, tm, rep)
+                li, ri = tspmd.sharded_join_indices(lsh, rsh, ["k"], ["k"])
+                results.append(pairs(lsh.batch, rsh.batch, li, ri))
+        except Exception as exc:  # pragma: no cover - fail loudly
+            errors.append(exc)
+
+    try:
+        threads = [threading.Thread(target=client) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        faults.uninstall()
+        replica.reset_router()
+        segcache.clear()
+    assert not errors, errors
+    assert len(results) == 32
+    for frame in results:
+        pd.testing.assert_frame_equal(frame, want)
+    routed = router.routed_counts()
+    assert sum(routed.values()) == 32
+    assert max(routed.values()) / 32 <= 0.70, routed
+    assert inj.fired("parquet.read") > 0, "the chaos seam never fired"
+
+
+def test_read_pool_fills_concurrently_with_the_serial_rows(tmp_path):
+    """The per-shard fills run on the dedicated `hs-spmd-read` pool and
+    give the rows of the one-by-one fill; the pool drains and comes back
+    on the next read."""
+    _jm, tm = meshes(8, 2)
+    table = numeric_table(2000, 41)
+    files = {"pool": born_sharded_files(tmp_path, "pool", table, 16, _jm,
+                                        tm)}
+    segcache.clear()
+    names = set()
+    real = tspmd._fill_device_shard
+
+    def spy(*args, **kwargs):
+        names.add(threading.current_thread().name)
+        return real(*args, **kwargs)
+
+    tspmd._fill_device_shard = spy
+    try:
+        sh, = _slice_reads("port", files, tm, 1)
+    finally:
+        tspmd._fill_device_shard = real
+    assert names and all(n.startswith("hs-spmd-read") for n in names)
+    pooled = frame_of(sh.batch)
+    tspmd.shutdown_read_pool()
+    segcache.clear()
+    again, = _slice_reads("port", files, tm, 1)
+    pd.testing.assert_frame_equal(frame_of(again.batch), pooled)
+    segcache.clear()
+
+
+def test_device_spans_give_per_shard_tracks_like_jax():
+    """With tracing on, the mesh build and the SPMD join put one span per
+    shard on the mesh process, carrying each shard's rows (built rows,
+    joined pairs), with the JAX package's names, tracks and row counts."""
+    from hyperspace_tpu.telemetry import trace as jtrace
+
+    from hyperspace_tpu_torch.telemetry import trace as ttrace
+
+    jm, tm = meshes(8)
+    lt, rt = numeric_table(1200, 51), numeric_table(500, 52)
+    tracks = {}
+    for pkg, trace in (("jax", jtrace), ("port", ttrace)):
+        trace.disable_tracing()
+        tracer = trace.enable_tracing()
+        try:
+            sides = [built(t, 16, jm, tm, (pkg,) if pkg == "port" else BOTH)
+                     for t in (lt, rt)]
+            lsh, rsh = sides[0][pkg][0], sides[1][pkg][0]
+            SPMD[pkg].sharded_join_indices(lsh, rsh, ["k"], ["k"])
+            events = [e for e in tracer.events if e["pid"] == trace.PID_MESH]
+            meta = [e for e in tracer._metadata_events()
+                    if e["pid"] == trace.PID_MESH]
+        finally:
+            trace.disable_tracing()
+        tracks[pkg] = ([(e["name"], e["tid"], e["args"]["rows"])
+                        for e in events], meta)
+    assert tracks["port"] == tracks["jax"]
+    names = [n for n, _t, _r in tracks["port"][0]]
+    assert names[:8] == [f"build [dev{d}]" for d in range(8)]
+    assert names[-8:] == [f"join [dev{d}]" for d in range(8)]
+    assert sum(r for n, _t, r in tracks["port"][0][:8]) == 1200
+
+
+def test_filter_and_repartition_ride_the_device_seam():
+    """The sharded filter and the repartition are device-seam entries
+    (`mesh.spmd_filter`, `mesh.spmd_repartition`) with a modeled cost."""
+    from hyperspace_tpu_torch.telemetry import compilation
+
+    jm, tm = meshes(4)
+    table = numeric_table(800, 61)
+    sh = built(table, 16, jm, tm, ("port",))["port"][0]
+    rec = telemetry.QueryMetrics("seam")
+    with telemetry.recording(rec):
+        tspmd.sharded_filter(sh, _k_below("port", 40))
+        tspmd.repartition_sharded(tcol.from_arrow(table, device=CPU),
+                                  ["k"], 8, tm)
+    rec.finish()
+    costs = compilation.entry_point_costs()
+    for name in ("mesh.spmd_filter", "mesh.spmd_repartition"):
+        flops, nbytes = costs[name]
+        assert flops > 0 and nbytes > 0, name

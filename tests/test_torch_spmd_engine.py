@@ -357,3 +357,278 @@ def test_engine_skewed_exchange_side_declines_before_reading(tmp_path,
             assert any("v" in c for c in read_columns)
     pd.testing.assert_frame_equal(rows["port"], rows["jax"],
                                   check_dtype=False)
+
+
+# -- read replicas: routing through the scheduler ------------------------------
+
+SLICES = {"spark.hyperspace.distribution.slices": "2"}
+
+
+@pytest.fixture
+def routers():
+    """Both packages' replica routers and schedulers fresh, before and
+    after: the router is process state, like the virtual mesh."""
+    from hyperspace_tpu.engine import scheduler as jsched
+    from hyperspace_tpu.parallel import replica as jreplica
+
+    from hyperspace_tpu_torch.engine import scheduler as tsched
+    from hyperspace_tpu_torch.parallel import replica as treplica
+
+    def fresh():
+        jreplica.reset_router()
+        treplica.reset_router()
+        jsched.set_scheduler(jsched.QueryScheduler())
+        tsched.set_scheduler(tsched.QueryScheduler())
+
+    fresh()
+    yield {"jax": jreplica, "port": treplica}
+    fresh()
+
+
+def _gauges(reg, n=2):
+    return [reg.gauge(f"serve.replica.{i}.admitted_bytes").value
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("wh", ["eq", "mm"])
+def test_engine_multislice_replica_routing(lake, routers, wh):
+    """On a 2-slice topology the scheduler routes every collect to a
+    replica slice (`serve.replica.<i>.routed`, `metrics.replica`, the
+    per-replica admitted-byte gauges), the join runs on the routed
+    slice's 4-shard submesh (re-bucketing there for the mismatched
+    pair), and 4 concurrent clients get the rules-off rows and the JAX
+    package's, bit for bit."""
+    import threading
+
+    got = {}
+    for pkg in ("jax", "port"):
+        if pkg == "port":
+            virtual.ensure_devices(8, device="cpu")
+        reg = (telemetry if pkg == "port" else jax_telemetry).get_registry()
+        sess, _hs = _session(pkg, lake, wh, **SLICES)
+        frame, cols = _query(sess, lake, "inner", "key")
+        sess.disable_hyperspace()
+        off = _rows(frame, cols)
+        sess.enable_hyperspace()
+        names = [f"serve.replica.{i}.routed" for i in (0, 1)]
+        c0 = [reg.counter(k).value for k in names]
+        r0 = reg.counter("mesh.spmd.repartition_execs").value
+        results, metrics, errors = [], [], []
+
+        def client():
+            try:
+                table, m = frame.collect(with_metrics=True)
+                results.append(table.to_pandas().sort_values(
+                    cols, na_position="first").reset_index(drop=True))
+                metrics.append(m)
+            except Exception as exc:  # pragma: no cover - fail loudly
+                errors.append(exc)
+
+        threads = [threading.Thread(target=client) for _ in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert not errors, errors
+        routed = [reg.counter(k).value - c for k, c in zip(names, c0)]
+        assert sum(routed) == 4, (pkg, routed)
+        assert all(m.replica in (0, 1) for m in metrics)
+        assert sorted(m.replica for m in metrics) == sorted(
+            sum(([i] * int(r) for i, r in enumerate(routed)), []))
+        assert _gauges(reg) == [0, 0]
+        for frame_ in results:
+            pd.testing.assert_frame_equal(frame_, off, check_dtype=False)
+        got[pkg] = (results[0], metrics)
+        if pkg == "port":
+            # The mismatched pair re-buckets on the routed slice, once
+            # per collect.
+            assert reg.counter("mesh.spmd.repartition_execs").value \
+                - r0 == (4 if wh == "mm" else 0)
+    pd.testing.assert_frame_equal(got["port"][0], got["jax"][0],
+                                  check_dtype=False)
+    for m in got["port"][1]:
+        assert m.to_dict()["replica"] == m.replica
+        assert [e["replica"] for e in m.events_of("serve", "replica")] == [
+            m.replica]
+        joins = m.events_of("mesh", "join")
+        assert [e["shards"] for e in joins] == [4]
+        assert [o.detail.get("lane") for o in m.operators
+                if o.name == "SortMergeJoin"] == ["spmd"]
+
+
+def _bucket_of(value, buckets=16):
+    from hyperspace_tpu_torch.ops.host_hash import host_bucket_ids
+
+    return int(host_bucket_ids([np.asarray([value], dtype=np.int64)],
+                               ["int64"], buckets)[0])
+
+
+def test_router_equals_jax_router(lake, routers):
+    """Both packages run the same point filters, so their flight rings
+    hold the same Scan `bucket_ids`; then `hot_buckets`, `_plan_buckets`,
+    `_cold_pin` and `route` agree for hot, cold, unclassified and
+    range-straddling hints, and with fewer slices than `min.slices`."""
+    from hyperspace_tpu.engine.scheduler import QueryScheduler as JSched
+    from hyperspace_tpu.telemetry import flight as jflight
+
+    from hyperspace_tpu_torch.engine.scheduler import QueryScheduler
+    from hyperspace_tpu_torch.telemetry import flight as tflight
+
+    by_bucket = {}
+    for v in range(500):
+        by_bucket.setdefault(_bucket_of(v), v)
+    lo = [b for b in sorted(by_bucket) if b < 8]
+    hi = [b for b in sorted(by_bucket) if b >= 8]
+    hot_a, hot_b, warm = lo[0], lo[1], hi[0]
+    cold_lo, cold_hi = lo[-1], hi[-1]
+    reads = [hot_a] * 4 + [hot_b] * 3 + [warm]
+    virtual.ensure_devices(8, device="cpu")
+    answers = {}
+    for pkg in ("jax", "port"):
+        (jflight if pkg == "jax" else tflight).get_recorder().clear()
+        routers[pkg].reset_router()
+        sess, _hs = _session(pkg, lake, "eq", **SLICES)
+        sess.enable_hyperspace()
+        col = ths.col if pkg == "port" else _jcol
+        left = sess.read_parquet(str(lake / "l"))
+
+        def point(*buckets):
+            values = [by_bucket[b] for b in buckets]
+            cond = (col("key") == values[0] if len(values) == 1
+                    else col("key").isin(*values))
+            return left.filter(cond).select("key", "id")
+
+        for b in reads:
+            point(b).collect()
+        # A fresh mine, the same way on both sides: a new router reads
+        # the whole ring from sequence 0.
+        routers[pkg].reset_router()
+        router = routers[pkg].get_router()
+        sched = JSched() if pkg == "jax" else QueryScheduler()
+        plans = {"hot": point(hot_a), "cold_lo": point(cold_lo),
+                 "cold_hi": point(cold_hi),
+                 "straddle": point(cold_lo, cold_hi),
+                 "cold_pair": point(cold_lo, lo[-2]),
+                 "unclassified": left.select("key", "id")}
+        out = {}
+        for name, df in plans.items():
+            plan = sess.optimize(df.plan)
+            hints = routers[pkg]._plan_buckets(plan)
+            out[name] = {
+                "hints": (None if hints is None else
+                          sorted((sorted(ids), nb)
+                                 for ids, nb in hints.values())),
+                "pin": router._cold_pin(hints, sess.conf, 2),
+                "route": router.route(plan, sess.conf, sched)}
+            if hints:
+                root, = hints
+                out[name]["hot"] = sorted(router.hot_buckets(root, 0.5))
+        out["routed"] = router.routed_counts()
+        few = _session(pkg, lake, "eq", **dict(SLICES, **{
+            "spark.hyperspace.distribution.replication.min.slices":
+                "4"}))[0]
+        out["few_slices"] = router.route(plans["hot"].plan, few.conf, sched)
+        off = _session(pkg, lake, "eq", **dict(SLICES, **{
+            "spark.hyperspace.distribution.replication.enabled":
+                "false"}))[0]
+        out["replication_off"] = router.route(plans["hot"].plan, off.conf,
+                                              sched)
+        answers[pkg] = out
+    assert answers["port"] == answers["jax"]
+    got = answers["port"]
+    assert got["hot"]["hot"] == sorted({hot_a, hot_b})
+    assert got["hot"]["pin"] is None
+    assert got["cold_lo"]["pin"] == got["cold_lo"]["route"] == 0
+    assert got["cold_hi"]["pin"] == got["cold_hi"]["route"] == 1
+    assert got["cold_pair"]["pin"] == 0
+    assert got["straddle"]["pin"] is None
+    assert got["unclassified"]["hints"] is None
+    assert got["few_slices"] is None and got["replication_off"] is None
+
+
+def _jcol(name):
+    from hyperspace_tpu.plan.expr import col
+    return col(name)
+
+
+def test_per_replica_admission_equals_jax(lake, routers, monkeypatch):
+    """An idle replica always admits; a busy one refuses past
+    `budget // n_replicas`; the `serve.replica.<i>.admitted_bytes`
+    gauges follow every grant and release back to 0 — in both
+    packages alike — and a query cancelled after its admission leaves
+    every gauge at 0."""
+    from hyperspace_tpu.engine import scheduler as jsched
+    from hyperspace_tpu.exceptions import QueryCancelledError as JCancel
+    from hyperspace_tpu.utils import faults as jfaults
+
+    from hyperspace_tpu_torch.engine import scheduler as tsched
+    from hyperspace_tpu_torch.exceptions import QueryCancelledError
+    from hyperspace_tpu_torch.utils import faults as tfaults
+
+    budget = 1000
+    # budget // 2 = 500 a replica. e3 and e5 fit the whole budget but
+    # not their replica's share; after the release, f2 finds replica 1
+    # idle and admits past its share.
+    steps = [("e1", 0, 400), ("e2", 1, 300), ("e3", 0, 200),
+             ("e4", 0, 100), ("e5", 1, 250), ("e6", 1, 200), None,
+             ("f1", 0, 100), ("f2", 1, 800), None]
+    trail = {}
+    for pkg, mod, tel in (("jax", jsched, jax_telemetry),
+                          ("port", tsched, telemetry)):
+        sched = mod.QueryScheduler()
+        monkeypatch.setattr(sched, "_live_device_bytes", lambda: 0)
+        reg = tel.get_registry()
+        ents, log = {}, []
+        for step in steps:
+            if step is None:
+                for qid in sorted(ents):
+                    sched._release(ents.pop(qid))
+                    log.append((qid, "released", _gauges(reg),
+                                sched.replica_inflight()))
+                continue
+            qid, rep, size = step
+            ent = mod._QueryEntry(qid, mod.Deadline(qid, None), size, None)
+            ent.replica, ent.n_replicas = rep, 2
+            with sched._cv:
+                fits = sched._fits(ent, budget)
+                if fits:
+                    sched._grant(ent, reg)
+                    ents[qid] = ent
+            log.append((qid, fits, _gauges(reg),
+                        sched.replica_inflight()))
+        trail[pkg] = log
+    assert trail["port"] == trail["jax"]
+    decisions = [(q, f) for q, f, *_ in trail["port"] if f != "released"]
+    assert decisions == [("e1", True), ("e2", True), ("e3", False),
+                         ("e4", True), ("e5", False), ("e6", True),
+                         ("f1", True), ("f2", True)]
+    assert trail["port"][5][2] == [500, 500]
+    assert trail["port"][-1][2:] == ([0, 0], {})
+
+    # Cancelled after admission, in the collect itself.
+    virtual.ensure_devices(8, device="cpu")
+    for pkg, mod, tel, faults, cancelled in (
+            ("jax", jsched, jax_telemetry, jfaults, JCancel),
+            ("port", tsched, telemetry, tfaults, QueryCancelledError)):
+        sess, _hs = _session(pkg, lake, "eq", **SLICES)
+        sess.enable_hyperspace()
+        frame, _cols = _query(sess, lake, "inner", "key")
+        sched = mod.get_scheduler()
+        real_fire = faults.fire
+
+        def fire(op, *args, _sched=sched, _real=real_fire, **kw):
+            if op == "scheduler.run":
+                seen = _sched.replica_inflight()
+                assert sum(seen.values()) == 1, seen
+                for qid in _sched.active_queries():
+                    _sched.cancel(qid)
+            return _real(op, *args, **kw)
+
+        monkeypatch.setattr(faults, "fire", fire)
+        with pytest.raises(cancelled):
+            frame.collect()
+        monkeypatch.setattr(faults, "fire", real_fire)
+        reg = tel.get_registry()
+        assert _gauges(reg) == [0, 0]
+        assert sched.replica_inflight() == {}
+        assert sched.replica_admitted_bytes() == {}

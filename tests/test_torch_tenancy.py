@@ -47,11 +47,12 @@ def _sales(P, d):
     return sess, str(data)
 
 
-def _finished_metrics(P, tag, tenant=None):
+def _finished_metrics(P, tag, tenant=None, replica=None):
     qm = P.telemetry.QueryMetrics(description=tag)
     op = qm.start_operator("Scan")
     qm.finish_operator(op, rows_out=5)
     qm.tenant = tenant
+    qm.replica = replica
     qm.finish()
     return qm
 
@@ -418,16 +419,25 @@ def test_snapshot_tenant_filter_cursor_stable_across_rotation(tmp_path):
         out += [again, cursor2 == cursor]
         for i in range(3, 10):
             rec.record(_finished_metrics(
-                P, f"q{i}", tenant=("acme" if i % 2 == 0 else "zen")))
+                P, f"q{i}", tenant=("acme" if i % 2 == 0 else "zen"),
+                replica=i % 2))
         fresh, cursor3 = rec.snapshot(cursor, tenant="acme")
         out += [[m.description for m in fresh], cursor3 - cursor]
+        # The filter composes with `replica=` (acme's entries all landed
+        # on replica 0), and the cursor stays global under it.
+        both_, bcur = rec.snapshot(cursor, tenant="acme", replica=0)
+        none, _ = rec.snapshot(cursor, tenant="acme", replica=1)
+        ones, _ = rec.snapshot(cursor, replica=1)
+        out += [[m.description for m in both_], bcur == cursor3, none,
+                [m.description for m in ones]]
         zen, zcur = rec.snapshot(cursor, tenant="zen")
         out += [[m.description for m in zen], zcur == cursor3]
         return out
 
     got = both(scenario, tmp_path)
     assert got["torch"] == got["jax"] == [
-        ["q0", "q2"], True, [], True, ["q6", "q8"], 7, ["q7", "q9"], True]
+        ["q0", "q2"], True, [], True, ["q6", "q8"], 7, ["q6", "q8"], True,
+        [], ["q7", "q9"], ["q7", "q9"], True]
 
 
 def test_flight_tenant_filter_e2e(tmp_path):
