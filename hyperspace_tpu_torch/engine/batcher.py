@@ -513,7 +513,7 @@ class QueryBatcher:
             else None
         t_wait0 = time.perf_counter()
         try:
-            with telemetry.span("serve.batch.member", "serve.batch"):
+            with telemetry.span("serve.batch.member", "serving"):
                 with self._cv:
                     while me.state == _WAITING:
                         try:
@@ -573,7 +573,7 @@ class QueryBatcher:
         faults.fire("batch.execute")
         reg = telemetry.get_registry()
         K = len(live)
-        with telemetry.span("serve.batch", "serve.batch", members=K):
+        with telemetry.span("serve.batch", "serving", members=K):
             scan_exec = ScanExec(sig.scan, list(sig.needed), conf=conf,
                                  shared_members=K)
             batch = scan_exec.execute()

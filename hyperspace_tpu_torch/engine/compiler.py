@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from hyperspace_tpu_torch import telemetry
 from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.io.columnar import ColumnBatch, DeviceColumn
 from hyperspace_tpu_torch.plan import expr as E
@@ -528,4 +529,6 @@ def apply_filter(batch: ColumnBatch, expression: E.Expression) -> ColumnBatch:
     mask = compile_predicate(expression, batch)
     if isinstance(mask, np.ndarray):
         return batch.take(np.nonzero(mask)[0].astype(np.int32))
-    return batch.take(torch.nonzero(mask).squeeze(1))
+    with telemetry.span("sync:filter.nonzero", "device_wait"):
+        idx = torch.nonzero(mask).squeeze(1)
+    return batch.take(idx)

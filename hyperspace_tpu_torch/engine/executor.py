@@ -3,7 +3,6 @@
 from __future__ import annotations
 
 import itertools
-import time
 import uuid
 from typing import Optional, Sequence
 
@@ -128,9 +127,9 @@ def execute_plan(plan: LogicalPlan,
     from hyperspace_tpu_torch import telemetry
 
     _resolve_scalar_subqueries(plan, conf)
-    t0 = time.perf_counter()
-    physical = compile_plan(plan, projection, conf)
-    telemetry.add_seconds("plan_s", time.perf_counter() - t0)
+    with telemetry.span("plan:physical", "plan") as sp:
+        physical = compile_plan(plan, projection, conf)
+    telemetry.add_seconds("plan_s", sp.wall_s)
     trace_dir = conf.trace_dir if conf is not None else None
     if not trace_dir:
         return physical.execute()
@@ -146,5 +145,6 @@ def execute_plan(plan: LogicalPlan,
         # closes (a host-lane result may still have used the card).
         import torch
         if torch.cuda.is_initialized():
-            torch.cuda.synchronize()
+            with telemetry.span("sync:capture", "device_wait"):
+                torch.cuda.synchronize()
     return out

@@ -42,7 +42,6 @@ from __future__ import annotations
 import itertools
 import json
 import threading
-import time
 import weakref
 from collections.abc import MutableMapping as _MutableMapping
 from typing import Dict, List, Optional, Sequence
@@ -739,6 +738,45 @@ class FusedStageExec(PhysicalNode):
         return self._execute_device(batches, preps)
 
     def _execute_device(self, batches, preps) -> Optional[ColumnBatch]:
+        with telemetry.span("fusion:prepare", "plan"):
+            prepared = self._prepare_device(batches, preps)
+        if prepared is None:
+            return None
+        prog, env, tables, ops, cache_hit = prepared
+        # Last checkpoint before committing to the stage's device work.
+        telemetry.check_deadline("stage")
+        try:
+            with telemetry.span("fusion:dispatch", "operators", ops=ops,
+                                cache_hit=cache_hit) as sp:
+                schema, base, lazy_specs, lazy_pairs, sel = _run_stage(
+                    prog, env, tables)
+        except _FusionIneligible as exc:
+            with _lock:
+                _INELIGIBLE_KEYS.add(prog.key)
+            telemetry.event("fusion", "lane", lane="eager",
+                            trigger=f"trace-ineligible ({exc})")
+            return None
+        _stat("dispatch_s", sp.wall_s)
+        # Span boundary of the stage dispatch: the working set (sources,
+        # broadcast tables, stage outputs) is device-resident here.
+        telemetry.memory.maybe_sample()
+        telemetry.event("fusion", "lane", lane="masked-device",
+                        trigger="device-resident sources")
+        idx = None
+        if sel is not None:
+            with telemetry.span("fusion:sync", "device_wait") as sp:
+                # THE stage sync: `nonzero` sizes its output on the host,
+                # so the selection count is its length — one wait.
+                idx = torch.nonzero(sel).squeeze(1)
+            _stat("sync_s", sp.wall_s)
+        with telemetry.span("fusion:finalize", "operators"):
+            return self._finalize(schema, base, lazy_specs, lazy_pairs,
+                                  idx, env)
+
+    def _prepare_device(self, batches, preps):
+        """The stage program and its trace-cache lookup: (program, env,
+        tables, ops, cache hit), or None when the key is known to be
+        ineligible."""
         key = self._program_key(batches, preps)
         ops = len(_region_nodes(self.root))
         with _lock:
@@ -774,34 +812,13 @@ class FusedStageExec(PhysicalNode):
             telemetry.memory.cache_hit("fusion_trace")
         telemetry.memory.cache_stats("fusion_trace", None, entries)
         telemetry.event("fusion", "trace-cache", hit=cache_hit, ops=ops)
-        # Last checkpoint before committing to the stage's device work.
-        telemetry.check_deadline("stage")
-        t0 = time.perf_counter()
-        try:
-            with telemetry.span("fusion:dispatch", "fusion", ops=ops,
-                                cache_hit=cache_hit):
-                schema, base, lazy_specs, lazy_pairs, sel = _run_stage(
-                    prog, env, tables)
-        except _FusionIneligible as exc:
-            with _lock:
-                _INELIGIBLE_KEYS.add(key)
-            telemetry.event("fusion", "lane", lane="eager",
-                            trigger=f"trace-ineligible ({exc})")
-            return None
-        _stat("dispatch_s", time.perf_counter() - t0)
-        # Span boundary of the stage dispatch: the working set (sources,
-        # broadcast tables, stage outputs) is device-resident here.
-        telemetry.memory.maybe_sample()
-        telemetry.event("fusion", "lane", lane="masked-device",
-                        trigger="device-resident sources")
-        idx = None
-        if sel is not None:
-            t0 = time.perf_counter()
-            with telemetry.span("fusion:sync", "fusion"):
-                # THE stage sync: `nonzero` sizes its output on the host,
-                # so the selection count is its length — one wait.
-                idx = torch.nonzero(sel).squeeze(1)
-            _stat("sync_s", time.perf_counter() - t0)
+        return prog, env, tables, ops, cache_hit
+
+    @staticmethod
+    def _finalize(schema, base, lazy_specs, lazy_pairs, idx, env):
+        """The stage's output: the compaction gather, then the deferred
+        build-side gathers."""
+        if idx is not None:
             base = base.take(idx)
         if not lazy_specs:
             return base

@@ -43,13 +43,20 @@ def _batch_rows(out) -> Optional[int]:
     return out.num_rows
 
 
+def _close_unrecorded(op, rows_out=None, error=None) -> None:
+    if rows_out is not None:
+        op.rows_out = rows_out
+    telemetry.trace.close_span(op, error)
+
+
 def _instrument(fn, bucketed: bool):
     """Wrap an execute/execute_bucketed implementation with the telemetry
-    operator hook: a per-query operator record (active recorder), a
-    trace span on the executing thread (active tracer) and the deadline
-    checkpoints at entry and exit. With none active, the cost is a few
-    ContextVar reads + one global read + None checks. Applied
-    automatically to every PhysicalNode subclass by
+    operator hook: one span of the `operators` layer per execution — on
+    the active query's recorder, or in the tracer's ring outside a query
+    while tracing is on — reading each clock once at each boundary, and
+    the deadline checkpoints at entry and exit. With neither active, the
+    cost is a few ContextVar reads + one global read + None checks.
+    Applied automatically to every PhysicalNode subclass by
     `PhysicalNode.__init_subclass__`."""
 
     @functools.wraps(fn)
@@ -66,31 +73,26 @@ def _instrument(fn, bucketed: bool):
         phase = "scan" if self.name == "Scan" else "operator"
         telemetry.check_deadline(phase)
         rec = telemetry.current()
-        tr = telemetry.tracer()
-        if rec is None and tr is None:
+        if rec is not None:
+            op = rec.start_operator(self.name, self, bucketed=bucketed)
+            finish = rec.finish_operator
+        elif telemetry.tracer() is not None:
+            op = telemetry.trace.open_span(self.name, "operators")
+            op.is_operator = True
+            op.bucketed = bucketed
+            finish = _close_unrecorded
+        else:
             out = fn(self, *args)
             telemetry.check_deadline(phase)
             return out
-        op = None
-        if rec is not None:
-            op = rec.start_operator(self.name, self, bucketed=bucketed)
-            if bucketed:
-                op.detail["num_buckets"] = args[0]
-        ts = tr.now_us() if tr is not None else 0.0
+        if bucketed:
+            op.detail["num_buckets"] = args[0]
         try:
             out = fn(self, *args)
         except BaseException as exc:
-            if tr is not None:
-                tr.complete(self.name, "operator", ts, tr.now_us() - ts,
-                            args={"error": repr(exc)})
-            if op is not None:
-                rec.finish_operator(op, error=repr(exc))
+            finish(op, error=repr(exc))
             raise
-        if tr is not None:
-            tr.complete(self.name, "operator", ts, tr.now_us() - ts,
-                        args={"rows": _batch_rows(out)})
-        if op is not None:
-            rec.finish_operator(op, rows_out=_batch_rows(out))
+        finish(op, rows_out=_batch_rows(out))
         # The mid-query cancellation point (see entry comment): the
         # operator's record is already closed cleanly — the QUERY
         # aborts before the parent consumes the result.
@@ -528,9 +530,12 @@ class FilterExec(PhysicalNode):
             torch.arange(num_buckets, device=mask.device),
             torch.from_numpy(lengths).to(mask.device),
             output_size=batch.num_rows)
-        new_lengths = torch.bincount(row_bucket[mask], minlength=num_buckets)
-        return (batch.take(torch.nonzero(mask).squeeze(1)),
-                new_lengths.cpu().numpy().astype(np.int64))
+        with telemetry.span("sync:filter.bucketed", "device_wait"):
+            new_lengths = torch.bincount(row_bucket[mask],
+                                         minlength=num_buckets)
+            idx = torch.nonzero(mask).squeeze(1)
+            new_lengths = new_lengths.cpu().numpy().astype(np.int64)
+        return batch.take(idx), new_lengths
 
     def execute_sharded(self, num_buckets: int, mesh, align_plan=None):
         """Filter keeps the sharded layout: rows never move, the mask
@@ -687,7 +692,9 @@ class ExchangeExec(PhysicalNode):
             ids = hash_lanes_to_buckets(lanes, self.num_partitions)
             lengths = torch.bincount(ids, minlength=self.num_partitions)
         perm = torch.sort(ids, stable=True).indices
-        return batch.take(perm), lengths.cpu().numpy().astype(np.int64)
+        with telemetry.span("sync:exchange.lengths", "device_wait"):
+            lengths = lengths.cpu().numpy().astype(np.int64)
+        return batch.take(perm), lengths
 
     def execute_partitioned(self):
         """(batch grouped by partition id, per-partition lengths)."""

@@ -1096,8 +1096,10 @@ class QueryScheduler:
         except Exception:
             logger.debug("replica routing skipped", exc_info=True)
         description = ", ".join(df.schema.names[:6])
-        metrics = telemetry.QueryMetrics(description=description)
-        metrics.query_id = query_id  # cancel/log correlation handle
+        # The query id is the cancel/log correlation handle and the id
+        # every span of the query carries.
+        metrics = telemetry.QueryMetrics(description=description,
+                                         query_id=query_id)
         # Routed-replica dimension: flight-ring consumers (/healthz's
         # by-replica grouping) group entries by the slice that served
         # them; None = unrouted.
@@ -1118,26 +1120,28 @@ class QueryScheduler:
         reg = telemetry.get_registry()
         try:
             try:
-                t_admit0 = time.perf_counter()
-                wait_s = self._admit(ent, conf)
+                # The span places admission on the timeline; its
+                # seconds are timed on the monotonic clock, as the queue
+                # wait inside it is.
+                t_admit0 = time.perf_counter_ns()
+                with metrics.span("serve:admit", "serving"):
+                    wait_s = self._admit(ent, conf)
+                admit_s = (time.perf_counter_ns() - t_admit0) / 1e9
                 # Critical-path sources: the recorder's wall started at
                 # construction (before admission), so queue wait and the
                 # admission bookkeeping around it are genuine wall
                 # segments — stamp both as per-query counters for
                 # `telemetry/critical_path.py` to classify.
                 metrics.add_seconds("serve.queue_wait_s", wait_s)
-                metrics.add_seconds(
-                    "serve.admission_s",
-                    max(time.perf_counter() - t_admit0 - wait_s, 0.0))
+                metrics.add_seconds("serve.admission_s",
+                                    max(admit_s - wait_s, 0.0))
             except QueryServingError as exc:
                 self._record_serving_error(exc, None, conf)
                 raise
             try:
                 with telemetry.recording(metrics), \
                         telemetry.deadline_scope(deadline), \
-                        telemetry.tenant_scope(eff_tenant), \
-                        telemetry.span("query", "query",
-                                       description=description):
+                        telemetry.tenant_scope(eff_tenant):
                     metrics.event("serve", "admitted",
                                   query_id=query_id,
                                   footprint_bytes=ent.footprint,
@@ -1217,7 +1221,8 @@ class QueryScheduler:
                         # warm filters feel. Never a walk of the CPU
                         # lane's live tensors per query.
                         telemetry.memory.maybe_sample()
-                    table = to_arrow(batch)
+                    with telemetry.span("result:to_arrow", "link"):
+                        table = to_arrow(batch)
             except QueryServingError as exc:
                 self._record_serving_error(exc, metrics, conf)
                 raise
@@ -1229,6 +1234,16 @@ class QueryScheduler:
         finally:
             self._release(ent)
         metrics.finish()
+        # The bookkeeping below runs after the recorder has finished: it
+        # is timed here into the `telemetry` layer of the span fold.
+        # Its CPU is read on the queries that sample the CPU clock.
+        sampled = metrics.cpu_sampled
+        t_wall0 = time.perf_counter_ns()
+        t_cpu0 = time.thread_time_ns() if sampled else 0
+        try:
+            telemetry.trace.fold(metrics, reg)
+        except Exception:
+            logger.debug("span fold failed", exc_info=True)
         # Latency anatomy: decompose the finished wall into the closed
         # segment set and stamp it on the recorder BEFORE the flight
         # ring sees it, so ring entries and slow-query dumps carry
@@ -1281,6 +1296,9 @@ class QueryScheduler:
         telemetry.flight.record(metrics, conf=conf)
         if session is not None:
             session._last_query_metrics = metrics
+        telemetry.trace.add_layer_time(
+            "telemetry", time.perf_counter_ns() - t_wall0,
+            time.thread_time_ns() - t_cpu0 if sampled else 0, reg)
         return table, metrics
 
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 import os
 from typing import List, Optional
 
+from hyperspace_tpu_torch import telemetry
 from hyperspace_tpu_torch._torch_config import (DeviceLike, device_of,
                                                resolve_device)
 from hyperspace_tpu_torch.config import HyperspaceConf
@@ -232,8 +233,13 @@ class HyperspaceSession:
         return self._hyperspace_enabled
 
     def optimize(self, plan: LogicalPlan) -> LogicalPlan:
+        with telemetry.span("optimize", "rules"):
+            return self._optimize(plan)
+
+    def _optimize(self, plan: LogicalPlan) -> LogicalPlan:
         for rule in self._rules:
-            plan = rule.apply(plan)
+            with telemetry.span(type(rule).__name__, "rules"):
+                plan = rule.apply(plan)
         # Scalar subqueries embedded in expressions carry their own
         # plans; the rules rewrite those too (Spark applies the optimizer
         # to subquery plans the same way). The rewrite lands in a

@@ -26,6 +26,7 @@ import torch
 
 from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.plan.schema import Field as SchemaField, Schema
+from hyperspace_tpu_torch.telemetry import span as _span
 from hyperspace_tpu_torch.telemetry.compilation import instrumented_device
 
 _NUMERIC_NP = {
@@ -74,8 +75,10 @@ def _split_hashes(hashes: np.ndarray,
     lo = (hashes & np.uint64(0xFFFFFFFF)).astype(np.uint32)
     if device is None:
         return hi, lo
-    return (torch.from_numpy(hi.astype(np.int64)).to(device),
-            torch.from_numpy(lo.astype(np.int64)).to(device))
+    # Copies from pageable memory: the host waits for the card's stream.
+    with _span("sync:columnar.hashes_h2d", "device_wait"):
+        return (torch.from_numpy(hi.astype(np.int64)).to(device),
+                torch.from_numpy(lo.astype(np.int64)).to(device))
 
 
 def _to_device(arr: Optional[np.ndarray], device: torch.device):
@@ -358,7 +361,8 @@ def from_arrow(table, schema: Optional[Schema] = None,
 def _to_numpy(arr) -> Optional[np.ndarray]:
     if arr is None or isinstance(arr, np.ndarray):
         return arr
-    return arr.cpu().numpy()
+    with _span("sync:columnar.to_host", "device_wait"):
+        return arr.cpu().numpy()
 
 
 def _fetch_columns(batch: ColumnBatch):

@@ -529,7 +529,7 @@ class SegmentCache:
         # This thread is the filler.
         _mem.cache_miss("segments")
         try:
-            with telemetry.span("segcache.fill", "cache",
+            with telemetry.span("segcache.fill", "segcache",
                                 index=(ref.index_name if ref else None),
                                 files=len(paths)):
                 telemetry.get_registry().counter(
@@ -598,7 +598,7 @@ class SegmentCache:
 
         _mem.cache_miss("segments")
         try:
-            with telemetry.span("segcache.fill", "cache",
+            with telemetry.span("segcache.fill", "segcache",
                                 index=(ref.index_name if ref else None)):
                 telemetry.get_registry().counter(
                     "cache.segments.fills").inc()

@@ -359,14 +359,15 @@ class TransferEngine:
                     return
                 ent = self._window.popleft()
                 self.stats["window_waits"] += 1
+            from hyperspace_tpu_torch import telemetry
             try:
-                self._wait_entry_ready(ent, t_end)
+                with telemetry.span("sync:h2d.window", "device_wait"):
+                    self._wait_entry_ready(ent, t_end)
             except TransferAcquireTimeoutError:
                 with self._lock:
                     # Still outstanding: its bytes stay accounted, back
                     # at the window head.
                     self._window.appendleft(ent)
-                from hyperspace_tpu_torch import telemetry
                 telemetry.get_registry().counter(
                     "io.transfer.acquire_timeouts").inc()
                 raise
@@ -587,15 +588,11 @@ class TransferEngine:
         if isinstance(device, Mesh):
             return self._put_sharded(arr, device)
         timings = {"convert_s": 0.0, "put_s": 0.0, "chunks": 0}
-        t = telemetry.tracer()
-        ts = t.now_us() if t is not None else None
-        t0 = time.perf_counter()
-        dev = self._put_entry(arr, device, timings)
+        with telemetry.link_transfer("h2d", int(arr.nbytes)) as link:
+            dev = self._put_entry(arr, device, timings)
+            link["chunks"] = timings["chunks"]
         with self._lock:
             self.stats["puts"] += 1
-        telemetry.record_link_transfer("h2d", int(arr.nbytes),
-                                       time.perf_counter() - t0, ts_us=ts,
-                                       chunks=timings["chunks"])
         self._sweep()
         return dev
 
@@ -614,20 +611,16 @@ class TransferEngine:
                              "equal shards; pad first")
         local = rows // n_shards
         timings = {"convert_s": 0.0, "put_s": 0.0, "chunks": 0}
-        t = telemetry.tracer()
-        ts = t.now_us() if t is not None else None
-        t0 = time.perf_counter()
         parts = []
-        for s, dev in enumerate(mesh.devices):
-            lo, hi = s * local, (s + 1) * local
-            piece = (HostCast(arr.src[lo:hi], arr.dtype)
-                     if isinstance(arr, HostCast) else arr[lo:hi])
-            parts.append(self._put_entry(piece, dev, timings))
+        with telemetry.link_transfer("h2d", int(arr.nbytes)) as link:
+            for s, dev in enumerate(mesh.devices):
+                lo, hi = s * local, (s + 1) * local
+                piece = (HostCast(arr.src[lo:hi], arr.dtype)
+                         if isinstance(arr, HostCast) else arr[lo:hi])
+                parts.append(self._put_entry(piece, dev, timings))
+            link["chunks"] = max(timings["chunks"], 1)
         with self._lock:
             self.stats["puts"] += 1
-        telemetry.record_link_transfer("h2d", int(arr.nbytes),
-                                       time.perf_counter() - t0, ts_us=ts,
-                                       chunks=max(timings["chunks"], 1))
         self._sweep()
         return parts
 
@@ -638,16 +631,12 @@ class TransferEngine:
 
         if not isinstance(arr, HostCast):
             arr = np.asarray(arr)
-        t = telemetry.tracer()
-        ts = t.now_us() if t is not None else None
         timings = {"convert_s": 0.0, "put_s": 0.0, "chunks": 0}
-        t0 = time.perf_counter()
-        parts = tuple(self._put_parts(arr, device, timings)[0])
+        with telemetry.link_transfer("h2d", int(arr.nbytes)) as link:
+            parts = tuple(self._put_parts(arr, device, timings)[0])
+            link["chunks"] = len(parts)
         with self._lock:
             self.stats["puts"] += 1
-        telemetry.record_link_transfer("h2d", int(arr.nbytes),
-                                       time.perf_counter() - t0,
-                                       ts_us=ts, chunks=len(parts))
         self._sweep()
         return parts
 
@@ -674,8 +663,6 @@ class TransferEngine:
         from hyperspace_tpu_torch import telemetry
         pool = self._staging_pool()
         phase = f"transfer.{tag}" if tag else "transfer"
-        t = telemetry.tracer()
-        ts = t.now_us() if t is not None else None
         t0 = time.perf_counter()
 
         def timed(job):
@@ -688,23 +675,27 @@ class TransferEngine:
         decode_s = 0.0
         total_bytes = 0
         results: List[dict] = []
-        for fut in futs:
-            # Per-column checkpoint: remaining decodes still run on the
-            # pool (futures are not revoked) but their results are
-            # plain host arrays — nothing device-side leaks.
-            telemetry.check_deadline(phase)
-            produced, job_s = fut.result()
-            decode_s += job_s
-            placed = {}
-            for key, value in produced.items():
-                if isinstance(value, Host):
-                    placed[key] = value.value
-                elif isinstance(value, (np.ndarray, HostCast)):
-                    total_bytes += int(value.nbytes)
-                    placed[key] = self._put_entry(value, device, timings)
-                else:
-                    placed[key] = value
-            results.append(placed)
+        with telemetry.link_transfer("h2d") as link:
+            for fut in futs:
+                # Per-column checkpoint: remaining decodes still run on
+                # the pool (futures are not revoked) but their results
+                # are plain host arrays — nothing device-side leaks.
+                telemetry.check_deadline(phase)
+                produced, job_s = fut.result()
+                decode_s += job_s
+                placed = {}
+                for key, value in produced.items():
+                    if isinstance(value, Host):
+                        placed[key] = value.value
+                    elif isinstance(value, (np.ndarray, HostCast)):
+                        total_bytes += int(value.nbytes)
+                        placed[key] = self._put_entry(value, device,
+                                                      timings)
+                    else:
+                        placed[key] = value
+                results.append(placed)
+            link["bytes"] = total_bytes or None
+            link["chunks"] = max(timings["chunks"], 1)
         wall = time.perf_counter() - t0
         serial_s = decode_s + timings["convert_s"] + timings["put_s"]
         saved = max(serial_s - wall, 0.0)
@@ -718,9 +709,6 @@ class TransferEngine:
                 reg.counter(f"transfer.{tag}.seconds").inc(wall)
                 reg.counter(f"transfer.{tag}.chunks").inc(
                     max(timings["chunks"], 1))
-            telemetry.record_link_transfer("h2d", total_bytes, wall,
-                                           ts_us=ts,
-                                           chunks=max(timings["chunks"], 1))
         self._sweep()
         return results
 
@@ -783,9 +771,11 @@ class TransferEngine:
             if landed is not None:
                 host, event = landed
                 del arr._hs_prefetch
-                event.synchronize()
+                with telemetry.span("sync:d2h.landed", "device_wait"):
+                    event.synchronize()
                 return host.numpy()
-            return arr.cpu().numpy()
+            with telemetry.span("sync:d2h.copy", "device_wait"):
+                return arr.cpu().numpy()
 
     def _prefetch_one(self, arr) -> None:
         if not isinstance(arr, torch.Tensor) or arr.device.type != "cuda":

@@ -25,6 +25,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
+from hyperspace_tpu_torch import telemetry
 from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.io.columnar import (HOST_NP_DTYPES, ColumnBatch,
                                               DeviceColumn)
@@ -157,15 +158,19 @@ def group_aggregate(batch: ColumnBatch, group_columns: Sequence[str],
             operands.extend(column_sort_lanes(batch.column(name)))
         if len(operands) >= HASH_GROUP_MIN_LANES:
             perm, segment_ids, packed = _group_phase_a_hashed(operands)
-            packed = int(packed)  # the one host sync
+            with telemetry.span("sync:aggregate.groups", "device_wait"):
+                packed = int(packed)  # the one host sync
             if packed & 1:  # a hash collision split a group: exact re-run
                 perm, segment_ids = _group_phase_a(operands)
-                num_groups = int(segment_ids[-1]) + 1
+                with telemetry.span("sync:aggregate.groups",
+                                    "device_wait"):
+                    num_groups = int(segment_ids[-1]) + 1
             else:
                 num_groups = (packed >> 1) + 1
         else:
             perm, segment_ids = _group_phase_a(operands)
-            num_groups = int(segment_ids[-1]) + 1  # the one host sync
+            with telemetry.span("sync:aggregate.groups", "device_wait"):
+                num_groups = int(segment_ids[-1]) + 1  # the one host sync
         sorted_batch = batch.take(perm)
         # The representative row (first of each segment) carries the keys.
         firsts = torch.searchsorted(
@@ -175,7 +180,9 @@ def group_aggregate(batch: ColumnBatch, group_columns: Sequence[str],
         num_groups = 1
         sorted_batch = batch
         firsts = torch.zeros(1, dtype=torch.int64, device=device)
-    rows_per_group = torch.bincount(segment_ids, minlength=num_groups)
+    # bincount sizes its output from the ids' maximum: a host read.
+    with telemetry.span("sync:aggregate.bincount", "device_wait"):
+        rows_per_group = torch.bincount(segment_ids, minlength=num_groups)
 
     columns: Dict[str, DeviceColumn] = {}
     for name in group_columns:

@@ -32,6 +32,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from hyperspace_tpu_torch import telemetry
 from hyperspace_tpu_torch.io.columnar import ColumnBatch
 
 # Integer-family dtypes whose values join by exact integer identity
@@ -46,7 +47,10 @@ _MAX_TABLE = 1 << 24
 
 
 def _numpy(a):
-    return a if isinstance(a, np.ndarray) else a.cpu().numpy()
+    if isinstance(a, np.ndarray):
+        return a
+    with telemetry.span("sync:bhj.to_host", "device_wait"):
+        return a.cpu().numpy()
 
 
 def _int_key_arrays(batch: ColumnBatch, keys: Sequence[str], to_numpy: bool):
@@ -144,8 +148,12 @@ def _probe_lookup(probe: ColumnBatch, probe_keys: Sequence[str], table,
     device = probe.device
     # A fused stage passes the table already on the device
     # (`engine/fusion._to_device`); the eager join passes the host table.
-    table_t = (table if isinstance(table, torch.Tensor)
-               else torch.from_numpy(table).to(device))
+    if isinstance(table, torch.Tensor):
+        table_t = table
+    else:
+        # A copy from pageable memory: the host waits for the stream.
+        with telemetry.span("sync:bhj.table_h2d", "device_wait"):
+            table_t = torch.from_numpy(table).to(device)
     ok = (torch.ones(n, dtype=torch.bool, device=device) if valid is None
           else valid)
     idx = torch.zeros(n, dtype=torch.int64, device=device)
@@ -181,7 +189,8 @@ def broadcast_join_indices(probe: ColumnBatch, build: ColumnBatch,
         return li, hit[li]
     if how == "left_outer":
         return torch.arange(n, dtype=torch.int64, device=hit.device), hit
-    li = torch.nonzero(matched).squeeze(1)
+    with telemetry.span("sync:bhj.nonzero", "device_wait"):
+        li = torch.nonzero(matched).squeeze(1)
     return li, hit[li]
 
 

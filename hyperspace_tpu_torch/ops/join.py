@@ -25,6 +25,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from hyperspace_tpu_torch import telemetry
 from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.io.columnar import ColumnBatch
 
@@ -182,7 +183,9 @@ def _match_lanes(lanes_l, lanes_r, left_outer: bool):
 def _packed_sync(value: torch.Tensor, collision: torch.Tensor):
     """ONE device read carrying (sizing value, collision flag): returns
     (int value, collided). `value` must be an int64 scalar tensor."""
-    packed = int(value * 2 + collision.to(torch.int64))
+    packed = value * 2 + collision.to(torch.int64)
+    with telemetry.span("sync:join.packed", "device_wait"):
+        packed = int(packed)
     return packed >> 1, bool(packed & 1)
 
 
@@ -213,7 +216,9 @@ def counting_join_batch_indices(left: ColumnBatch, right: ColumnBatch,
     counts, starts, rights, rstart, orig_s, collision = _match_lanes(
         lanes_l, lanes_r, left_outer)
     if collision is None:
-        total = int(counts.sum())  # the one host sync
+        total = counts.sum()
+        with telemetry.span("sync:join.total", "device_wait"):
+            total = int(total)  # the one host sync
     else:
         total, collided = _packed_sync(counts.sum(), collision)
         if collided:
@@ -298,7 +303,9 @@ def semi_anti_indices(left: ColumnBatch, right: ColumnBatch,
         is_left = counts > 0
         hit = (rights == 0) if anti else (rights > 0)
         mask = torch.zeros(left.num_rows, dtype=torch.bool, device=device)
-        mask[orig_s[is_left]] = hit[is_left]
+        # Boolean indexing sizes its result on the host.
+        with telemetry.span("sync:join.membership", "device_wait"):
+            mask[orig_s[is_left]] = hit[is_left]
         return mask
 
     counts, _starts, rights, _rstart, orig_s, collision = _match_lanes(
@@ -310,7 +317,8 @@ def semi_anti_indices(left: ColumnBatch, right: ColumnBatch,
             counts, _starts, rights, _rstart, orig_s = \
                 _counting_match_lanes(lanes_l, lanes_r, True)
             mask = membership_mask(counts, rights, orig_s)
-    return torch.nonzero(mask).squeeze(1)
+    with telemetry.span("sync:join.nonzero", "device_wait"):
+        return torch.nonzero(mask).squeeze(1)
 
 
 def _cat_pair(li, ri, extra):

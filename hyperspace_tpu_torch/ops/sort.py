@@ -22,6 +22,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from hyperspace_tpu_torch import telemetry
 from hyperspace_tpu_torch.io.columnar import ColumnBatch, batch_to_host
 from hyperspace_tpu_torch.ops.keys import MASK32
 from hyperspace_tpu_torch.telemetry.compilation import instrumented_device
@@ -157,13 +158,15 @@ def topk_batch(batch: ColumnBatch, by: Sequence[str], n: int) -> ColumnBatch:
     if len(operands) > 1:
         prefix = prefix | _as_u32(operands[1])
     mask, count_dev = _topk_threshold(prefix, n)
-    count = int(count_dev)  # the one sizing sync
+    with telemetry.span("sync:topk.count", "device_wait"):
+        count = int(count_dev)  # the one sizing sync
     if count > max(TOPK_CANDIDATE_CAP, 4 * n):
-        from hyperspace_tpu_torch import telemetry
         telemetry.event("topk", "candidate-cap-fallback",
                         candidates=count, n=n, rows=batch.num_rows,
                         residency="device")
         full = sort_batch(batch, by)
         return full.take(torch.arange(n, device=batch.device))
-    cand = batch_to_host(batch.take(torch.nonzero(mask).squeeze(1)))
+    with telemetry.span("sync:topk.nonzero", "device_wait"):
+        idx = torch.nonzero(mask).squeeze(1)
+    cand = batch_to_host(batch.take(idx))
     return cand.take(sort_permutation(cand, by)[:n])

@@ -191,7 +191,7 @@ def distributed_build(batch: ColumnBatch, key_columns: Sequence[str],
     shards, valids = shard_batch(batch, mesh)
     trees = [batch_to_tree(shard)[0] for shard in shards]
     tracer = telemetry.tracer()
-    span_ts = tracer.now_us() if tracer is not None else 0.0
+    span_ts = time.time_ns() if tracer is not None else 0
     t0 = time.perf_counter()
     with telemetry.span("mesh:build:dispatch", "mesh", shards=n_shards,
                         rows=n, capacity_factor=capacity_factor):

@@ -1195,7 +1195,7 @@ def _run_join(left: ShardedBatch, right: ShardedBatch,
     left_outer = how in ("left_outer", "full_outer")
     reg = telemetry.get_registry()
     tracer = telemetry.tracer()
-    span_ts = tracer.now_us() if tracer is not None else 0.0
+    span_ts = time.time_ns() if tracer is not None else 0
     with dispatch_guard(mesh), telemetry.span(
             "mesh:join:spmd", "mesh", how=how, shards=S):
         l_in, r_in, route_s = _join_inputs(left, right, left_keys,

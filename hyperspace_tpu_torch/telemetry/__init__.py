@@ -7,17 +7,23 @@ metrics for its tuning story. This package is the engine's runtime half
 of that: ONE `QueryMetrics` recorder is threaded through a query
 execution end-to-end and returned to the user, capturing
 
-- per-physical-operator wall time and output row counts (the executor's
-  operator walk, instrumented in `engine/physical.py`);
+- the query's span tree (`telemetry/trace.py`): one span record per
+  layer boundary — the `query` root, admission, the optimizer's rules,
+  physical planning, each physical operator (with its output row
+  count; the executor's operator walk, instrumented in
+  `engine/physical.py`), fused stages' phases, segment-cache fills,
+  link transfers and every wait of the host on the card — each with
+  its ids, thread, `time.time_ns()` interval and thread CPU, folded
+  per layer into the registry's `trace.*` counters at query finish;
 - structured decision events: optimizer rule fired/skipped with reason
   (`plan/rules/*`);
 - index usage: which covering index served which scan, bucket counts,
   files scanned vs pruned (`plan/rules/*` + `ScanExec`).
 
 Scoping: the active recorder is a `contextvars.ContextVar`, so
-concurrent sessions (or threads) never see each other's metrics. When no
-recorder is active every hook is a single ContextVar read + None check —
-the always-off cost on hot paths.
+concurrent sessions (or threads) never see each other's metrics. The
+serving plane records every `collect`; without a recorder (or tracer)
+every operator hook is a single ContextVar read + None check.
 
 Surface: `DataFrame.collect(with_metrics=True)` returns the recorder
 next to the result; `session.last_query_metrics()` returns the most
@@ -26,12 +32,13 @@ recent one; `to_json()` / `format_tree()` render reports.
 Process-wide observability rides in sibling modules re-exported here,
 the JAX package's set under its names: `registry` (named counters/
 gauges/log-bucketed histograms aggregating across queries and sessions;
-Prometheus text dump), `trace` (span tracer with Chrome trace-event /
-Perfetto export — `enable_tracing()` then `export_trace(path)` — and the
-host<->device link counters), `memory` (the device-memory accountant
-and the `cache.<name>.*` series), `compilation` (the compile and launch
-seam: library builds as `compile.*`, device seconds from CUDA events and
-modeled cost as `device.*`), `critical_path` (each query's wall
+Prometheus text dump), `trace` (the span record, the fold, and the
+tracer with Chrome trace-event / Perfetto export — `enable_tracing()`
+then `export_trace(path)` — and the host<->device link counters),
+`memory` (the device-memory accountant and the `cache.<name>.*`
+series), `compilation` (the compile and launch seam: library builds as
+`compile.*`, device seconds from CUDA events and modeled cost as
+`device.*`), `critical_path` (each query's wall
 decomposed into a closed segment set), `flight` (the ring of recent
 queries and the slow-query dump), `artifact` and `diff` (the canonical
 bench artifact and the regression differ), `timeseries`, `alerts`,
@@ -44,16 +51,17 @@ deadline rides the same contextvar scoping as the recorder
 from __future__ import annotations
 
 import contextvars
-import itertools
 import json
 import threading
 import time
 from contextlib import contextmanager
 from typing import Dict, List, Optional
 
+from hyperspace_tpu_torch.telemetry import trace as _trace_mod
 from hyperspace_tpu_torch.telemetry.registry import (MetricsRegistry,
                                                      get_registry)
-from hyperspace_tpu_torch.telemetry.trace import (Tracer, disable_tracing,
+from hyperspace_tpu_torch.telemetry.trace import (Span, Tracer,
+                                                  disable_tracing,
                                                   enable_tracing,
                                                   export_trace,
                                                   link_transfer,
@@ -75,7 +83,7 @@ from hyperspace_tpu_torch.telemetry.memory import (DeviceMemoryAccountant,
                                                    get_accountant)
 
 __all__ = [
-    "QueryMetrics", "OperatorRecord", "current", "recording",
+    "QueryMetrics", "OperatorRecord", "Span", "current", "recording",
     "current_deadline", "deadline_scope", "check_deadline",
     "propagating", "event", "annotate", "add_seconds", "add_count",
     "DEFAULT_TENANT", "current_tenant", "tenant_scope", "charge_tenant",
@@ -91,7 +99,7 @@ __all__ = [
 
 
 _current: contextvars.ContextVar[Optional["QueryMetrics"]] = \
-    contextvars.ContextVar("hyperspace_query_metrics", default=None)
+    _trace_mod.current_recorder
 
 # The active query's Deadline (`engine/scheduler.Deadline`) rides the
 # SAME contextvar scoping as the recorder: set by the scheduler around
@@ -243,16 +251,17 @@ def charge_tenant(name: str, amount: float = 1.0,
 def propagating(fn):
     """Wrap `fn` for execution on another thread (the engine's pools),
     carrying over the active recorder, the caller's position in the
-    operator tree and the active tenant — contextvars do not cross
-    thread boundaries on their own. The active Deadline rides along
-    too: a cancelled query's pool-side subtree hits the same
+    span tree (the spans the pool thread opens are children of the
+    caller's innermost open span) and the active tenant — contextvars
+    do not cross thread boundaries on their own. The active Deadline
+    rides along too: a cancelled query's pool-side subtree hits the same
     cooperative checkpoints its main thread does."""
     rec = _current.get()
     deadline = _deadline.get()
     tenant = _tenant.get()
     if rec is None and deadline is None and tenant is None:
         return fn
-    parent = rec._current_op_id() if rec is not None else None
+    parent = rec._current_span_id() if rec is not None else None
 
     def run(*args, **kwargs):
         token = _current.set(rec)
@@ -312,71 +321,52 @@ def _fmt_bytes(n: int) -> str:
     return f"{n}B"
 
 
-class OperatorRecord:
-    """One physical operator execution: identity, tree position, wall
-    time, and output rows. `rows_out` for device batches is the static
-    shape (no sync is forced to report it); `wall_s` on the device lane
-    measures dispatch-side time unless the operator itself syncs.
+# A physical operator's record is a span of the `operators` layer (the
+# name stays for the callers that hold one).
+OperatorRecord = Span
 
-    The display label (`simple_string()` of the node) is resolved
-    LAZILY — at query finish or first report — so the per-operator
-    recording cost on the execute hot path stays at two perf_counter
-    reads plus an append."""
+_time_ns = time.time_ns
+_thread_time_ns = time.thread_time_ns
 
-    __slots__ = ("op_id", "parent_id", "name", "bucketed",
-                 "wall_s", "rows_out", "detail", "error", "_t0",
-                 "_node", "_label")
 
-    def __init__(self, op_id: int, parent_id: Optional[int], name: str,
-                 node, bucketed: bool):
-        self.op_id = op_id
-        self.parent_id = parent_id
-        self.name = name
-        self.bucketed = bucketed
-        self.wall_s = 0.0
-        self.rows_out: Optional[int] = None
-        self.detail: Dict = {}
-        self.error: Optional[str] = None
-        self._node = node
-        self._label: Optional[str] = None
-        self._t0 = time.perf_counter()
+class _ThreadSpans:
+    """One thread's share of a recorder: its stack of open spans, its
+    native id, and the parent its first span adopts (`propagating`)."""
 
-    @property
-    def label(self) -> str:
-        if self._label is None:
-            node, self._node = self._node, None
-            if node is None:
-                self._label = self.name
-            else:
-                try:
-                    self._label = node.simple_string()
-                except Exception:
-                    self._label = self.name
-        return self._label
+    __slots__ = ("stack", "tid", "adopted")
 
-    def to_dict(self) -> dict:
-        d = {"op_id": self.op_id, "parent_id": self.parent_id,
-             "name": self.name, "label": self.label,
-             "wall_s": round(self.wall_s, 6), "rows_out": self.rows_out}
-        if self.bucketed:
-            d["bucketed"] = True
-        if self.detail:
-            d["detail"] = dict(self.detail)
-        if self.error is not None:
-            d["error"] = self.error
-        return d
+    def __init__(self):
+        self.stack: List[Span] = []
+        self.tid = _trace_mod.native_id()
+        self.adopted: Optional[int] = None
 
 
 class QueryMetrics:
     """Everything recorded about ONE query execution. Thread-safe for
-    append (operators may execute on pool threads); the per-thread
-    operator stack lives in a threading.local so concurrent subtree
+    append (operators may execute on pool threads); each thread's stack
+    of open spans lives in a threading.local so concurrent subtree
     executions keep their own parent chains."""
 
-    def __init__(self, description: str = ""):
+    def __init__(self, description: str = "",
+                 query_id: Optional[str] = None):
         self.description = description
         self.started_at = time.time()
         self.wall_s: Optional[float] = None
+        # Whether this query reads the thread-CPU clock (one in
+        # `trace.CPU_SAMPLE_EVERY`).
+        self.cpu_sampled = (next(_trace_mod._cpu_tickets)
+                            % _trace_mod.CPU_SAMPLE_EVERY == 0)
+        # The root span `query` opens with the recorder and closes in
+        # `finish()`; every span of the query (operators included) is in
+        # `spans`, the physical operators also in `operators`.
+        self.root = Span("query", "serving", None, None,
+                         _trace_mod.native_id(), self.cpu_sampled)
+        self.query_id = query_id or f"query-{self.root.span_id}"
+        self.root.query_id = self.query_id
+        self.spans: List[Span] = [self.root]
+        # The wall is timed on the monotonic clock (`time.time_ns()`
+        # only places the spans on the timeline and may step).
+        self._wall_t0_ns = time.perf_counter_ns()
         self.operators: List[OperatorRecord] = []
         self.events: List[dict] = []
         self.counters: Dict[str, float] = {}
@@ -402,63 +392,110 @@ class QueryMetrics:
         # py`), resolved into `device.dispatch_s` by `finish()`.
         self._device_events: list = []
         self._lock = threading.Lock()
-        self._ids = itertools.count()
         self._tls = threading.local()
-        self._t0 = time.perf_counter()
 
     # -- recorder side (engine hooks) ----------------------------------
 
-    def _stack(self) -> list:
-        stack = getattr(self._tls, "stack", None)
-        if stack is None:
-            stack = []
-            self._tls.stack = stack
-        return stack
+    def _thread(self) -> "_ThreadSpans":
+        state = getattr(self._tls, "state", None)
+        if state is None:
+            state = self._tls.state = _ThreadSpans()
+        return state
 
-
-    def _current_op_id(self) -> Optional[int]:
-        stack = self._stack()
-        return stack[-1].op_id if stack else None
+    def _current_span_id(self) -> int:
+        """The innermost open span on this thread: the parent of the
+        next span it opens (the adopted parent on a pool thread, the
+        root when none is open)."""
+        state = self._thread()
+        if state.stack:
+            return state.stack[-1].span_id
+        return (state.adopted if state.adopted is not None
+                else self.root.span_id)
 
     def _adopt_parent(self, parent_id: Optional[int]) -> None:
-        """Root this worker thread's operator chain under `parent_id`
+        """Root this worker thread's span chain under `parent_id`
         (see `propagating`)."""
-        self._tls.adopted = parent_id
+        self._thread().adopted = parent_id
 
     def _clear_adoption(self) -> None:
-        self._tls.adopted = None
+        self._thread().adopted = None
+
+    def start_span(self, name: str, layer: str) -> Span:
+        """Open a span on this thread, under its innermost open one.
+        list.append and the id counter are atomic under the GIL — the
+        hot path takes no lock."""
+        state = getattr(self._tls, "state", None)
+        if state is None:
+            state = self._tls.state = _ThreadSpans()
+        stack = state.stack
+        if stack:
+            top = stack[-1]
+            sp = Span(name, layer, top.span_id, self.query_id, state.tid,
+                      self.cpu_sampled and top.layer != layer)
+        else:
+            adopted = state.adopted
+            sp = Span(name, layer,
+                      adopted if adopted is not None else self.root.span_id,
+                      self.query_id, state.tid, self.cpu_sampled)
+        self.spans.append(sp)
+        stack.append(sp)
+        return sp
+
+    def finish_span(self, sp: Span, error: Optional[str] = None) -> None:
+        sp.end_ns = _time_ns()
+        if sp.cpu_start_ns is not None:
+            sp.cpu_end_ns = _thread_time_ns()
+        if error is not None:
+            sp.error = error
+        stack = self._tls.state.stack
+        if stack and stack[-1] is sp:
+            stack.pop()
+        else:
+            _trace_mod._pop(stack, sp)
+        t = _trace_mod._tracer
+        if t is not None:
+            t.add(sp)
+
+    def span(self, name: str, layer: str, **detail):
+        """`start_span` ... `finish_span` around a `with` block."""
+        return _trace_mod._SpanScope(name, layer, detail, self)
 
     def start_operator(self, name: str, node=None,
                        bucketed: bool = False) -> OperatorRecord:
-        stack = self._stack()
-        parent = (stack[-1].op_id if stack
-                  else getattr(self._tls, "adopted", None))
-        # next() on itertools.count and list.append are both atomic
-        # under the GIL — the hot path takes no lock.
-        op = OperatorRecord(next(self._ids), parent, name, node, bucketed)
+        op = self.start_span(name, "operators")
+        op.is_operator = True
+        op._node = node
+        if bucketed:
+            op.bucketed = True
         self.operators.append(op)
-        stack.append(op)
         return op
 
     def finish_operator(self, op: OperatorRecord,
                         rows_out: Optional[int] = None,
                         error: Optional[str] = None) -> None:
-        op.wall_s = time.perf_counter() - op._t0
-        op.rows_out = rows_out
-        op.error = error
-        stack = self._stack()
-        if stack and stack[-1] is op:
-            stack.pop()
-        else:  # unbalanced (exception skipped a frame): resync
-            while stack and stack[-1] is not op:
-                stack.pop()
-            if stack:
-                stack.pop()
+        if rows_out is not None:
+            op.rows_out = rows_out
+        self.finish_span(op, error)
+
+    def _operator_parents(self) -> Dict[int, Optional[int]]:
+        """{operator span id: span id of the nearest operator above it,
+        None at the operator tree's roots} — the operator tree that
+        reports render, whatever spans lie between."""
+        by_id = {sp.span_id: sp for sp in self.spans}
+        out: Dict[int, Optional[int]] = {}
+        for op in self.operators:
+            parent = by_id.get(op.parent_id)
+            while parent is not None and not parent.is_operator:
+                parent = by_id.get(parent.parent_id)
+            out[op.span_id] = parent.span_id if parent is not None \
+                else None
+        return out
 
     def annotate_current(self, **detail) -> None:
-        stack = self._stack()
-        if stack:
-            stack[-1].detail.update(detail)
+        for sp in reversed(self._thread().stack):
+            if sp.is_operator:
+                sp.detail.update(detail)
+                return
 
     def event(self, category: str, name: str, **detail) -> None:
         e = {"category": category, "name": name}
@@ -486,7 +523,17 @@ class QueryMetrics:
                                       sum(live.values()))
 
     def finish(self) -> "QueryMetrics":
-        self.wall_s = time.perf_counter() - self._t0
+        """Close the root span. The query's wall is the monotonic clock's
+        from the recorder's start to here; the root's thread CPU is read
+        only on the thread that opened it."""
+        self.wall_s = (time.perf_counter_ns() - self._wall_t0_ns) / 1e9
+        root = self.root
+        root.close()
+        if _trace_mod.native_id() != root.tid:
+            root.cpu_end_ns = root.cpu_start_ns
+        t = _trace_mod._tracer
+        if t is not None:
+            t.add(root)
         for op in self.operators:
             op.label  # resolve now; releases the node references
         if self._device_events:
@@ -544,8 +591,10 @@ class QueryMetrics:
     def rows_in(self, op: OperatorRecord) -> Optional[int]:
         """Sum of the operator's direct children's output rows (None when
         no child reported rows — e.g. a leaf scan)."""
+        parents = self._operator_parents()
         rows = [c.rows_out for c in self.operators
-                if c.parent_id == op.op_id and c.rows_out is not None]
+                if parents.get(c.span_id) == op.span_id
+                and c.rows_out is not None]
         return sum(rows) if rows else None
 
     def index_usage(self) -> List[dict]:
@@ -587,12 +636,14 @@ class QueryMetrics:
         return out
 
     def to_dict(self) -> dict:
+        parents = self._operator_parents()
         out = {
             "description": self.description,
             "started_at": self.started_at,
             "wall_s": (round(self.wall_s, 6)
                        if self.wall_s is not None else None),
-            "operators": [op.to_dict() for op in self.operators],
+            "operators": [op.to_dict(parents[op.span_id])
+                          for op in self.operators],
             "events": list(self.events),
             "counters": {k: (round(v, 6) if isinstance(v, float) else v)
                          for k, v in self.counters.items()},
@@ -622,10 +673,11 @@ class QueryMetrics:
         totals. Operator seconds are summed per operator type over
         SELF time (child time subtracted), so the digest adds up instead
         of double-counting nested walls."""
+        parents = self._operator_parents()
         child_s: Dict[Optional[int], float] = {}
         for op in self.operators:
-            child_s[op.parent_id] = child_s.get(op.parent_id, 0.0) \
-                + op.wall_s
+            parent = parents[op.span_id]
+            child_s[parent] = child_s.get(parent, 0.0) + op.wall_s
         per_op: Dict[str, dict] = {}
         for op in self.operators:
             ent = per_op.setdefault(op.name, {"count": 0, "self_s": 0.0,
@@ -664,9 +716,10 @@ class QueryMetrics:
 
     def format_tree(self) -> str:
         """Operator tree with runtime numbers."""
+        parents = self._operator_parents()
         children: Dict[Optional[int], List[OperatorRecord]] = {}
         for op in self.operators:
-            children.setdefault(op.parent_id, []).append(op)
+            children.setdefault(parents[op.span_id], []).append(op)
         lines: List[str] = []
         header = "Query metrics"
         if self.description:

@@ -142,8 +142,9 @@ def record_build(name: str, seconds: float,
                     target=name, cause=cause, seconds=round(seconds, 4))
     tracer = telemetry.tracer()
     if tracer is not None:
+        end_ns = time.time_ns()
         tracer.complete(f"compile {name}", "compile",
-                        tracer.now_us() - seconds * 1e6, seconds * 1e6,
+                        end_ns - int(seconds * 1e9), end_ns,
                         args={"target": name, "cause": cause})
 
 

@@ -37,10 +37,9 @@ Three surfaces:
   sampler selects the `critpath.` family into its ring, and
   `window_shares()` derives the trailing-window share of each segment
   — what `/critpath` serves;
-- **timeline**: `span_timeline(metrics)` reconstructs the query's
-  span DAG from the tracer ring (spans nest by ts/dur containment per
-  thread) and classifies each span into the same closed set. Tracing
-  off = None, same always-off contract as every tracer hook.
+- **timeline**: `span_timeline(metrics)` lists the query's span
+  records (parent links, one query id, every thread) and classifies
+  each span into the same closed set.
 """
 
 from __future__ import annotations
@@ -86,7 +85,12 @@ _SPAN_SEGMENTS = (
     ("link", None),            # direction decided by the span name
     ("cache", "cache_fill_wait"),
     ("serve.batch", "batch_window"),
+    ("device_wait", "device_dispatch"),   # the host blocked on the card
 )
+
+# `link` spans that move data to the host: the d2h copies, and the
+# result's conversion to Arrow that holds them.
+_D2H_SPANS = ("d2h", "result:to_arrow")
 
 # |sum(segments) - wall| tolerance: the residual makes the sum exact
 # by construction, so only float rounding (segments are rounded to
@@ -187,39 +191,45 @@ def _classify_span(cat: str, name: str) -> Optional[str]:
         if cat == prefix or cat.startswith(prefix + "."):
             if segment is not None:
                 return segment
-            return "link_d2h" if name.startswith("d2h") else "link_h2d"
+            return ("link_d2h" if name.startswith(_D2H_SPANS)
+                    else "link_h2d")
     return None
 
 
+def _span_category(sp) -> str:
+    """The trace category a span record classifies under: its layer,
+    with the segment cache's and the batch lane's spans under the
+    categories the classification reads."""
+    if sp.name.startswith("serve.batch"):
+        return "serve.batch"
+    return {"segcache": "cache"}.get(sp.layer, sp.layer)
+
+
 def span_timeline(metrics) -> Optional[dict]:
-    """The span-DAG view of one query: tracer-ring events overlapping
-    the query's execution window, classified into the closed segment
-    set and ordered by start time — the blocking chain a dump viewer
-    renders. Spans on the query's own threads nest by containment
-    (the Chrome trace-event discipline); unclassified spans are host
-    work (`host_python`). None without an active tracer — the
-    counter-based `decompose` needs no tracer and is the sum-exact
+    """The span-DAG view of one FINISHED query: its span records
+    (`metrics.spans`, every thread, one query id), classified into the
+    closed segment set and ordered by start time — the blocking chain a
+    dump viewer renders. Each carries its `span_id` and `parent_id`;
+    unclassified spans are host work (`host_python`). None for an
+    unfinished recorder. The counter-based `decompose` is the sum-exact
     source of truth; this is the visual companion."""
-    from hyperspace_tpu_torch.telemetry import trace as _trace
-    t = _trace.tracer()
-    if t is None or metrics.wall_s is None:
+    if metrics.wall_s is None:
         return None
-    start_us = (metrics._t0 - t.t0_s) * 1e6
-    end_us = start_us + metrics.wall_s * 1e6
-    with t._lock:
-        events = [e for e in t.events
-                  if e.get("ph") == "X"
-                  and e.get("ts", 0) + e.get("dur", 0) >= start_us
-                  and e.get("ts", 0) <= end_us]
+    t0 = metrics.root.start_ns
     spans: List[dict] = []
-    for e in sorted(events, key=lambda e: e.get("ts", 0)):
-        segment = _classify_span(e.get("cat", ""), e.get("name", ""))
+    for sp in sorted(metrics.spans, key=lambda sp: sp.start_ns):
+        if sp is metrics.root or sp.end_ns is None:
+            continue
+        cat = _span_category(sp)
+        segment = _classify_span(cat, sp.name)
         spans.append({
-            "t_rel_s": round((e["ts"] - start_us) / 1e6, 6),
-            "dur_s": round(e.get("dur", 0) / 1e6, 6),
-            "name": e.get("name"),
-            "cat": e.get("cat"),
-            "tid": e.get("tid"),
+            "t_rel_s": round((sp.start_ns - t0) / 1e9, 6),
+            "dur_s": round(sp.wall_s, 6),
+            "name": sp.name,
+            "cat": cat,
+            "tid": sp.tid,
+            "span_id": sp.span_id,
+            "parent_id": sp.parent_id,
             "segment": segment or "host_python",
         })
     return {"wall_s": round(metrics.wall_s, 6), "spans": spans}

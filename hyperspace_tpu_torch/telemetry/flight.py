@@ -10,7 +10,7 @@ of the last `CAPACITY` completed `QueryMetrics` (every session-attached
 collect appends; one deque append + threshold check per query), and
 any query whose wall exceeds `spark.hyperspace.telemetry.slowlog.seconds`
 persists a self-contained dump — its full metric tree, a process
-registry snapshot, and the slice of the trace ring covering the query
+registry snapshot, and the query's own spans from the trace ring
 (when tracing is on) — to `spark.hyperspace.telemetry.slowlog.dir`.
 A dump can be reloaded (`load_dump`) and diffed against a live re-run
 (`telemetry.diff.diff_trees`) without ever re-running the original
@@ -260,17 +260,16 @@ class FlightRecorder:
 
     @staticmethod
     def _trace_slice(metrics) -> Optional[dict]:
-        """The tracer-ring events overlapping this query's execution
-        window (None when tracing is off). Timestamps stay on the
-        tracer's clock so the slice loads in Perfetto as-is."""
+        """The tracer-ring spans of this query — those carrying its
+        `query_id`, from every thread — as Chrome trace events on
+        `time.time_ns()` µs (None when tracing is off): they load in
+        Perfetto as-is."""
         from hyperspace_tpu_torch.telemetry import trace as _trace
         t = _trace.tracer()
         if t is None:
             return None
-        start_us = (metrics._t0 - t.t0_s) * 1e6
-        with t._lock:
-            events = [e for e in t.events
-                      if e.get("ts", 0) + e.get("dur", 0) >= start_us]
+        qid = metrics.query_id
+        events = [sp.to_event() for sp in t.spans() if sp.query_id == qid]
         return {"traceEvents": events, "displayTimeUnit": "ms"}
 
     @staticmethod

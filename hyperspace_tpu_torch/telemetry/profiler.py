@@ -289,6 +289,11 @@ _CAPTURE_PREFIX = "profile-"
 # (chrome://tracing, ui.perfetto.dev).
 TRACE_FILE = "trace.json"
 
+# The `record_function` a capture opens on its own thread with
+# `time.time_ns()` read inside it: the middle of its event ties the
+# program's span clock to the profiler's (to half the event's length).
+ALIGN_MARK = "hyperspace:align"
+
 
 @contextmanager
 def device_trace(path: str):
@@ -299,18 +304,47 @@ def device_trace(path: str):
     CPU activity only. THE one place the package touches
     `torch.profiler`; everything else routes through here so captures
     serialize under one lock. The caller synchronizes the card inside
-    the block when it wants all of its device work in the capture."""
+    the block when it wants all of its device work in the capture.
+
+    The exported trace also holds the program's spans of the capture's
+    interval (`telemetry/spans.py`), every thread's, shifted onto the
+    profiler's clock by the alignment mark: tracing is on for the
+    capture (and left as it was after), and the capturing query's own
+    spans, open ones included, are added from its recorder. Each keeps
+    the native thread id the profiler gives that thread's own events."""
     import torch
+    from torch.autograd.profiler import record_function
     from torch.profiler import ProfilerActivity, profile
+
+    from hyperspace_tpu_torch import telemetry
+    from hyperspace_tpu_torch.telemetry import trace as _trace
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     with _trace_lock:
         os.makedirs(path, exist_ok=True)
-        with profile(activities=activities) as prof:
-            yield
-        prof.export_chrome_trace(os.path.join(path, TRACE_FILE))
+        owned = not _trace.tracing_enabled()
+        _trace.enable_tracing()
+        try:
+            with profile(activities=activities) as prof:
+                # The first mark pays the profiler's cold start; the
+                # second, warm and short, ties the clocks.
+                for _ in range(2):
+                    with record_function(ALIGN_MARK):
+                        mark_ns = time.time_ns()
+                start_ns = time.time_ns()
+                yield
+                end_ns = time.time_ns()
+            out = os.path.join(path, TRACE_FILE)
+            prof.export_chrome_trace(out)
+            rec = telemetry.current()
+            _trace.merge_into_capture(out, ALIGN_MARK, mark_ns, start_ns,
+                                      end_ns,
+                                      rec.spans if rec is not None else ())
+        finally:
+            if owned:
+                _trace.disable_tracing()
 
 
 def recent_captures(n: int = 10) -> List[dict]:

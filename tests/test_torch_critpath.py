@@ -130,20 +130,36 @@ def test_span_classification_equals_jax(cat, name):
 
 
 def test_span_timeline_classifies_the_tracer_ring():
+    """The timeline reads the query's own span records, with or without
+    the tracer: one per span, parent links, classified segments."""
     qm = telemetry.QueryMetrics(description="timeline")
+    assert critical_path.span_timeline(qm) is None  # not finished
     telemetry.enable_tracing()
     try:
         with telemetry.recording(qm):
-            with telemetry.span("Scan", "operator"):
-                telemetry.record_link_transfer("h2d", 4096, 0.0)
+            with telemetry.span("Scan", "operators") as scan:
+                with telemetry.link_transfer("h2d", 4096):
+                    pass
+                with telemetry.span("sync:scan.count", "device_wait"):
+                    pass
+            with telemetry.span("result:to_arrow", "link") as result:
+                with telemetry.link_transfer("d2h", 4096):
+                    pass
         qm.finish()
         timeline = critical_path.span_timeline(qm)
     finally:
         telemetry.disable_tracing()
     segments = {s["name"].split()[0]: s["segment"]
                 for s in timeline["spans"]}
-    assert segments == {"Scan": "host_python", "h2d": "link_h2d"}
-    assert critical_path.span_timeline(qm) is None  # tracing off
+    assert segments == {"Scan": "host_python", "h2d": "link_h2d",
+                        "sync:scan.count": "device_dispatch",
+                        "result:to_arrow": "link_d2h", "d2h": "link_d2h"}
+    parents = {s["name"]: s["parent_id"] for s in timeline["spans"]}
+    assert parents == {"Scan": qm.root.span_id, "h2d": scan.span_id,
+                       "sync:scan.count": scan.span_id,
+                       "result:to_arrow": qm.root.span_id,
+                       "d2h": result.span_id}
+    assert critical_path.span_timeline(qm) == timeline  # tracing off
 
 
 @pytest.fixture

@@ -200,4 +200,6 @@ def test_dump_carries_the_trace_slice(tmp_path):
         telemetry.disable_tracing()
     (path,) = _dumps(str(tmp_path / "slow"))
     events = flight.load_dump(path)["trace"]["traceEvents"]
-    assert [e["name"] for e in events if e.get("ph") == "X"] == ["Scan"]
+    assert [e["name"] for e in events if e.get("ph") == "X"] == \
+        ["Scan", "query"]
+    assert {e["args"]["query_id"] for e in events} == {qm.query_id}
