@@ -5,8 +5,9 @@
 
 Builds the package's CUDA kernels from the sources in this checkout (one
 `nvcc` per source, all at once), holds each kernel against its plain
-PyTorch version on the card, then drives the main path through the public
-entry points:
+PyTorch version on the card (the run-bounds kernel of the counting join
+also timed at the sizes of TPC-H q13's and q5's joins), then drives the
+main path through the public entry points:
 
 - the Quick Start loop at the size of `bench.py`'s filter rung: a
   16,777,216-row Parquet source (key, k2, id, score; 512 MB in 4 files),
@@ -374,6 +375,92 @@ def phase_kernel_partition(partition_kernel, hash_kernel):
          n=n, lanes=n_lanes, num_buckets=num_buckets, bytes=nbytes, ms=ms,
          bound_ms=row["bound_ms"], plain_ms=plain_ms,
          two_pass_ms=two_pass_ms)
+    return row
+
+
+def _run_flags(lengths):
+    """The T-1 difference flags (bool, on the card) of a sorted sequence
+    with runs `lengths`."""
+    import numpy as np
+    import torch
+    starts = np.zeros(int(np.sum(lengths)), dtype=bool)
+    starts[np.cumsum(lengths)[:-1]] = True
+    return torch.from_numpy(starts[1:]).to("cuda")
+
+
+def _order_runs(total, seed):
+    """Run lengths of 1-7 (TPC-H's lines an order) summing to `total`."""
+    import numpy as np
+    lengths = np.random.default_rng(seed).integers(1, 8, total // 3)
+    lengths = lengths[np.cumsum(lengths) < total]
+    return np.r_[lengths, total - lengths.sum()]
+
+
+def phase_kernel_run_bounds(run_bounds_kernel):
+    """The run-bounds kernel against its plain version (on the card) at
+    edge and tile-crossing cases, with tolerance 0 (integer positions);
+    timed at the counting joins of q13 and q5 in the TPC-H benchmark
+    (T = 1,513,636 and 6,226,893, runs of 1-7)."""
+    import numpy as np
+    import torch
+
+    def err(differs):
+        got = run_bounds_kernel.run_bounds(differs)
+        want = run_bounds_kernel.run_bounds_reference(differs)
+        check(all(g.dtype == torch.int64 for g in got),
+              "run-bounds kernel: outputs not int64")
+        return max(int((g - w).abs().max()) for g, w in zip(got, want))
+
+    tile = 4096  # the kernel's tile (`csrc/run_bounds.cu`)
+    rng = np.random.default_rng(SEED)
+    cases = [_run_flags(lengths) for lengths in (
+        [1], [2], [1, 1], [3 * tile], [1] * (2 * tile + 5),
+        [tile - 10, 25, tile, 7], [3, 3 * tile + 100, 2, 40],
+        [5, 40 * tile, 3, 33 * tile, 9], _order_runs(1_000_003, SEED))]
+    cases += [torch.from_numpy(rng.random(T - 1) < 0.3).to("cuda")
+              for T in (4097, 70_001, 1 << 20)]
+    worst = 0
+    for differs in cases:
+        worst = max(worst, err(differs))
+        check(worst == 0,
+              f"run-bounds kernel != plain at T={differs.shape[0] + 1}")
+    shapes = []
+    for T in (1_513_636, 6_226_893):
+        differs = _run_flags(_order_runs(T, SEED + T))
+        worst = max(worst, err(differs))
+        check(worst == 0, f"run-bounds kernel != plain at T={T}")
+        # The kernel's time: its C entry point on buffers made once, so
+        # the launches queue faster than the card runs them. The wrapper
+        # (checks, allocation, the device seam) costs tens of
+        # microseconds of host time a call beside it.
+        tiles, launch = run_bounds_kernel._kernel_fns()
+        buf = torch.empty(2 * T + 2 * tiles(T), dtype=torch.int64,
+                          device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+        check(launch(differs.data_ptr(), T, buf.data_ptr(), stream) == 0,
+              "run-bounds kernel refused its launch")
+        ms = cuda_ms(lambda: launch(differs.data_ptr(), T, buf.data_ptr(),
+                                    stream))
+        wrapper_ms = cuda_ms(lambda: run_bounds_kernel.run_bounds(differs))
+        plain_ms = cuda_ms(
+            lambda: run_bounds_kernel.run_bounds_reference(differs),
+            iters=5, repeats=3)
+        nbytes = run_bounds_kernel.BYTES_PER_ELEMENT * T
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        shapes.append({"T": T, "bytes": nbytes, "ms": ms,
+                       "wrapper_ms": wrapper_ms, "bound_ms": bound_ms,
+                       "plain_ms": plain_ms,
+                       "roofline_pct": 100.0 * bound_ms / ms})
+    row = {"name": "run_bounds", "route": "cuda",
+           "source": "hyperspace_tpu_torch/csrc/run_bounds.cu",
+           "replaces": "none (jax.lax.cummax/cummin, "
+                       "hyperspace_tpu/ops/join.py:311-314)",
+           "max_abs_err": worst, "ms": shapes[-1]["ms"],
+           "plain_ms": shapes[-1]["plain_ms"],
+           "bound_ms": shapes[-1]["bound_ms"], "bound_by": "bytes",
+           "library_ms": None}
+    emit("kernel_run_bounds", cases=len(cases) + len(shapes),
+         max_abs_err=worst, tolerance=0, shapes=shapes)
     return row
 
 
@@ -920,7 +1007,8 @@ def phase_hybrid(hs, sess, work, cols, right_df, right):
 
     from hyperspace_tpu_torch import IndexConfig, col, lit
     from hyperspace_tpu_torch.engine.physical import plan_physical
-    from hyperspace_tpu_torch.ops.cuda import hash_kernel, partition_kernel
+    from hyperspace_tpu_torch.ops.cuda import (hash_kernel, partition_kernel,
+                                               run_bounds_kernel)
 
     src = os.path.join(work, "hyb_src")
     os.makedirs(src)
@@ -1837,7 +1925,8 @@ def phase_telemetry(hs, sess, df, work, fresh):
     from hyperspace_tpu_torch.io import parquet, segcache
     from hyperspace_tpu_torch.io.columnar import to_arrow
     from hyperspace_tpu_torch.ops.cuda import build as kbuild
-    from hyperspace_tpu_torch.ops.cuda import hash_kernel, partition_kernel
+    from hyperspace_tpu_torch.ops.cuda import (hash_kernel, partition_kernel,
+                                               run_bounds_kernel)
     from hyperspace_tpu_torch.telemetry import (artifact, critical_path,
                                                 diff, flight, ops_server,
                                                 profiler)
@@ -3851,7 +3940,8 @@ def main():
     from hyperspace_tpu_torch import (Hyperspace, HyperspaceConf,
                                       HyperspaceSession)
     from hyperspace_tpu_torch.ops.cuda import build as kbuild
-    from hyperspace_tpu_torch.ops.cuda import hash_kernel, partition_kernel
+    from hyperspace_tpu_torch.ops.cuda import (hash_kernel, partition_kernel,
+                                               run_bounds_kernel)
 
     card = card_line()
     emit("env", card=card, torch=torch.__version__,
@@ -3880,9 +3970,11 @@ def main():
     emit("transfer", **phase_transfer(torch.device("cuda")))
 
     rows = [phase_kernel_hash(hash_kernel),
-            phase_kernel_partition(partition_kernel, hash_kernel)]
+            phase_kernel_partition(partition_kernel, hash_kernel),
+            phase_kernel_run_bounds(run_bounds_kernel)]
     counters = (hash_kernel.hash_lanes_to_buckets,
-                partition_kernel.partition_ids_and_histogram)
+                partition_kernel.partition_ids_and_histogram,
+                run_bounds_kernel.run_bounds)
 
     work = os.path.join(REPO, "_smoke")
     shutil.rmtree(work, ignore_errors=True)
@@ -3923,14 +4015,14 @@ def main():
               "the telemetry phase never launched the partition kernel")
         out, n = counted(counters, phase_serve, hs, sess, work, df, cols)
         emit("serve", **out)
-        hash_n, partition_n = tally("serve", n)
+        hash_n, partition_n, _ = tally("serve", n)
         check(hash_n > 0 and partition_n > 0,
               f"the serve phase launched hash {hash_n}, "
               f"partition {partition_n} times")
         out, n = counted(counters, phase_hybrid, hs, sess, work, cols,
                          right_df, right)
         emit("hybrid", **out)
-        hash_n, partition_n = tally("hybrid", n)
+        hash_n, partition_n, _ = tally("hybrid", n)
         check(hash_n > 0 and partition_n > 0,
               f"the hybrid phase launched hash {hash_n}, "
               f"partition {partition_n} times")
@@ -3940,8 +4032,10 @@ def main():
               "the maintenance phase never launched the hash kernel")
         out, n = counted(counters, phase_tpch, hs, sess, work)
         emit("tpch", **out)
-        check(tally("tpch", n)[0] > 0,
-              "the tpch phase never launched the hash kernel")
+        hash_n, _, run_bounds_n = tally("tpch", n)
+        check(hash_n > 0 and run_bounds_n > 0,
+              f"the tpch phase launched hash {hash_n}, "
+              f"run bounds {run_bounds_n} times")
         out, n = counted(counters, phase_tpcds, hs, sess, work)
         emit("tpcds", **out)
         check(tally("tpcds", n)[0] > 0,

@@ -39,6 +39,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES: Dict[str, str] = {
     "hash_buckets": "hash_buckets.cu",
     "partition_histogram": "partition_histogram.cu",
+    "run_bounds": "run_bounds.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

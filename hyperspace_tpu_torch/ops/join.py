@@ -7,8 +7,10 @@ The device lane joins with tensor primitives only — no scalar merge loop:
 1. both sides' key columns decompose into order-preserving 32-bit lanes
    (`ops/keys.py`), led by a null-marker lane, and ONE stable sort of the
    concatenated lanes lines equal keys up in runs;
-2. per-run right counts and bracket starts come from cumulative sums over
-   the sorted sequence (`_runs_to_counts`);
+2. each element's run bounds come from one pass of the run-bounds kernel
+   (`ops/cuda/run_bounds_kernel.py`), per-run right counts and bracket
+   starts from cumulative sums over the sorted sequence
+   (`_runs_to_counts`);
 3. the ragged match expansion is one `repeat_interleave` sized by the
    one host sync (the total match count).
 
@@ -28,6 +30,7 @@ import torch
 from hyperspace_tpu_torch import telemetry
 from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.io.columnar import ColumnBatch
+from hyperspace_tpu_torch.ops.cuda.run_bounds_kernel import run_bounds
 
 _INT64_SIGN = -(1 << 63)
 
@@ -74,18 +77,9 @@ def _join_lane_operands(left: ColumnBatch, right: ColumnBatch,
 
 def _run_bounds(differs: torch.Tensor):
     """(run_first, run_last): each sorted element's run's first and last
-    position, from the (T-1) adjacent-key-difference vector. int64."""
-    T = differs.shape[0] + 1
-    device = differs.device
-    pos = torch.arange(T, dtype=torch.int64, device=device)
-    run_start = torch.cat([torch.ones(1, dtype=torch.bool, device=device),
-                           differs])
-    run_first = torch.cummax(torch.where(run_start, pos, 0), 0).values
-    nxt = torch.flip(torch.cummin(torch.flip(
-        torch.where(run_start, pos, T), [0]), 0).values, [0])
-    run_last = torch.cat([nxt[1:], torch.full((1,), T, dtype=torch.int64,
-                                              device=device)]) - 1
-    return run_first, run_last
+    position, from the (T-1) adjacent-key-difference vector. int64. On a
+    card, the run-bounds kernel (`ops/cuda/run_bounds_kernel.py`)."""
+    return run_bounds(differs)
 
 
 def _runs_to_counts(differs: torch.Tensor, side_s: torch.Tensor,

@@ -34,7 +34,9 @@ from hyperspace_tpu_torch import native, telemetry
 from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.io import columnar
 from hyperspace_tpu_torch.ops import sketch, sort
-from hyperspace_tpu_torch.ops.cuda import build, hash_kernel, partition_kernel
+from hyperspace_tpu_torch.ops.cuda import (build, hash_kernel,
+                                           partition_kernel,
+                                           run_bounds_kernel)
 from hyperspace_tpu_torch.telemetry import compilation
 
 
@@ -185,8 +187,11 @@ def test_launch_counts_stay_on_the_wrappers():
     hash_kernel.hash_lanes_to_buckets.launches = 0
     hash_kernel.hash_lanes_to_buckets(_lanes(2, 64), 8)
     partition_kernel.partition_ids_and_histogram(_lanes(2, 64), 8)
+    run_bounds_kernel.run_bounds.launches = 0
+    run_bounds_kernel.run_bounds(torch.zeros(63, dtype=torch.bool))
     assert hash_kernel.hash_lanes_to_buckets.launches == 0
     assert partition_kernel.partition_ids_and_histogram.launches == 0
+    assert run_bounds_kernel.run_bounds.launches == 0
 
 
 def test_record_build_counts_a_trace_and_its_cause():

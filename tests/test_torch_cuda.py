@@ -18,7 +18,8 @@ import pytest
 import torch
 
 from hyperspace_tpu_torch.io import builder, columnar
-from hyperspace_tpu_torch.ops.cuda import hash_kernel, partition_kernel
+from hyperspace_tpu_torch.ops.cuda import (hash_kernel, partition_kernel,
+                                           run_bounds_kernel)
 
 pytestmark = pytest.mark.cuda
 
@@ -45,6 +46,99 @@ def test_kernel_equals_plain_version(card, n, n_lanes):
         assert got.device.type == "cuda" and got.dtype == torch.int32
         assert (got.cpu() == want).all()
     assert hash_kernel.hash_lanes_to_buckets.launches == before + 3
+
+
+def _flags_of_lengths(lengths):
+    """The T-1 difference flags of a sorted sequence with runs `lengths`."""
+    starts = np.zeros(int(np.sum(lengths)), dtype=bool)
+    starts[np.cumsum(lengths)[:-1]] = True
+    return starts[1:]
+
+
+def _tpch_runs(total, seed):
+    """Flags of `total` elements in runs of 1-7 (lines an order)."""
+    lengths = np.random.default_rng(seed).integers(1, 8, total // 3)
+    lengths = lengths[np.cumsum(lengths) < total]
+    return _flags_of_lengths(np.r_[lengths, total - lengths.sum()])
+
+
+_TILE = 4096  # the kernel's tile (`csrc/run_bounds.cu`)
+RUN_BOUNDS_CASES = {
+    "T=1": lambda: np.zeros(0, dtype=bool),
+    "T=2 one run": lambda: np.array([False]),
+    "T=2 two runs": lambda: np.array([True]),
+    "one run over all": lambda: np.zeros(3 * _TILE, dtype=bool),
+    "all distinct": lambda: np.ones(2 * _TILE + 5, dtype=bool),
+    "runs of 1-7": lambda: _tpch_runs(100_003, 1),
+    "run across a tile edge": lambda: _flags_of_lengths(
+        [_TILE - 10, 25, _TILE, 7]),
+    "run over three tiles": lambda: _flags_of_lengths(
+        [3, 3 * _TILE + 100, 2, 40]),
+    "run over 40 tiles": lambda: _flags_of_lengths(
+        [5, 40 * _TILE, 3, 33 * _TILE, 9]),
+    "T not a tile multiple": lambda: np.random.default_rng(2).random(
+        2 * _TILE + 999) < 0.5,
+    "random": lambda: np.random.default_rng(3).random(1 << 20) < 0.1,
+    "q5's join, T = 6,226,893": lambda: _tpch_runs(6_226_893, 5),
+}
+
+
+@pytest.mark.parametrize("case", list(RUN_BOUNDS_CASES))
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset view"])
+def test_run_bounds_kernel_equals_plain_version(card, case, offset):
+    """The kernel against its plain version on the CPU, bit for bit; the
+    flags also as a view one byte into a buffer."""
+    flags = RUN_BOUNDS_CASES[case]()
+    buf = torch.zeros(len(flags) + offset, dtype=torch.bool, device=card)
+    differs = buf[offset:]
+    differs.copy_(torch.from_numpy(flags))
+    before = run_bounds_kernel.run_bounds.launches
+    first, last = run_bounds_kernel.run_bounds(differs)
+    torch.cuda.synchronize()
+    want_first, want_last = run_bounds_kernel.run_bounds_reference(
+        torch.from_numpy(flags))
+    assert first.device.type == last.device.type == "cuda"
+    assert first.dtype == last.dtype == torch.int64
+    assert torch.equal(first.cpu(), want_first)
+    assert torch.equal(last.cpu(), want_last)
+    assert run_bounds_kernel.run_bounds.launches == before + (len(flags) > 0)
+
+
+@pytest.mark.parametrize("how", ["inner", "left_outer"])
+@pytest.mark.parametrize("keys", [["key"], ["key", "f"]],
+                         ids=["exact", "hashed"])
+def test_card_counting_join_equals_cpu_through_the_kernel(card, how, keys):
+    """The counting join on the card (narrow keys: the exact lane sort;
+    (int64, float64): 5 lanes, the hashed path) gives the CPU's pairs,
+    and its run bounds come from the kernel, counted by the seam."""
+    from hyperspace_tpu_torch import telemetry
+    from hyperspace_tpu_torch.ops import join
+    from hyperspace_tpu_torch.telemetry import compilation
+
+    rng = np.random.default_rng([len(keys), len(how)])
+    sides = []
+    for n in (50_000, 30_000):
+        key = rng.integers(0, 12_000, n).astype(np.int64)
+        sides.append(pa.table({"key": pa.array(key, mask=np.arange(n) % 37
+                                               == 0),
+                               "f": (key % 5).astype(np.float64)}))
+    cpu = [columnar.from_arrow(t, device=torch.device("cpu")) for t in sides]
+    gpu = [columnar.from_arrow(t, device=card) for t in sides]
+    n_lanes = len(join._join_lane_operands(*cpu, keys, keys)[0])
+    assert (n_lanes >= join.HASH_MATCH_MIN_LANES) == (len(keys) == 2)
+    want_li, want_ri = join.counting_join_batch_indices(*cpu, keys, keys,
+                                                        how=how)
+    compilation.resolve_pending()
+    reg = telemetry.get_registry()
+    calls0 = reg.counter("device.cuda.run_bounds.dispatches").value
+    before = run_bounds_kernel.run_bounds.launches
+    li, ri = join.counting_join_batch_indices(*gpu, keys, keys, how=how)
+    assert len(want_li) > 50_000
+    assert torch.equal(li.cpu(), want_li) and torch.equal(ri.cpu(), want_ri)
+    assert run_bounds_kernel.run_bounds.launches == before + 1
+    compilation.resolve_pending()
+    assert reg.counter("device.cuda.run_bounds.dispatches").value \
+        == calls0 + 1
 
 
 def _table(n):

@@ -136,6 +136,71 @@ def test_hash_collision_reruns_the_exact_sort(tables, monkeypatch):
     assert all(torch.equal(a, b) for a, b in zip(got, exact))
 
 
+# -- the run-bounds kernel's wrapper on the CPU ------------------------------
+
+def _np_run_bounds(differs):
+    """Numpy oracle: each element's run's first position (the running max
+    of start positions) and last (the next start, from the right, less 1)."""
+    T = len(differs) + 1
+    start = np.r_[True, differs]
+    pos = np.arange(T)
+    first = np.maximum.accumulate(np.where(start, pos, 0))
+    nxt = np.minimum.accumulate(np.where(start, pos, T)[::-1])[::-1]
+    return first, np.r_[nxt[1:], T] - 1
+
+
+def _flags_of_lengths(lengths):
+    """The T-1 difference flags of a sorted sequence with runs `lengths`."""
+    starts = np.zeros(int(np.sum(lengths)), dtype=bool)
+    starts[np.cumsum(lengths)[:-1]] = True
+    return starts[1:]
+
+
+_TILE = 4096  # the kernel's tile (`csrc/run_bounds.cu`)
+RUN_BOUNDS_CASES = {
+    "T=1": np.zeros(0, dtype=bool),
+    "T=2 one run": np.array([False]),
+    "T=2 two runs": np.array([True]),
+    "one run over all": np.zeros(3 * _TILE, dtype=bool),
+    "all distinct": np.ones(2 * _TILE + 5, dtype=bool),
+    "runs of 1-7": _flags_of_lengths(
+        np.random.default_rng(1).integers(1, 8, 3000)),
+    "run across a tile edge": _flags_of_lengths(
+        [_TILE - 10, 25, _TILE, 7]),
+    "run over three tiles": _flags_of_lengths([3, 3 * _TILE + 100, 2, 40]),
+    "T not a tile multiple": np.random.default_rng(2).random(
+        2 * _TILE + 999) < 0.5,
+    "random": np.random.default_rng(3).random(20_000) < 0.1,
+    "not bool": np.zeros(9, dtype=np.int64),
+    "not contiguous": np.zeros(18, dtype=bool)[::2],
+    "2-D": np.zeros((3, 3), dtype=bool),
+}
+
+
+@pytest.mark.parametrize("case", list(RUN_BOUNDS_CASES))
+def test_run_bounds_wrapper_equals_numpy_oracle(case):
+    """The wrapper on a CPU tensor (its plain version) against the numpy
+    oracle, and its checks on the flags; the kernel is listed to build."""
+    from hyperspace_tpu_torch.exceptions import HyperspaceException
+    from hyperspace_tpu_torch.ops.cuda import build, run_bounds_kernel
+
+    assert build.SOURCES["run_bounds"] == "run_bounds.cu"
+    flags = RUN_BOUNDS_CASES[case]
+    tensor = torch.from_numpy(flags)
+    before = run_bounds_kernel.run_bounds.launches
+    if flags.dtype != np.bool_ or flags.ndim != 1 or \
+            not tensor.is_contiguous():
+        with pytest.raises(HyperspaceException):
+            run_bounds_kernel.run_bounds(tensor)
+        return
+    first, last = tjoin._run_bounds(tensor)
+    want_first, want_last = _np_run_bounds(flags)
+    assert first.dtype == last.dtype == torch.int64
+    assert np.array_equal(first.numpy(), want_first)
+    assert np.array_equal(last.numpy(), want_last)
+    assert run_bounds_kernel.run_bounds.launches == before
+
+
 # -- the join operators, six join types, both lanes --------------------------
 
 OP_KEYS = (["nk"], ["s"], ["nk", "s"])
