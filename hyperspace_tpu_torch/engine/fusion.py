@@ -757,6 +757,11 @@ class FusedStageExec(PhysicalNode):
                             trigger=f"trace-ineligible ({exc})")
             return None
         _stat("dispatch_s", sp.wall_s)
+        # The region's broadcast joins ran on their direct-address tables
+        # (a declined table takes the eager graph, which counts its own).
+        if self._bhj_nodes:
+            telemetry.get_registry().counter("join.broadcast.calls").inc(
+                len(self._bhj_nodes))
         # Span boundary of the stage dispatch: the working set (sources,
         # broadcast tables, stage outputs) is device-resident here.
         telemetry.memory.maybe_sample()

@@ -18,6 +18,7 @@ shared `ReusedExec`.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 from typing import List, Optional, Sequence, Set, Tuple
@@ -1029,6 +1030,21 @@ class ReusedExec(PhysicalNode):
         return self._memo_bucketed[num_buckets]
 
 
+@contextlib.contextmanager
+def _bucketed_match(lbatch, rbatch):
+    """The co-bucketed match of SortMergeJoinExec's single-device bucketed
+    lane: a `join:bucketed` span of the `operators` layer, and the
+    counters `join.bucketed.calls`, `.rows_in` (both sides' rows) and
+    `.s` (the span's wall)."""
+    with telemetry.span("join:bucketed", "operators") as sp:
+        yield
+    reg = telemetry.get_registry()
+    reg.counter("join.bucketed.calls").inc()
+    reg.counter("join.bucketed.rows_in").inc(lbatch.num_rows
+                                             + rbatch.num_rows)
+    reg.counter("join.bucketed.s").inc(sp.wall_s)
+
+
 class SortMergeJoinExec(PhysicalNode):
     name = "SortMergeJoin"
 
@@ -1078,9 +1094,11 @@ class SortMergeJoinExec(PhysicalNode):
                 lbatch, rbatch = _one_lane(self.left.execute(),
                                            self.right.execute())
             _annotate_lane(lbatch)
-            idx = semi_anti_indices(lbatch, rbatch, self.left_keys,
-                                    self.right_keys,
-                                    anti=self.how == "left_anti")
+            with (_bucketed_match(lbatch, rbatch) if self.bucketed
+                  else contextlib.nullcontext()):
+                idx = semi_anti_indices(lbatch, rbatch, self.left_keys,
+                                        self.right_keys,
+                                        anti=self.how == "left_anti")
             return lbatch.take(idx)
         if self.bucketed:
             # Co-partitioned sides: zero shuffle, one global counting
@@ -1089,10 +1107,10 @@ class SortMergeJoinExec(PhysicalNode):
                 bucketed_sort_merge_join)
             lbatch, rbatch, l_lengths, r_lengths = self._bucketed_inputs()
             _annotate_lane(lbatch)
-            return bucketed_sort_merge_join(lbatch, rbatch, l_lengths,
-                                            r_lengths, self.left_keys,
-                                            self.right_keys, how=self.how,
-                                            columns=self.out_columns)
+            with _bucketed_match(lbatch, rbatch):
+                return bucketed_sort_merge_join(
+                    lbatch, rbatch, l_lengths, r_lengths, self.left_keys,
+                    self.right_keys, how=self.how, columns=self.out_columns)
         # General path: the planner wrapped each side in
         # Sort(Exchange(...)) — the Spark-shaped plan. Both wrappers are
         # unwrapped and elided at execution: the counting join matches in
@@ -1261,11 +1279,17 @@ class BroadcastHashJoinExec(PhysicalNode):
 
         lbatch, rbatch = _one_lane(self.left.execute(), self.right.execute())
         _annotate_lane(lbatch)
+        # `join.broadcast.calls` counts every eager execution (a fused
+        # stage counts its own), `join.broadcast.fallbacks` those whose
+        # keys left the direct-address table for the counting join.
+        reg = telemetry.get_registry()
+        reg.counter("join.broadcast.calls").inc()
         if self.how in ("left_semi", "left_anti"):
             anti = self.how == "left_anti"
             idx = broadcast_membership(lbatch, rbatch, self.left_keys,
                                        self.right_keys, anti=anti)
             if idx is None:
+                reg.counter("join.broadcast.fallbacks").inc()
                 idx = semi_anti_indices(lbatch, rbatch, self.left_keys,
                                         self.right_keys, anti=anti)
             return lbatch.take(idx)
@@ -1282,6 +1306,7 @@ class BroadcastHashJoinExec(PhysicalNode):
             li, ri = pair
             return assemble_join_output(lbatch, rbatch, li, ri, how=self.how,
                                         columns=self.out_columns)
+        reg.counter("join.broadcast.fallbacks").inc()
         return sort_merge_join(lbatch, rbatch, self.left_keys,
                                self.right_keys, how=self.how,
                                columns=self.out_columns)

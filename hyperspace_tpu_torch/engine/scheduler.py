@@ -1286,9 +1286,15 @@ class QueryScheduler:
         # one process counter per index a rule actually SERVED this
         # query from — `Hyperspace.index_usage()` joins these against
         # the flight ring to name indexes nothing selects anymore.
+        # `rules.queries_served` counts the query once when a rule served
+        # it from at least one index.
+        served = False
         for use in metrics.index_usage():
             if use.get("name"):
                 reg.counter(f"rules.served.{use['name']}").inc()
+                served = True
+        if served:
+            reg.counter("rules.queries_served").inc()
         # Flight recorder: the finished recorder joins the always-on
         # ring of recent queries; a wall past the session's slowlog
         # threshold also persists a self-contained dump (metric tree +
