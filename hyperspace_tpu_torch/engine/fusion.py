@@ -60,6 +60,7 @@ from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.io.columnar import ColumnBatch, DeviceColumn
 from hyperspace_tpu_torch.plan.schema import Field, Schema
 from hyperspace_tpu_torch.telemetry.compilation import instrumented_device
+from hyperspace_tpu_torch.utils.identity import IdentityMemo
 
 
 class _FusionIneligible(Exception):
@@ -80,34 +81,13 @@ _lock = threading.RLock()
 # ---------------------------------------------------------------------------
 
 _token_counter = itertools.count()
-_tokens: Dict[int, tuple] = {}
+_tokens = IdentityMemo()
 
 
 def _token_of(obj) -> int:
     if obj is None:
         return -1
-    key = id(obj)
-    with _lock:
-        ent = _tokens.get(key)
-        if ent is not None and ent[0]() is obj:
-            return ent[1]
-        tok = next(_token_counter)
-
-        def _drop(_ref, k=key, t=tok):
-            # Entry self-removes when its array dies — but only if the
-            # slot still belongs to this token (the id may have been
-            # reused by a newer array by the time the callback fires).
-            with _lock:
-                cur = _tokens.get(k)
-                if cur is not None and cur[1] == t:
-                    _tokens.pop(k, None)
-
-        try:
-            ref = weakref.ref(obj, _drop)
-        except TypeError:  # non-weakrefable: pin it (rare)
-            ref = (lambda o: (lambda: o))(obj)
-        _tokens[key] = (ref, tok)
-        return tok
+    return _tokens.get(obj, lambda: next(_token_counter))[0]
 
 
 # ---------------------------------------------------------------------------

@@ -120,6 +120,7 @@ from hyperspace_tpu_torch.parallel.mesh import (Mesh, bucket_owner,
                                                 shard_row_segments,
                                                 total_shards)
 from hyperspace_tpu_torch.telemetry.compilation import instrumented_device
+from hyperspace_tpu_torch.utils.identity import IdentityMemo
 
 __all__ = ["PAD_BLOWUP_FACTOR", "ShardedBatch", "SubshardPlan",
            "batched_predicate_masks", "count_string_predicate_lookups",
@@ -715,12 +716,44 @@ def _fill_device_shard(files: List[str], cols, schema, rows: int, C: int,
 # ---------------------------------------------------------------------------
 
 
+_fingerprints = IdentityMemo()
+
+
 def _dict_fingerprint(dictionary) -> tuple:
     """Content identity of a sorted dictionary (entry count and md5 of
     the packed values): the cache key of the remap tables and masks.
-    Two versions with identical dictionaries share one entry."""
-    d = np.ascontiguousarray(np.asarray(dictionary))
-    return (int(d.shape[0]), hashlib.md5(d.tobytes()).hexdigest())
+    Two versions with identical dictionaries share one entry.
+
+    Computed once per dictionary array and memoised by identity
+    (`spmd.strings.fingerprints` counts the computations,
+    `spmd.strings.fingerprint_memo_hits` the memo's serves): a warm
+    segment-cache hit hands back the same batch, so the same array, and
+    hashing 185 MB again for each LIKE would find the same key. Sound
+    because a dictionary is never written in place once made: the
+    encode (`io/columnar._encode_strings_arrow`), the merge
+    (`_merged_dictionary`) and the compiler's literal and SUBSTR
+    columns each build a new array. The first computation enforces
+    that: it makes the array, and every array it views, read-only, so
+    a write in place raises instead of leaving a stale key. The md5
+    reads the array's buffer directly, with no `tobytes` copy; the
+    digest is the same. An input that is not an array becomes a fresh
+    one, whose entry drops when the call returns."""
+    reg = telemetry.get_registry()
+    d = np.asarray(dictionary)
+
+    def compute():
+        reg.counter("spmd.strings.fingerprints").inc()
+        view = d
+        while isinstance(view, np.ndarray):
+            view.flags.writeable = False
+            view = view.base
+        return (int(d.shape[0]),
+                hashlib.md5(np.ascontiguousarray(d)).hexdigest())
+
+    value, hit = _fingerprints.get(d, compute)
+    if hit:
+        reg.counter("spmd.strings.fingerprint_memo_hits").inc()
+    return value
 
 
 def string_remap_tables(lcol: DeviceColumn, rcol: DeviceColumn,
